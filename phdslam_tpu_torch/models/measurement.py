@@ -1,0 +1,48 @@
+"""Range-bearing measurement model (``phdslam_tpu/models/measurement.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from phdslam_tpu_torch.ops.linalg import wrap_angle
+
+
+def predict_measurement(pose, feature_xy):
+    """h(pose, feature) -> (range, bearing, dx, dy, r2); broadcasting."""
+    dx = feature_xy[..., 0] - pose[..., 0]
+    dy = feature_xy[..., 1] - pose[..., 1]
+    r2 = dx * dx + dy * dy
+    r = torch.sqrt(r2)
+    bearing = wrap_angle(torch.atan2(dy, dx) - pose[..., 2])
+    return r, bearing, dx, dy, r2
+
+
+def range_class(r, bearing, cfg):
+    """1 = in range, 2 = nearly in range (0.8 minRange .. 1.2 maxRange,
+    1.2 maxBearing), 0 = out of range; int32."""
+    in_r = ((r >= cfg.minRange) & (r <= cfg.maxRange)
+            & (bearing.abs() <= cfg.maxBearing))
+    near = ((r >= 0.8 * cfg.minRange) & (r <= 1.2 * cfg.maxRange)
+            & (bearing.abs() <= 1.2 * cfg.maxBearing))
+    one = torch.ones_like(r, dtype=torch.int32)
+    return torch.where(in_r, one, torch.where(near, 2 * one, 0 * one))
+
+
+def birth_gaussian(pose, z_rb, cfg):
+    """Inverse-measurement birth Gaussian: (mean [..., 2], cov [..., 2, 2]).
+    The Jacobian columns are (cos t, sin t) and (-dy, dx), finite for zero
+    and negative ranges."""
+    rng = z_rb[..., 0]
+    theta = pose[..., 2] + z_rb[..., 1]
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+    dx = rng * cos_t
+    dy = rng * sin_t
+    mean = torch.stack([pose[..., 0] + dx, pose[..., 1] + dy], dim=-1)
+    var_range = (cfg.stdRange * cfg.birthNoiseFactor) ** 2
+    var_bearing = (cfg.stdBearing * cfg.birthNoiseFactor) ** 2
+    c00 = cos_t * cos_t * var_range + dy * dy * var_bearing
+    c01 = cos_t * sin_t * var_range - dy * dx * var_bearing
+    c11 = sin_t * sin_t * var_range + dx * dx * var_bearing
+    cov = torch.stack([torch.stack([c00, c01], dim=-1),
+                       torch.stack([c01, c11], dim=-1)], dim=-2)
+    return mean, cov
