@@ -8,36 +8,61 @@ PyTorch; JAX is neither needed nor imported. Phases, each printing its
 result and its seconds on its own line; any failure raises, so the exit
 code is not 0:
 
-  1. build  - compile csrc/*.cu with nvcc for sm_90a (set-up time)
-  2. select / merge kernels against their plain PyTorch versions on the
-     card: Kernel 1 at the shipped (256 x 128 x 64) and dense
-     (8192 x 512 x 64) shapes, Kernel 2 on the dense pool
-     ([8192, 1088] -> 512, metrics 0 and 1), the shipped pool
-     ([256, 704] -> 128) and at an odd P and odd cap.
-     Values are held to rtol 2e-4 / atol 1e-5; a particle whose outputs
-     miss that (a near-tie picked in another order) is counted, and the
-     phase fails above 0.1 % of the particles.
-  3. main path - the runner (loop mode, --device cuda) over a 330-step
-     simdata run at cfg/ackerman_synth.cfg: the log contract, each kernel
-     launched once per update step, mean pose error below 1.5 m, and both
-     kernels against their plain versions on the run's last launch
-  4. dense step - 8192 x 512 x 64 (the shipped cfg at bench.py's dense
+  1. build  - compile csrc/*.cu with nvcc for sm_90a, one nvcc per source
+     started together (set-up time)
+  2. kernels against their plain PyTorch versions on the card, each timed
+     at the dense shape beside its plain version and its bound:
+     - select and select by index: the shipped (256 x 128 x 64) and dense
+       (8192 x 512 x 64) shapes, normalised, raw and n_valid < M; the
+       by-index kernel picks what the payload kernel picks, and the gather
+       at its indices reproduces the payload
+     - merge: the dense pool ([8192, 1088] -> 512, metrics 0 and 1), the
+       shipped pool ([256, 704] -> 128), an odd P and an odd cap
+     - select4 and select4 by index: the shipped mixed (256 x 128 x 64),
+       dense (8192 x 512 x 64) and odd-P (1001) shapes, k1 = 8, with the
+       same by-index checks
+     - merge4: [256, 704] -> 128 at min_sep 1.0, [8192, 1088] -> 512 at
+       1.0 and 5.0, an odd P (1001) and an odd cap (77)
+     Values are held to rtol 2e-4 / atol 1e-5 (payload only where w > 0;
+     indices exactly); a particle whose outputs miss that (a near-tie
+     picked in another order) is counted, and a check fails above 0.1 % of
+     the particles.
+  3. static main path - the runner (loop mode, --device cuda) over a
+     330-step simdata run at cfg/ackerman_synth.cfg: the log contract,
+     select and merge launched once per update step, mean pose error below
+     1.5 m, both kernels against their plain versions on the run's last
+     launch
+  4. mixed main path - the runner (loop mode, --device cuda) at
+     cfg/mixed_synth.cfg's full width (256 particles x 128 static + 128
+     dynamic slots x 64 measurements) over the 150-step scenario of
+     scripts/mixed_evidence.py (40 landmarks, three movers, seed 500): the
+     log contract with the dynamic map on line 3, select, select4, merge
+     and merge4 launched once per update step, mean pose error below
+     2.0 m, on at least half the steps where a mover has been in view 4+
+     steps in a row a dynamic component of weight >= 0.05 within 2 m of
+     it, the four kernels against their plain versions on the last launch;
+     then 40 steps with select_by_index = 1, which must launch the two
+     by-index kernels once per update step and the payload kernels never
+  5. dense step - 8192 x 512 x 64 (the static cfg at bench.py's dense
      shape and stress stream): 3 warm-up steps, 16 timed with CUDA events,
-     split into pre-update and glue, Kernel 1 and Kernel 2; then both
-     kernels against their plain versions on the last step's own inputs
-  5. the kernels' JSON line, then {"ok": true, "device": {...}} last
+     split into pre-update and glue, select and merge; then both kernels
+     against their plain versions on the last step's own inputs
+  6. dense mixed step - cfg/mixed_synth.cfg with the same overrides and
+     stream: the same timing, split into glue, select, select4, merge and
+     merge4, then the four kernels against plain on the last step's inputs
+  7. the card's name and power limit, the kernels' JSON line, then
+     {"ok": true, "device": {...}} last
 
     python3 chip_smoke.py --profile
 
-adds, before the JSON lines, a torch.profiler pass over the step at the
-dense and the shipped shape: host wall time, the device's busy share and
-the ops with the most device time (the breakdown in PERF.md).
+adds, before the JSON lines, a torch.profiler pass over the static step at
+the dense and the shipped shape: host wall time, the device's busy share
+and the ops with the most device time (the breakdown in PERF.md).
 """
 
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import tempfile
@@ -51,6 +76,9 @@ RTOL, ATOL = 2e-4, 1e-5
 MAX_DIFFER = 1e-3                   # share of particles allowed to differ
 SHIPPED = dict(P=256, F=128, M=64)
 DENSE = dict(P=8192, F=512, M=64)
+ODD = dict(P=1001, F=128, M=64)
+K1 = 8
+S_LOOP = 7                          # the channels the select loops read
 DENSE_CHUNK = 512                   # particles per plain-select comparison
 MERGE_CASES = [                     # (P, K, cap, metric, min_separation)
     (8192, 1088, 512, 0, 5.0),
@@ -59,10 +87,51 @@ MERGE_CASES = [                     # (P, K, cap, metric, min_separation)
     (1001, 1088, 512, 0, 5.0),      # odd P
     (512, 1088, 77, 0, 5.0),        # odd cap
 ]
+MERGE4_CASES = [                    # (P, K, cap, min_separation)
+    (8192, 1088, 512, 1.0),         # the dense pool, the shipped dynamic gate
+    (256, 704, 128, 1.0),           # the shipped mixed pool
+    (8192, 1088, 512, 5.0),
+    (1001, 1088, 512, 1.0),         # odd P
+    (512, 1088, 77, 1.0),           # odd cap
+]
 RUN_STEPS = 330
 POSE_BAR_M = 1.5
+MIXED_LANDMARKS, MIXED_STEPS = 40, 150
+# scripts/mixed_evidence.py's movers: initial positions and velocities
+MOVER0 = np.array([[13.0, 9.0], [-9.0, 12.0], [10.0, -6.0]])
+MOVER_V = np.array([[-0.22, -0.10], [0.20, -0.12], [-0.14, 0.18]])
+MIXED_POSE_BAR_M = 2.0
+MOVER_SHARE = 0.5                   # settled mover steps confirmed, at least
+BY_INDEX_STEPS = 40
 WARMUP, TIMED = 3, 16
 PROFILE_WARMUP, PROFILED, PROFILE_ROWS = 8, 4, 12
+# NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
+# tensor cores and HBM3 bandwidth
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+# float32 operations per (p, m, f) triple of the select loops: innovation
+# (1), bearing wrap (4), quadratic form (9), clamp (1), exponent (2), exp
+# (1), sum (1), gate (1); then one compare per argmax round, and 2 more
+# to normalise and prune outside raw mode
+SELECT_TRIPLE_OPS = 20
+# float32 operations per candidate test of the merges: 2-D, the averaged
+# covariance and its quadratic form; 4-D, the averaged covariance (20), the
+# 4x4 Cholesky (4 sqrt, 6 divides, ~20 others), the triangular solve (4
+# divides, ~12 others), the squared norm (7), the compares
+MERGE_TEST_OPS, MERGE4_TEST_OPS = 24, 80
+KERNELS = (                         # name, source, the TPU kernel replaced
+    ("select", "phdslam_tpu_torch/csrc/select.cu",
+     "phdslam_tpu/kernels/preupdate_pallas.py:274"),
+    ("select_by_index", "phdslam_tpu_torch/csrc/select.cu",
+     "phdslam_tpu/kernels/preupdate_pallas.py:368"),
+    ("select4", "phdslam_tpu_torch/csrc/select4.cu",
+     "phdslam_tpu/kernels/preupdate_pallas.py:605"),
+    ("select4_by_index", "phdslam_tpu_torch/csrc/select4.cu",
+     "phdslam_tpu/kernels/preupdate_pallas.py:493"),
+    ("merge", "phdslam_tpu_torch/csrc/merge.cu",
+     "phdslam_tpu/kernels/merge_pallas.py:331"),
+    ("merge4", "phdslam_tpu_torch/csrc/merge4.cu",
+     "phdslam_tpu/kernels/merge_pallas.py:546"),
+)
 
 
 def log(msg):
@@ -94,7 +163,89 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-# ---------------------------------------------------------------- phase 2 --
+def _mods():
+    from phdslam_tpu_torch.kernels import merge, merge4, select, select4
+    return select, select4, merge, merge4
+
+
+def launch_counts():
+    """Every kernel's launch count, by the names of the JSON line."""
+    S, S4, G, G4 = _mods()
+    return dict(select=S.launches, select_by_index=S.launches_by_index,
+                select4=S4.launches, select4_by_index=S4.launches_by_index,
+                merge=G.launches, merge4=G4.launches)
+
+
+def zero_launch_counts():
+    S, S4, G, G4 = _mods()
+    S.launches = S.launches_by_index = 0
+    S4.launches = S4.launches_by_index = 0
+    G.launches = G4.launches = 0
+
+
+def bound(stats, name, n_bytes, n_ops):
+    """The least time of the work on this card: bytes moved over the memory
+    rate or float32 operations over the peak rate, the larger."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_F32_OPS * 1e3
+    stats[name].update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations")
+
+
+def _new_stats(stats, *names):
+    for n in names:
+        stats.setdefault(n, dict(max_abs_err=0.0))
+
+
+def _err(stats, name, err):
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+
+
+def compare_rows(kern, plain, live=None):
+    """Per-particle agreement of output tensors (leading axis P) within
+    rtol/atol, exactly for bool and integer outputs. live: optional mask
+    per tensor of the entries to compare. Returns (particles that differ,
+    max abs error over the others)."""
+    import torch
+    bad = errs = None
+    for i, (k, p) in enumerate(zip(kern, plain)):
+        if not k.is_floating_point():
+            ok = k == p
+            err = torch.zeros_like(k, dtype=torch.float32)
+        else:
+            ok = torch.isclose(k, p, rtol=RTOL, atol=ATOL)
+            err = (k - p).abs()
+        if live is not None and live[i] is not None:
+            ok = ok | ~live[i]
+            err = torch.where(live[i], err, 0.0)
+        row_bad = ~ok.reshape(ok.shape[0], -1).all(1)
+        row_err = err.reshape(err.shape[0], -1).amax(1)
+        bad = row_bad if bad is None else bad | row_bad
+        errs = row_err if errs is None else torch.maximum(errs, row_err)
+    return int(bad.sum()), float(torch.where(bad, 0.0, errs).max())
+
+
+def _limit(n_bad, P, what):
+    if n_bad > MAX_DIFFER * P:
+        raise RuntimeError(f"{what}: {n_bad} of {P} particles differ from "
+                           f"the plain version (limit {MAX_DIFFER:.1%})")
+
+
+def chunked(fn_kern, fn_plain, compare, args_of, P, chunk=DENSE_CHUNK):
+    """Compare a kernel's outputs with its plain version chunk by chunk of
+    particles (the plain [P, M, F] terms of a dense call need GiBs)."""
+    kern = fn_kern(args_of(0, P))
+    n_bad, worst = 0, 0.0
+    for lo in range(0, P, chunk):
+        plain = fn_plain(args_of(lo, lo + chunk))
+        b, e = compare([k[lo:lo + chunk] for k in kern], plain)
+        n_bad += b
+        worst = max(worst, e)
+    return kern, n_bad, worst
+
+
+# ------------------------------------------------------ phase 2: select --
 
 def random_select_inputs(P, F, M, seed, dev):
     """Kernel-1 inputs from kalman_preupdate on a seeded random map and
@@ -124,29 +275,6 @@ def random_select_inputs(P, F, M, seed, dev):
     return cfg, kalman_preupdate(pose, gm, cfg), gm, z
 
 
-def compare_rows(kern, plain, live=None):
-    """Per-particle agreement of output tensors (leading axis P) within
-    rtol/atol. live: optional mask per tensor of the entries to compare.
-    Returns (particles that differ, max abs error over the others)."""
-    import torch
-    bad = errs = None
-    for i, (k, p) in enumerate(zip(kern, plain)):
-        if k.dtype == torch.bool:
-            ok = k == p
-            err = torch.zeros_like(k, dtype=torch.float32)
-        else:
-            ok = torch.isclose(k, p, rtol=RTOL, atol=ATOL)
-            err = (k - p).abs()
-        if live is not None and live[i] is not None:
-            ok = ok | ~live[i]
-            err = torch.where(live[i], err, 0.0)
-        row_bad = ~ok.reshape(ok.shape[0], -1).all(1)
-        row_err = err.reshape(err.shape[0], -1).amax(1)
-        bad = row_bad if bad is None else bad | row_bad
-        errs = row_err if errs is None else torch.maximum(errs, row_err)
-    return int(bad.sum()), float(torch.where(bad, 0.0, errs).max())
-
-
 def select_outputs_agree(kern, plain):
     """sum, 7 selection channels, compat: payload compared where the plain
     version picked a live (w > 0) term."""
@@ -155,11 +283,57 @@ def select_outputs_agree(kern, plain):
     return compare_rows(kern, plain, live)
 
 
-def phase_select(dev, stats):
-    from phdslam_tpu_torch.kernels import select as S
+def _select_args(S, cfg, pre, gm, z, case):
+    import torch
+    M = z.shape[0]
+    nv = torch.tensor([case["nv"] or M], dtype=torch.int32, device=z.device)
+    chans = [c.contiguous() for c in S.select_channels(pre, gm)]
+    kw = dict(k1=K1, clutter_birth=float(cfg.clutterDensity
+                                         + cfg.birthWeight),
+              min_weight=float(cfg.minFeatureWeight),
+              gate_threshold=float(cfg.gateThreshold), raw=case["raw"],
+              with_compat=case["with_compat"], with_lpw=case["with_lpw"])
+    return chans, kw, nv
 
+
+def select_bytes(P, F, M, k1, by_index):
+    n_in = S_LOOP if by_index else 16
+    out = P * M * (4 + 1 + k1 * (8 if by_index else 7 * 4))
+    return 4 * (n_in * P * F + 2 * M + 1) + out
+
+
+
+def check_by_index(S, pre, gm, z, chans, nv, kw, pay, what):
+    """The by-index kernel against its plain version, against the payload
+    kernel's picks (pay), and the gather at its indices against the
+    payload. Returns (particles differing, max abs error)."""
+    from phdslam_tpu_torch.filter.update import gather_selected
+    P = chans[0].shape[0]
+    kwb = dict(kw, by_index=True)
+    kern = S.select_cuda(chans[:S_LOOP], z, nv, **kwb)
+    plain = S.select_plain(chans[:S_LOOP], z, nv, **kwb)
+    n_bad, err = compare_rows(kern, plain)
+    _limit(n_bad, P, f"select by index ({what})")
+    n_pick, _ = compare_rows(kern[:2] + kern[3:], pay[:2] + pay[8:])
+    if n_pick:
+        raise RuntimeError(f"select by index ({what}): the picks of "
+                           f"{n_pick} particles differ from the payload "
+                           "kernel's")
+    live = kern[1] > 0
+    g = gather_selected(pre, gm, z, kern[2], with_lpw=False)[:5]
+    n_gather, err_g = compare_rows(g, pay[2:7], [live] * 5)
+    _limit(n_gather, P, f"gather at the by-index picks ({what})")
+    log(f"select by index {what}: particles differing {n_bad}/{P} "
+        f"(max_abs_err {err:.3e}); picks as the payload kernel's; gather "
+        f"reproduces the payload, {n_gather} differing (max_abs_err "
+        f"{err_g:.3e})")
+    return n_bad, err
+
+
+def phase_select(dev, stats):
+    S = _mods()[0]
     t0 = time.perf_counter()
-    worst = 0.0
+    _new_stats(stats, "select", "select_by_index")
     cases = [dict(raw=False, with_compat=True, with_lpw=True, nv=None),
              dict(raw=True, with_compat=False, with_lpw=False, nv=None),
              dict(raw=False, with_compat=True, with_lpw=True, nv=41)]
@@ -170,53 +344,52 @@ def phase_select(dev, stats):
         kern = S.select_cuda(chans, z, nv, **kw)
         plain = S.select_plain(chans, z, nv, **kw)
         n_bad, err = select_outputs_agree(kern, plain)
-        worst = max(worst, err)
+        _err(stats, "select", err)
         log(f"select {P}x{F}x{M} raw={case['raw']} "
             f"compat={case['with_compat']} lpw={case['with_lpw']} "
             f"n_valid={int(nv)}: particles differing {n_bad}/{P}, "
             f"max_abs_err {err:.3e}")
         _limit(n_bad, P, "select (shipped shape)")
-    chans, kw, nv = _select_args(S, cfg, pre, gm, z, cases[0])
-    ms_shipped = cuda_ms(lambda: S.select_cuda(chans, z, nv, **kw), 20)
-    plain_shipped = cuda_ms(lambda: S.select_plain(chans, z, nv, **kw), 5)
+        _, err = check_by_index(S, pre, gm, z, chans, nv, kw, kern,
+                                f"{P}x{F}x{M} raw={case['raw']} "
+                                f"n_valid={int(nv)}")
+        _err(stats, "select_by_index", err)
 
     P, F, M = DENSE["P"], DENSE["F"], DENSE["M"]
     cfg, pre, gm, z = random_select_inputs(P, F, M, 2, dev)
     chans, kw, nv = _select_args(S, cfg, pre, gm, z, cases[0])
-    kern = S.select_cuda(chans, z, nv, **kw)
-    n_bad = 0
-    for lo in range(0, P, DENSE_CHUNK):
-        part = [c[lo:lo + DENSE_CHUNK] for c in chans]
-        plain = S.select_plain(part, z, nv, **kw)
-        b, err = select_outputs_agree([k[lo:lo + DENSE_CHUNK] for k in kern],
-                                      plain)
-        n_bad += b
-        worst = max(worst, err)
+    kern, n_bad, err = chunked(
+        lambda c: S.select_cuda(c, z, nv, **kw),
+        lambda c: S.select_plain(c, z, nv, **kw), select_outputs_agree,
+        lambda lo, hi: [c[lo:hi] for c in chans], P)
+    _err(stats, "select", err)
     log(f"select {P}x{F}x{M} (chunks of {DENSE_CHUNK}): particles "
-        f"differing {n_bad}/{P}, max_abs_err {worst:.3e}")
+        f"differing {n_bad}/{P}, max_abs_err {err:.3e}")
     _limit(n_bad, P, "select (dense shape)")
-    ms = cuda_ms(lambda: S.select_cuda(chans, z, nv, **kw), 10)
-    plain_ms = cuda_ms(lambda: S.select_plain(chans, z, nv, **kw), 3)
-    log(f"select timing: dense {ms:.4f} ms (plain {plain_ms:.3f} ms), "
-        f"shipped {ms_shipped:.4f} ms (plain {plain_shipped:.3f} ms)")
-    stats["select"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                           ms_shipped=ms_shipped,
-                           plain_ms_shipped=plain_shipped)
+    _, err = check_by_index(S, pre, gm, z, chans, nv, kw, kern,
+                            f"{P}x{F}x{M}")
+    _err(stats, "select_by_index", err)
+
+    kwb = dict(kw, by_index=True)
+    loop = chans[:S_LOOP]
+    for name, k_fn, p_fn, by in (
+            ("select", lambda: S.select_cuda(chans, z, nv, **kw),
+             lambda: S.select_plain(chans, z, nv, **kw), False),
+            ("select_by_index", lambda: S.select_cuda(loop, z, nv, **kwb),
+             lambda: S.select_plain(loop, z, nv, **kwb), True)):
+        stats[name].update(ms=cuda_ms(k_fn, 10), plain_ms=cuda_ms(p_fn, 3),
+                           library_ms=None)
+        # normalised mode: 2 more operations per triple
+        bound(stats, name, select_bytes(P, F, M, K1, by),
+              P * M * F * (SELECT_TRIPLE_OPS + 2 + K1))
+        s = stats[name]
+        log(f"{name} timing {P}x{F}x{M}: {s['ms']:.4f} ms (plain "
+            f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} ms by "
+            f"{s['bound_by']})")
     log(f"phase select: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-def _select_args(S, cfg, pre, gm, z, case):
-    import torch
-    M = z.shape[0]
-    nv = torch.tensor([case["nv"] or M], dtype=torch.int32, device=z.device)
-    chans = [c.contiguous() for c in S.select_channels(pre, gm)]
-    kw = dict(k1=8, clutter_birth=float(cfg.clutterDensity
-                                        + cfg.birthWeight),
-              min_weight=float(cfg.minFeatureWeight),
-              gate_threshold=float(cfg.gateThreshold), raw=case["raw"],
-              with_compat=case["with_compat"], with_lpw=case["with_lpw"])
-    return chans, kw, nv
-
+# ------------------------------------------------------- phase 2: merge --
 
 def random_pool(P, K, seed, dev):
     """A seeded candidate pool: ~60 % live weights, means in a 40 m box."""
@@ -231,69 +404,243 @@ def random_pool(P, K, seed, dev):
             for a in arrs]
 
 
-def phase_merge(dev, stats):
-    from phdslam_tpu_torch.kernels import merge as G
+def candidate_tests(w, near, cap):
+    """The candidate tests the greedy merge of this pool makes: at each
+    pick, one for every remaining live candidate of every particle still
+    picking. near(pick [P, 1]) -> [P, K] bool is the merge's test."""
+    import torch
+    w_rem = w.clone()
+    col = torch.arange(w.shape[1], device=w.device)
+    tests = 0
+    for _ in range(cap):
+        pick = torch.argmax(w_rem, dim=1, keepdim=True)
+        active = torch.gather(w_rem, 1, pick) > 0.0
+        if not bool(active.any()):
+            break
+        live = w_rem > 0.0
+        tests += int((live & active).sum())
+        sel = ((near(pick) & live) | (col[None, :] == pick)) & active
+        w_rem = torch.where(sel, 0.0, w_rem)
+    return tests
 
+
+def merge_tests(pool, sep, cap, metric):
+    import torch
+    G = _mods()[2]
+    w, mx, my, c00, c01, c11 = pool
+
+    def near(pick):
+        take = lambda a: torch.gather(a, 1, pick)
+        return G._near(metric, take(mx) - mx, take(my) - my, take(c00),
+                       take(c01), take(c11), c00, c01, c11, sep)
+    return candidate_tests(w, near, cap)
+
+
+def phase_merge(dev, stats):
+    G = _mods()[2]
     t0 = time.perf_counter()
-    worst = 0.0
-    times = []
+    _new_stats(stats, "merge")
     for i, (P, K, cap, metric, sep) in enumerate(MERGE_CASES):
         pool = random_pool(P, K, 10 + i, dev)
         kern = G.merge_cuda(*pool, sep, cap, metric)
         plain = G.merge_plain(*pool, sep, cap, metric)
         n_bad, err = compare_rows(kern, plain)
-        worst = max(worst, err)
+        _err(stats, "merge", err)
         log(f"merge [{P}, {K}] -> {cap} metric {metric}: particles "
             f"differing {n_bad}/{P}, max_abs_err {err:.3e}, live slots "
             f"{int((plain[0] > 0).sum(1).max())} max")
         _limit(n_bad, P, f"merge metric {metric}")
-        if i < 2:                   # the dense and the shipped pool
-            times.append((
-                cuda_ms(lambda: G.merge_cuda(*pool, sep, cap, metric), 5),
-                cuda_ms(lambda: G.merge_plain(*pool, sep, cap, metric), 2)))
-    (ms, plain_ms), (ms_shipped, plain_shipped) = times
-    log(f"merge timing: dense pool {ms:.3f} ms (plain {plain_ms:.3f} ms), "
-        f"shipped pool {ms_shipped:.4f} ms (plain {plain_shipped:.3f} ms)")
-    stats["merge"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                          ms_shipped=ms_shipped,
-                          plain_ms_shipped=plain_shipped)
+        if i == 0:                  # the dense pool
+            s = stats["merge"]
+            s.update(ms=cuda_ms(lambda: G.merge_cuda(*pool, sep, cap,
+                                                     metric), 5),
+                     plain_ms=cuda_ms(lambda: G.merge_plain(
+                         *pool, sep, cap, metric), 2), library_ms=None)
+            tests = merge_tests(pool, sep, cap, metric)
+            bound(stats, "merge", 4 * 6 * P * (K + cap),
+                  tests * MERGE_TEST_OPS)
+            log(f"merge timing [{P}, {K}] -> {cap}: {s['ms']:.3f} ms "
+                f"(plain {s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} "
+                f"ms by {s['bound_by']}, {tests} candidate tests)")
     log(f"phase merge: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-def _limit(n_bad, P, what):
-    if n_bad > MAX_DIFFER * P:
-        raise RuntimeError(f"{what}: {n_bad} of {P} particles differ from "
-                           f"the plain version (limit {MAX_DIFFER:.1%})")
+# ----------------------------------------------------- phase 2: select4 --
+
+def random_select4_inputs(P, F, M, seed, dev):
+    """Kernel-3 inputs from kalman_preupdate4 on a seeded random dynamic map
+    (about half the slots live, positions within 10 m, velocities ~0.5 m/s,
+    random positive definite 4x4 covariances)."""
+    import torch
+    from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.filter.state import Gaussian4DMixture
+    from phdslam_tpu_torch.filter.update4 import kalman_preupdate4
+
+    rng = np.random.default_rng(seed)
+    cfg = load_config(str(ROOT / "cfg/mixed_synth.cfg")).replace(
+        n_particles=P, maxFeatures=F, maxMeasurements=M)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    gm = Gaussian4DMixture(
+        w=t((rng.uniform(size=(P, F)) < 0.5)
+            * rng.uniform(0.05, 1.0, (P, F))),
+        mean_channels=t(np.concatenate(
+            [rng.uniform(-2, 12, (P, 1, F)), rng.uniform(-10, 10, (P, 1, F)),
+             rng.normal(0, 0.5, (P, 2, F))], 1)),
+        cov_channels=t(random_cov4(rng, (P, F))))
+    pose = t(np.concatenate([rng.normal(0, 0.3, (P, 2)),
+                             rng.normal(0, 0.05, (P, 1)),
+                             np.zeros((P, 3))], axis=1))
+    z = t(np.stack([rng.uniform(0.5, cfg.maxRange, M),
+                    rng.uniform(-cfg.maxBearing, cfg.maxBearing, M)], 1))
+    return kalman_preupdate4(pose, gm, cfg), gm, z
 
 
-def agree_on_last_args(k1, k2, stats, what):
-    """Run the select (k1) and merge (k2) kernels and their plain versions
-    again on the arguments of their last recorded launch."""
-    from phdslam_tpu_torch.kernels import merge as G
-    from phdslam_tpu_torch.kernels import select as S
-
-    a, kw = k1.last_args
-    P, F = a[0][0].shape
-    n_bad, err = select_outputs_agree(S.select_cuda(*a, **kw),
-                                      S.select_plain(*a, **kw))
-    _limit(n_bad, P, f"select ({what} inputs)")
-    a2, kw2 = k2.last_args
-    kern = G.merge_cuda(*a2, **kw2)
-    K, cap = a2[0].shape[1], kern[0].shape[1]
-    n_bad2, err2 = compare_rows(kern, G.merge_plain(*a2, **kw2))
-    _limit(n_bad2, P, f"merge ({what} inputs)")
-    log(f"{what} inputs: select {P}x{F}x{a[1].shape[0]} particles "
-        f"differing {n_bad}/{P} (max_abs_err {err:.3e}), merge [{P}, {K}] "
-        f"-> {cap} particles differing {n_bad2}/{P} (max_abs_err "
-        f"{err2:.3e})")
-    for name, e in (("select", err), ("merge", err2)):
-        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
+def random_cov4(rng, shape, scale=0.5, floor=0.2):
+    """[..., 10, F] channels (S4 order) of random positive definite 4x4s;
+    shape = (..., F). Built channel by channel from a random factor, to
+    stay light at the dense shapes."""
+    a = rng.normal(size=(4, 4) + shape).astype(np.float32) * scale
+    return np.stack([(a[i] * a[j]).sum(0) + (floor if i == j else 0.0)
+                     for i in range(4) for j in range(i, 4)],
+                    axis=-2).astype(np.float32)
 
 
-# ---------------------------------------------------------------- phase 3 --
+def select4_outputs_agree(kern, plain):
+    """sum, w, mean, cov: payload compared where the plain version picked a
+    live (w > 0) term."""
+    live = plain[1] > 0
+    return compare_rows(kern, plain, [None, None, live[:, None],
+                                      live[:, None]])
+
+
+def select4_bytes(P, F, M, k1, by_index):
+    n_in = S_LOOP if by_index else 29
+    out = P * M * (4 + k1 * (8 if by_index else 15 * 4))
+    return 4 * (n_in * P * F + 2 * M) + out
+
+
+def phase_select4(dev, stats):
+    from phdslam_tpu_torch.filter.update4 import gather_selected4
+    S4 = _mods()[1]
+    t0 = time.perf_counter()
+    _new_stats(stats, "select4", "select4_by_index")
+    for i, shape in enumerate((SHIPPED, ODD, DENSE)):
+        P, F, M = shape["P"], shape["F"], shape["M"]
+        pre4, gm4, z = random_select4_inputs(P, F, M, 20 + i, dev)
+        loop, gain, mean, cov = S4.select4_channels(pre4, gm4)
+        loop = [c.contiguous() for c in loop]
+        sl = lambda lo, hi: ([c[lo:hi] for c in loop], gain[lo:hi],
+                             mean[lo:hi], cov[lo:hi])
+        kern, n_bad, err = chunked(
+            lambda a: S4.select4_cuda(*a, z, k1=K1),
+            lambda a: S4.select4_plain(*a, z, k1=K1),
+            select4_outputs_agree, sl, P)
+        _err(stats, "select4", err)
+        _limit(n_bad, P, f"select4 {P}x{F}x{M}")
+        idx, n_bad_i, err_i = chunked(
+            lambda a: S4.select4_cuda(a[0], None, None, None, z, k1=K1,
+                                      by_index=True),
+            lambda a: S4.select4_plain(a[0], None, None, None, z, k1=K1,
+                                       by_index=True),
+            compare_rows, sl, P)
+        _err(stats, "select4_by_index", err_i)
+        _limit(n_bad_i, P, f"select4 by index {P}x{F}x{M}")
+        n_pick, _ = compare_rows(idx[:2], kern[:2])
+        if n_pick:
+            raise RuntimeError(f"select4 by index {P}x{F}x{M}: the picks "
+                               f"of {n_pick} particles differ from the "
+                               "payload kernel's")
+        live = kern[1] > 0
+        g_mean, g_cov = gather_selected4(pre4, gm4, z, idx[2])
+        n_gather, err_g = compare_rows((g_mean, g_cov), kern[2:],
+                                       [live[:, None]] * 2)
+        _limit(n_gather, P, f"gather4 at the by-index picks {P}x{F}x{M}")
+        log(f"select4 {P}x{F}x{M} k1={K1}: particles differing "
+            f"{n_bad}/{P} (max_abs_err {err:.3e}); by index {n_bad_i}/{P} "
+            f"(max_abs_err {err_i:.3e}), picks as the payload kernel's, "
+            f"gather reproduces the payload ({n_gather} differing, "
+            f"max_abs_err {err_g:.3e}); live picks {float(live.float().mean()):.3f}")
+    a = ([c for c in loop], gain, mean, cov)
+    for name, k_fn, p_fn, by in (
+            ("select4", lambda: S4.select4_cuda(*a, z, k1=K1),
+             lambda: S4.select4_plain(*a, z, k1=K1), False),
+            ("select4_by_index",
+             lambda: S4.select4_cuda(loop, None, None, None, z, k1=K1,
+                                     by_index=True),
+             lambda: S4.select4_plain(loop, None, None, None, z, k1=K1,
+                                      by_index=True), True)):
+        stats[name].update(ms=cuda_ms(k_fn, 10), plain_ms=cuda_ms(p_fn, 3),
+                           library_ms=None)
+        bound(stats, name, select4_bytes(P, F, M, K1, by),
+              P * M * F * (SELECT_TRIPLE_OPS + K1))
+        s = stats[name]
+        log(f"{name} timing {P}x{F}x{M}: {s['ms']:.4f} ms (plain "
+            f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} ms by "
+            f"{s['bound_by']})")
+    log(f"phase select4: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------------------ phase 2: merge4 --
+
+def random_pool4(P, K, seed, dev):
+    """A seeded 4-D candidate pool: ~60 % live weights, positions in a
+    20 m box, velocities ~0.5 m/s, random positive definite covariances."""
+    import torch
+    rng = np.random.default_rng(seed)
+    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
+    mean = np.concatenate([rng.uniform(-10, 10, (P, 2, K)),
+                           rng.normal(0, 0.5, (P, 2, K))], 1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return t(w), t(mean), t(random_cov4(rng, (P, K)))
+
+
+def merge4_tests(pool, sep, cap):
+    import torch
+    from phdslam_tpu_torch.ops.linalg import chol4_quad
+    w, mean, cov = pool
+
+    def near(pick):
+        take = lambda a: torch.gather(a, 1, pick)
+        a = [0.5 * (take(cov[:, q]) + cov[:, q]) for q in range(10)]
+        d = [take(mean[:, k]) - mean[:, k] for k in range(4)]
+        return chol4_quad(a, d) < sep
+    return candidate_tests(w, near, cap)
+
+
+def phase_merge4(dev, stats):
+    G4 = _mods()[3]
+    t0 = time.perf_counter()
+    _new_stats(stats, "merge4")
+    for i, (P, K, cap, sep) in enumerate(MERGE4_CASES):
+        pool = random_pool4(P, K, 30 + i, dev)
+        kern = G4.merge4_cuda(*pool, sep, cap)
+        plain = G4.merge4_plain(*pool, sep, cap)
+        n_bad, err = compare_rows(kern, plain)
+        _err(stats, "merge4", err)
+        log(f"merge4 [{P}, {K}] -> {cap} min_sep {sep}: particles "
+            f"differing {n_bad}/{P}, max_abs_err {err:.3e}, live slots "
+            f"{int((plain[0] > 0).sum(1).max())} max")
+        _limit(n_bad, P, f"merge4 min_sep {sep}")
+        if i == 0:                  # the dense pool at the shipped gate
+            s = stats["merge4"]
+            s.update(ms=cuda_ms(lambda: G4.merge4_cuda(*pool, sep, cap), 5),
+                     plain_ms=cuda_ms(lambda: G4.merge4_plain(*pool, sep,
+                                                              cap), 2),
+                     library_ms=None)
+            tests = merge4_tests(pool, sep, cap)
+            bound(stats, "merge4", 4 * 15 * P * (K + cap),
+                  tests * MERGE4_TEST_OPS)
+            log(f"merge4 timing [{P}, {K}] -> {cap}: {s['ms']:.3f} ms "
+                f"(plain {s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} "
+                f"ms by {s['bound_by']}, {tests} candidate tests)")
+    log(f"phase merge4: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# --------------------------------------------- the kernels on real inputs --
 
 class _KernelTimer:
-    """Record CUDA events around every launch of one kernel wrapper."""
+    """Record CUDA events around every launch of one kernel wrapper, and
+    the arguments of the last launch."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -324,73 +671,230 @@ class _KernelTimer:
         return sum(s.elapsed_time(e) for s, e in self.pairs)
 
 
+def timers():
+    """One _KernelTimer per kernel wrapper: select (both modes), select4
+    (both modes), merge, merge4."""
+    S, S4, G, G4 = _mods()
+    return dict(select=_KernelTimer(S, "select_cuda"),
+                select4=_KernelTimer(S4, "select4_cuda"),
+                merge=_KernelTimer(G, "merge_cuda"),
+                merge4=_KernelTimer(G4, "merge4_cuda"))
+
+
+def agree_on_last_args(tm, stats, what):
+    """Run every kernel the timers saw, and its plain version, again on the
+    arguments of its last launch."""
+    S, S4, G, G4 = _mods()
+    plain_of = dict(select=S.select_plain, select4=S4.select4_plain,
+                    merge=G.merge_plain, merge4=G4.merge4_plain)
+    parts = []
+    for name, t in tm.items():
+        if t.last_args is None:
+            continue
+        a, kw = t.last_args
+        kern, plain = t.orig(*a, **kw), plain_of[name](*a, **kw)
+        by = kw.get("by_index", False)
+        if by:
+            n_bad, err = compare_rows(kern, plain)
+        elif name == "select":
+            n_bad, err = select_outputs_agree(kern, plain)
+        elif name == "select4":
+            n_bad, err = select4_outputs_agree(kern, plain)
+        else:
+            n_bad, err = compare_rows(kern, plain)
+        P = kern[0].shape[0]
+        key = name + ("_by_index" if by else "")
+        _limit(n_bad, P, f"{key} ({what} inputs)")
+        _err(stats, key, err)
+        parts.append(f"{key} {'x'.join(map(str, kern[1].shape))} "
+                     f"{n_bad}/{P} (max_abs_err {err:.3e})")
+    log(f"{what} inputs, kernels against plain, particles differing: "
+        + "; ".join(parts))
+
+
+def run_runner(d, cfg_text, steps_cfg, dev, tm):
+    """The runner in loop mode on the run files in d, with every launch
+    count set to 0 just before; returns (launch counts, run seconds, out
+    dir)."""
+    from phdslam_tpu_torch import runner
+    Path(d, "run.cfg").write_text(cfg_text + steps_cfg)
+    out = Path(d, f"out{len(list(Path(d).glob('out*')))}")
+    args = [str(Path(d, "run.cfg")), "synth", "--measurements",
+            str(Path(d, "measurements.txt")), "--controls",
+            str(Path(d, "controls.txt")), "--data-dir", str(d),
+            "--out-dir", str(out), "--mode", "loop", "--device", dev.type]
+    zero_launch_counts()
+    t_run = time.perf_counter()
+    with tm["select"], tm["select4"], tm["merge"], tm["merge4"]:
+        runner.main(args)
+    return launch_counts(), time.perf_counter() - t_run, out
+
+
+def check_launches(launches, expect, what):
+    for k, v in expect.items():
+        if launches[k] != v:
+            raise RuntimeError(f"{what}: {k} launched {launches[k]} times, "
+                               f"expected {v}")
+
+
+# ------------------------------------------------- phase 3: main path --
+
 def phase_main_path(dev, stats):
-    from phdslam_tpu_torch import _shared, runner
-    from phdslam_tpu_torch.kernels import merge as G
-    from phdslam_tpu_torch.kernels import select as S
+    from phdslam_tpu_torch import simdata
+    from phdslam_tpu_torch.io.logs import read_state_estimate_log
 
     t0 = time.perf_counter()
-    sc = _shared.make_scenario(np.random.default_rng(0),
-                               n_steps=RUN_STEPS)
-    controls, meas = _shared.generate_run(np.random.default_rng(1), sc,
+    sc = simdata.make_scenario(np.random.default_rng(0), n_steps=RUN_STEPS)
+    controls, meas = simdata.generate_run(np.random.default_rng(1), sc,
                                           control_noise=(0.2, 0.01))
     n_steps = len(meas)
     if not all(len(z) for z in meas):
         raise RuntimeError("scenario has a step without measurements")
+    tm = timers()
     with tempfile.TemporaryDirectory() as d:
-        _shared.write_run_files(d, controls, meas)
-        base = (ROOT / "cfg/ackerman_synth.cfg").read_text()
+        simdata.write_run_files(d, controls, meas)
         x0, y0, yaw0 = sc.traj[0]
-        Path(d, "run.cfg").write_text(
-            base + f"\ninitial_x = {x0}\ninitial_y = {y0}\n"
-            f"initial_yaw = {yaw0}\n")
-        out = Path(d, "out")
-        args = [str(Path(d, "run.cfg")), "synth", "--measurements",
-                str(Path(d, "measurements.txt")), "--controls",
-                str(Path(d, "controls.txt")), "--out-dir", str(out),
-                "--mode", "loop", "--device", dev.type]
-        S.launches = 0
-        G.launches = 0
-        t_run = time.perf_counter()
-        with _KernelTimer(S, "select_cuda") as k1, \
-                _KernelTimer(G, "merge_cuda") as k2:
-            runner.main(args)
-        run_s = time.perf_counter() - t_run
-        launches = dict(select=S.launches, merge=G.launches)
+        launches, run_s, out = run_runner(
+            d, (ROOT / "cfg/ackerman_synth.cfg").read_text(),
+            f"\ninitial_x = {x0}\ninitial_y = {y0}\ninitial_yaw = {yaw0}\n",
+            dev, tm)
         n_logs = len(list(out.glob("state_estimate*.log")))
         loop_ms = np.loadtxt(out / "loopTime.log")
-        errs = np.array([np.linalg.norm(
-            _shared.read_state_estimate_log(
-                str(out / f"state_estimate{t:05d}.log"))["pose"][:2]
+        errs = np.array([np.linalg.norm(read_state_estimate_log(
+            str(out / f"state_estimate{t:05d}.log"))["pose"][:2]
             - sc.traj[t, :2]) for t in range(n_steps)])
     # every step of this run has measurements, so every step updates
     n_update = n_steps
     log(f"main path: {n_steps} steps, {n_logs} state_estimate logs, "
-        f"launches select={launches['select']} merge={launches['merge']} "
-        f"(update steps {n_update}), pose error mean {errs.mean():.3f} m "
-        f"max {errs.max():.3f} m, {loop_ms.mean():.3f} ms/step "
-        f"(median {np.median(loop_ms):.3f}, incl. per-step log "
+        f"launches {launches} (update steps {n_update}), pose error mean "
+        f"{errs.mean():.3f} m max {errs.max():.3f} m, {loop_ms.mean():.3f} "
+        f"ms/step (median {np.median(loop_ms):.3f}, incl. per-step log "
         f"host copies), run {run_s:.1f} s")
     if n_logs != n_steps or len(loop_ms) != n_steps:
         raise RuntimeError("log contract incomplete")
-    for k, v in launches.items():
-        if v != n_update:
-            raise RuntimeError(f"{k} launched {v} times, expected "
-                               f"{n_update}")
+    check_launches(launches, dict(select=n_update, merge=n_update,
+                                  select_by_index=0, select4=0,
+                                  select4_by_index=0, merge4=0),
+                   "static main path")
     if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
         raise RuntimeError(f"mean pose error {errs.mean():.3f} m is not "
                            f"below {POSE_BAR_M} m")
-    # both kernels against their plain versions on the run's last update,
-    # at the shapes the shipped cfg gives them
-    agree_on_last_args(k1, k2, stats, "main path")
-    log(f"main path kernels: select {k1.ms() / n_steps:.4f} ms/step, "
-        f"merge {k2.ms() / n_steps:.4f} ms/step (CUDA events)")
-    stats["launches"] = launches
+    agree_on_last_args(tm, stats, "static main path")
+    log(f"main path kernels: select {tm['select'].ms() / n_steps:.4f} "
+        f"ms/step, merge {tm['merge'].ms() / n_steps:.4f} ms/step (CUDA "
+        f"events)")
+    for k in ("select", "merge"):
+        stats[k]["launches"] = launches[k]
     stats["shipped_ms_per_step"] = float(loop_ms.mean())
     log(f"phase main path: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-# ---------------------------------------------------------------- phase 4 --
+# ------------------------------------------- phase 4: mixed main path --
+
+def mover_share(logs, truth, traj, cfg):
+    """Share of the settled mover steps (a mover in the field of view of
+    the true pose for 4+ steps in a row) on which the logged dynamic map
+    holds a component of weight >= 0.05 within 2 m of it."""
+    streak = np.zeros(truth.shape[1], int)
+    hits = []
+    for t, lg in enumerate(logs):
+        dyn = lg["dynamic"]
+        comp = dyn[dyn[:, 0] >= 0.05][:, 1:3]
+        for k in range(truth.shape[1]):
+            d = truth[t, k] - traj[t, :2]
+            r = np.linalg.norm(d)
+            b = np.arctan2(d[1], d[0]) - traj[t, 2]
+            b = np.arctan2(np.sin(b), np.cos(b))
+            if not (cfg.minRange <= r <= cfg.maxRange
+                    and abs(b) <= cfg.maxBearing):
+                streak[k] = 0
+                continue
+            streak[k] += 1
+            if streak[k] >= 4:
+                hits.append(bool(len(comp)) and bool(
+                    np.linalg.norm(comp - truth[t, k], axis=1).min() < 2.0))
+    return float(np.mean(hits)) if hits else float("nan"), len(hits)
+
+
+def phase_mixed_main_path(dev, stats):
+    from phdslam_tpu_torch import load_config, simdata
+    from phdslam_tpu_torch.io.logs import read_state_estimate_log
+
+    t0 = time.perf_counter()
+    sc = simdata.make_scenario(np.random.default_rng(11),
+                               n_landmarks=MIXED_LANDMARKS,
+                               n_steps=MIXED_STEPS)
+    controls, meas, truth = simdata.generate_mixed_run(
+        np.random.default_rng(500), sc, MOVER0, MOVER_V,
+        control_noise=(0.2, 0.01))
+    n_steps = len(meas)
+    if not all(len(z) for z in meas):
+        raise RuntimeError("mixed scenario has a step without measurements")
+    base = (ROOT / "cfg/mixed_synth.cfg").read_text()
+    cfg = load_config(str(ROOT / "cfg/mixed_synth.cfg"))
+    x0, y0, yaw0 = sc.traj[0]
+    start = f"\ninitial_x = {x0}\ninitial_y = {y0}\ninitial_yaw = {yaw0}\n"
+    tm = timers()
+    with tempfile.TemporaryDirectory() as d:
+        simdata.write_run_files(d, controls, meas)
+        launches, run_s, out = run_runner(d, base, start, dev, tm)
+        logs = [read_state_estimate_log(str(out / f"state_estimate{t:05d}"
+                                            ".log")) for t in range(n_steps)]
+        loop_ms = np.loadtxt(out / "loopTime.log")
+        errs = np.array([np.linalg.norm(lg["pose"][:2] - sc.traj[t, :2])
+                         for t, lg in enumerate(logs)])
+        share, n_settled = mover_share(logs, truth, sc.traj, cfg)
+        n_dyn = np.array([len(lg["dynamic"]) for lg in logs])
+        log(f"mixed main path: {n_steps} steps, launches {launches}, pose "
+            f"error mean {errs.mean():.3f} m max {errs.max():.3f} m, "
+            f"settled mover steps {n_settled} confirmed {share:.3f}, "
+            f"dynamic components logged mean {n_dyn.mean():.1f}, "
+            f"{loop_ms.mean():.3f} ms/step (median "
+            f"{np.median(loop_ms):.3f}), run {run_s:.1f} s")
+        if len(loop_ms) != n_steps or not all(
+                lg["dynamic"].shape[1] == 21 for lg in logs) \
+                or n_dyn.max() == 0:
+            raise RuntimeError("mixed log contract incomplete")
+        check_launches(launches, dict(select=n_steps, select4=n_steps,
+                                      merge=n_steps, merge4=n_steps,
+                                      select_by_index=0,
+                                      select4_by_index=0),
+                       "mixed main path")
+        if not np.isfinite(errs).all() or errs.mean() >= MIXED_POSE_BAR_M:
+            raise RuntimeError(f"mixed: mean pose error {errs.mean():.3f} "
+                               f"m is not below {MIXED_POSE_BAR_M} m")
+        if not share >= MOVER_SHARE:
+            raise RuntimeError(f"mixed: movers confirmed on {share:.3f} of "
+                               f"{n_settled} settled steps, below "
+                               f"{MOVER_SHARE}")
+        agree_on_last_args(tm, stats, "mixed main path")
+        log(f"mixed main path kernels (CUDA events, ms/step): " + ", ".join(
+            f"{k} {t.ms() / n_steps:.4f}" for k, t in tm.items()))
+        for k in ("select4", "merge4"):
+            stats[k]["launches"] = launches[k]
+
+        # the by-index modes, on the first steps of the same run
+        tm = timers()
+        launches, run_s, out = run_runner(
+            d, base, start + f"n_steps = {BY_INDEX_STEPS}\n"
+            "select_by_index = 1\n", dev, tm)
+        check_launches(launches, dict(
+            select_by_index=BY_INDEX_STEPS, select4_by_index=BY_INDEX_STEPS,
+            merge=BY_INDEX_STEPS, merge4=BY_INDEX_STEPS, select=0,
+            select4=0), "select_by_index pass")
+        n_logs = len(list(out.glob("state_estimate*.log")))
+        if n_logs != BY_INDEX_STEPS:
+            raise RuntimeError("select_by_index pass: log contract")
+        log(f"select_by_index pass: {BY_INDEX_STEPS} steps, launches "
+            f"{launches}, run {run_s:.1f} s")
+        agree_on_last_args(tm, stats, "select_by_index pass")
+        for k in ("select_by_index", "select4_by_index"):
+            stats[k]["launches"] = launches[k]
+    stats["mixed_ms_per_step"] = float(loop_ms.mean())
+    log(f"phase mixed main path: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------ phases 5 and 6: dense steps --
 
 def stress_inputs(cfg, n_steps, seed=0):
     """bench.py's clutter-heavy stream (make_stress_inputs), same seed and
@@ -410,15 +914,16 @@ def stress_inputs(cfg, n_steps, seed=0):
     return rb, valid, controls
 
 
-def stress_stepper(shape, n_steps, dev, dense=True):
-    """(cfg, state, step(state, t)) for the shipped cfg at a shape on the
+def stress_stepper(shape, n_steps, dev, dense=True,
+                   cfg_file="cfg/ackerman_synth.cfg"):
+    """(cfg, state, step(state, t)) for a shipped cfg at a shape on the
     stress stream; dense adds bench.py's dense_stress_config overrides."""
     import torch
     from phdslam_tpu_torch import load_config
     from phdslam_tpu_torch.filter.state import Measurements, SlamState
     from phdslam_tpu_torch.filter.step import slam_step
 
-    cfg = load_config(str(ROOT / "cfg/ackerman_synth.cfg")).replace(
+    cfg = load_config(str(ROOT / cfg_file)).replace(
         n_particles=shape["P"], maxFeatures=shape["F"],
         maxMeasurements=shape["M"])
     if dense:
@@ -432,24 +937,21 @@ def stress_stepper(shape, n_steps, dev, dense=True):
     def step(state, t):
         return slam_step(state, (float(controls[t, 0]),
                                  float(controls[t, 1])), zs[t],
-                         float(cfg.dt), t > 0, cfg, generator=gen)
+                         float(cfg.dt), t > 0, cfg, generator=gen,
+                         z_prev=zs[t - 1] if t > 0 else None)
 
     return cfg, SlamState.create(cfg, dev), step
 
 
-def phase_dense(dev, stats, gpu):
+def dense_run(dev, stats, cfg_file, what):
     import torch
-    from phdslam_tpu_torch.kernels import merge as G
-    from phdslam_tpu_torch.kernels import select as S
-
-    t0 = time.perf_counter()
     n = WARMUP + TIMED
-    _, state, step = stress_stepper(DENSE, n, dev)
+    _, state, step = stress_stepper(DENSE, n, dev, cfg_file=cfg_file)
     for t in range(WARMUP):
         state, aux = step(state, t)
     torch.cuda.synchronize()
-    with _KernelTimer(S, "select_cuda") as k1, \
-            _KernelTimer(G, "merge_cuda") as k2:
+    tm = timers()
+    with tm["select"], tm["select4"], tm["merge"], tm["merge4"]:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -458,37 +960,50 @@ def phase_dense(dev, stats, gpu):
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / TIMED
-    k1_ms, k2_ms = k1.ms() / TIMED, k2.ms() / TIMED
-    glue_ms = step_ms - k1_ms - k2_ms
+    k_ms = {k: t.ms() / TIMED for k, t in tm.items() if t.pairs}
+    glue_ms = step_ms - sum(k_ms.values())
     neff = float(aux.neff)
     live = int((state.map_static.w > 0).sum(1).max())
-    log(f"dense step {DENSE['P']}x{DENSE['F']}x{DENSE['M']}: "
-        f"{step_ms:.3f} ms/step = pre-update and glue {glue_ms:.3f} + "
-        f"select kernel {k1_ms:.3f} + merge kernel {k2_ms:.3f} "
-        f"(neff {neff:.4f}, max live map slots {live})")
-    # both kernels against their plain versions on the last timed step's
+    live4 = int((state.map_dynamic.w > 0).sum(1).max()) \
+        if state.map_dynamic.w.shape[1] else 0
+    log(f"{what} {DENSE['P']}x{DENSE['F']}x{DENSE['M']}: {step_ms:.3f} "
+        f"ms/step = pre-update and glue {glue_ms:.3f} + " + " + ".join(
+            f"{k} kernel {v:.3f}" for k, v in k_ms.items())
+        + f" (neff {neff:.4f}, max live map slots {live} static, {live4} "
+        "dynamic)")
+    # the kernels against their plain versions on the last timed step's
     # own inputs (real pools hold exact weight ties, e.g. births of
     # measurements no feature explains)
-    agree_on_last_args(k1, k2, stats, "dense step")
-    sel, mer = stats["select"], stats["merge"]
-    log(f"dense timing on {gpu}: step {step_ms:.3f} ms; select kernel "
-        f"{sel['ms']:.4f} ms vs plain {sel['plain_ms']:.3f} ms; merge kernel "
-        f"{mer['ms']:.3f} ms vs plain {mer['plain_ms']:.3f} ms (phase 2 "
-        f"inputs)")
+    agree_on_last_args(tm, stats, what)
     if not np.isfinite(neff) or glue_ms < 0:
-        raise RuntimeError(f"dense step: neff {neff}, glue {glue_ms} ms")
-    stats["dense_ms_per_step"] = step_ms
+        raise RuntimeError(f"{what}: neff {neff}, glue {glue_ms} ms")
+    return step_ms
+
+
+def phase_dense(dev, stats, gpu):
+    t0 = time.perf_counter()
+    stats["dense_ms_per_step"] = dense_run(dev, stats,
+                                           "cfg/ackerman_synth.cfg",
+                                           "dense step")
     log(f"phase dense: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    stats["dense_mixed_ms_per_step"] = dense_run(dev, stats,
+                                                 "cfg/mixed_synth.cfg",
+                                                 "dense mixed step")
+    log(f"dense timing on {gpu}: static step "
+        f"{stats['dense_ms_per_step']:.3f} ms, mixed step "
+        f"{stats['dense_mixed_ms_per_step']:.3f} ms")
+    log(f"phase dense mixed: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------- optional: --profile --
 
 def phase_profile(dev):
-    """torch.profiler over PROFILED steps of the step at the dense and the
-    shipped shape (stress stream), after PROFILE_WARMUP steps. Prints the
-    host wall time per step (without the profiler), the device's busy share
-    of the profiled window (the union of its kernel and copy intervals) and
-    the ops and kernels with the most device time."""
+    """torch.profiler over PROFILED steps of the static step at the dense
+    and the shipped shape (stress stream), after PROFILE_WARMUP steps.
+    Prints the host wall time per step (without the profiler), the device's
+    busy share of the profiled window (the union of its kernel and copy
+    intervals) and the ops and kernels with the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -581,23 +1096,23 @@ def main(argv=None):
     stats = {}
     phase_select(dev, stats)
     phase_merge(dev, stats)
+    phase_select4(dev, stats)
+    phase_merge4(dev, stats)
     phase_main_path(dev, stats)
+    phase_mixed_main_path(dev, stats)
     phase_dense(dev, stats, gpu)
     if args.profile:
         phase_profile(dev)
 
     kernels = []
-    for name, src, replaces in (
-            ("select", "phdslam_tpu_torch/csrc/select.cu",
-             "phdslam_tpu/kernels/preupdate_pallas.py:274"),
-            ("merge", "phdslam_tpu_torch/csrc/merge.cu",
-             "phdslam_tpu/kernels/merge_pallas.py:331")):
+    for name, src, replaces in KERNELS:
         s = stats[name]
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces,
-                            launches=stats["launches"][name],
-                            max_abs_err=s["max_abs_err"], ms=s["ms"],
-                            plain_ms=s["plain_ms"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=s["launches"], max_abs_err=s["max_abs_err"],
+            ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+            bound_by=s["bound_by"], library_ms=s["library_ms"]))
+    log(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

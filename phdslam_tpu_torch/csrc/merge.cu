@@ -224,7 +224,10 @@ int phd_merge_launch(const float* w, const float* mx, const float* my,
     cudaError_t e = cudaFuncSetAttribute(
         merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not see it
+      return static_cast<int>(e);
+    }
   }
   Pool in{w, mx, my, c00, c01, c11};
   Merged out{ow, omx, omy, o00, o01, o11};

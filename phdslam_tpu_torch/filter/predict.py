@@ -1,5 +1,7 @@
-"""Prediction (``phdslam_tpu/filter/predict.py``): pose propagation and
-particle shotgunning. The static feature model needs no map prediction."""
+"""Prediction (``phdslam_tpu/filter/predict.py``): pose propagation,
+particle shotgunning and, under the dynamic and mixed feature models, the
+constant-velocity prediction of the dynamic map. The static map needs no
+prediction."""
 
 from __future__ import annotations
 
@@ -7,8 +9,10 @@ import math
 
 import torch
 
-from phdslam_tpu_torch._shared import ACKERMAN_MOTION, CV_MOTION
+from phdslam_tpu_torch.config import (ACKERMAN_MOTION, CV_MOTION,
+                                      DYNAMIC_MODEL, MIXED_MODEL)
 from phdslam_tpu_torch.filter.state import SlamState
+from phdslam_tpu_torch.filter.update4 import cv_predict4, jump_markov_scales
 from phdslam_tpu_torch.models.motion import ackerman_predict, cv_predict
 
 
@@ -47,6 +51,13 @@ def predict_pose(pose, control, std_normal_noise, cfg, dt):
 
 def predict(state: SlamState, control, std_normal_noise, cfg,
             dt) -> SlamState:
-    """Pose prediction of the static branch (one sub-step)."""
-    return state.replace(
+    """One prediction sub-step: the poses, then the dynamic map (survival
+    and jump-Markov weight factors, constant-velocity motion)."""
+    state = state.replace(
         pose=predict_pose(state.pose, control, std_normal_noise, cfg, dt))
+    if cfg.featureModel in (DYNAMIC_MODEL, MIXED_MODEL) \
+            and state.map_dynamic.w.shape[-1] > 0:
+        scale, _jump_w = jump_markov_scales(state.map_dynamic, cfg)
+        state = state.replace(map_dynamic=cv_predict4(
+            state.map_dynamic, cfg, dt, w_scale=scale))
+    return state

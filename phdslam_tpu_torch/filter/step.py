@@ -1,6 +1,7 @@
-"""One SLAM step on the static GM-PHD path, and a whole-run loop.
+"""One SLAM step of the GM-PHD filter, and a whole-run loop.
 
-Port of ``phdslam_tpu/filter/step.py`` (PHD static branch):
+Port of ``phdslam_tpu/filter/step.py``, PHD filter, static map or the
+dynamic / mixed static + dynamic maps:
 
     predict -> PHD update -> weight normalize -> nEff -> resample
 
@@ -19,12 +20,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from phdslam_tpu_torch._shared import CPHD_TYPE, FASTSLAM_TYPE
+from phdslam_tpu_torch.config import (CPHD_TYPE, DYNAMIC_MODEL,
+                                      FASTSLAM_TYPE, MIXED_MODEL,
+                                      STATIC_MODEL)
 from phdslam_tpu_torch.filter.estimate import expected_pose
 from phdslam_tpu_torch.filter.predict import (noise_dim, predict,
                                               shotgun_expand)
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
 from phdslam_tpu_torch.filter.update import phd_update_static, phd_variance
+from phdslam_tpu_torch.filter.update4 import (informed_birth_velocity,
+                                              phd_update_mixed,
+                                              prev_measurement_world)
 from phdslam_tpu_torch.ops.resample import neff, stratified_resample_indices
 
 
@@ -56,22 +62,17 @@ class LogAux(NamedTuple):
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError for a configuration the static slice does
-    not cover, naming the ROADMAP item that ports it."""
+    """Raise NotImplementedError for a configuration the port does not
+    cover yet, naming the ROADMAP item that ports it."""
     if cfg.filterType == CPHD_TYPE:
         raise NotImplementedError(
             "filter_type = 1 (CPHD) is ROADMAP Queue 1 item 9")
     if cfg.filterType == FASTSLAM_TYPE:
         raise NotImplementedError(
             "filter_type = 2 (FastSLAM) is ROADMAP Queue 1 item 11")
-    if cfg.featureModel != 0:
-        raise NotImplementedError(
-            f"feature_model = {cfg.featureModel} (dynamic / mixed map) is "
-            "ROADMAP Queue 1 item 10")
-    if cfg.selectByIndex:
-        raise NotImplementedError(
-            "select_by_index needs fused_update_select_by_index, the next "
-            "kernel in ROADMAP Queue 2")
+    if cfg.featureModel not in (STATIC_MODEL, DYNAMIC_MODEL, MIXED_MODEL):
+        raise ValueError(f"feature_model must be 0, 1 or 2, got "
+                         f"{cfg.featureModel}")
     if cfg.distanceMetric not in (0, 1):
         raise ValueError(f"distance_metric must be 0 or 1, got "
                          f"{cfg.distanceMetric}")
@@ -96,15 +97,18 @@ def gather_particles(state: SlamState, idx, new_log_w) -> SlamState:
 
 def slam_step(state: SlamState, control, z: Measurements, dt: float,
               do_predict: bool, cfg, *, generator=None, noise=None,
-              with_variance: bool = False):
+              with_variance: bool = False, z_prev: Measurements = None):
     """One SLAM time step; returns (state', StepAux).
 
     control     (v_encoder, alpha), floats or 0-d tensors
     z           padded Measurements; ``z.count`` (host int) gates the update
+    dt          host float
     do_predict  host bool: the first step skips prediction
     noise       (pose_normals [sub, P * nPredictParticles, d],
                 resample_uniforms [P]) to replay given draws; otherwise the
                 draws come from ``generator`` on the state's device
+    z_prev      the previous step's Measurements: under birthVelocityInit
+                the dynamic births take their velocity from them
     """
     check_supported(cfg)
     n_target = cfg.n_particles
@@ -112,12 +116,22 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     sub = max(int(cfg.subdividePredict), 1)
     dtype = state.log_weights.dtype
     dev = state.device
+    mixed = cfg.featureModel in (DYNAMIC_MODEL, MIXED_MODEL)
     if noise is None:
         noise = draw_noise(cfg, state.n_particles * n_copies, dev, generator,
                            dtype)
     normals, uniforms = noise
 
-    # ---- prediction (shotgun expansion, then sub-stepped pose) ----
+    # ---- informed 4-D birth anchors: the previous measurements in the
+    # world frame at the poses before this step's prediction ----
+    zw_prev = None
+    if mixed and cfg.birthVelocityInit and z_prev is not None:
+        zw_prev = prev_measurement_world(state.pose, z_prev.rb, z_prev.valid)
+        if n_copies > 1:        # the anchors follow the shotgun copies
+            zw_prev = torch.repeat_interleave(zw_prev, n_copies, dim=0)
+
+    # ---- prediction (shotgun expansion, then sub-stepped pose and
+    # dynamic map) ----
     state = shotgun_expand(state, n_copies)
     if do_predict:
         for i in range(sub):
@@ -125,7 +139,20 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
 
     # ---- measurement update ----
     n_measure = z.valid.sum()
-    if z.count > 0:
+    if z.count > 0 and mixed:
+        birth_vel = None
+        if zw_prev is not None:
+            birth_vel = informed_birth_velocity(state.pose, z.rb, z.valid,
+                                                zw_prev, z_prev.valid, dt,
+                                                cfg)
+        gm2, gm4, dw = phd_update_mixed(state.pose, state.map_static,
+                                        state.map_dynamic, z.rb, z.label,
+                                        z.valid, cfg, birth_vel=birth_vel)
+        lw = state.log_weights + dw
+        log_lik = torch.logsumexp(lw, 0)
+        state = state.replace(map_static=gm2, map_dynamic=gm4,
+                              log_weights=lw - log_lik)
+    elif z.count > 0:
         res = phd_update_static(state.pose, state.map_static, z.rb, z.label,
                                 z.valid, cfg)
         lw = state.log_weights + res.log_weight_delta
@@ -192,16 +219,19 @@ def run_scan(state: SlamState, controls, zs, dts, cfg, *, generator=None,
     """Run ``slam_step`` over a whole dataset without reading the device.
 
     controls [T, 2] (host); zs: T Measurements on the state's device;
-    dts [T] (host). Step 0 skips prediction. Returns (final_state, stacked
-    StepAux), or (final_state, (stacked StepAux, stacked LogAux)) with
-    ``with_log_state``."""
+    dts [T] (host). Step 0 skips prediction. Each step gets the previous
+    step's measurements as ``z_prev``, step 0 an empty set. Returns
+    (final_state, stacked StepAux), or (final_state, (stacked StepAux,
+    stacked LogAux)) with ``with_log_state``."""
     auxs, logs = [], []
+    z_prev = Measurements.empty(zs[0].rb.shape[0], zs[0].rb.device)
     for t, z in enumerate(zs):
         state, aux = slam_step(
             state, (float(controls[t][0]), float(controls[t][1])), z,
             float(dts[t]), t > 0, cfg, generator=generator,
             noise=None if noises is None else noises[t],
-            with_variance=with_variance)
+            with_variance=with_variance, z_prev=z_prev)
+        z_prev = z
         auxs.append(aux)
         if with_log_state:
             logs.append(log_aux(state))

@@ -8,9 +8,10 @@ storing the [P, M, F] likelihoods, and the merge kernel
 (``kernels/merge.py``) reduces the candidate pool into the new map. On a
 CPU tensor both kernel wrappers run their plain PyTorch versions.
 
-``detection_log_weights`` and ``gather_selected`` are the JAX package's XLA
-route (the [P, M, F] tensor and index gathers); the port keeps them for the
-index-mode selection a later kernel needs and for tests.
+``gather_selected`` rebuilds the payload of picked indices: the static
+update runs it under ``select_by_index`` (the by-index mode of the select
+kernel). ``detection_log_weights`` is the JAX package's XLA route (the
+[P, M, F] tensor), kept for tests.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from phdslam_tpu_torch._shared import STATIC_MEASUREMENT
+from phdslam_tpu_torch.config import STATIC_MEASUREMENT
 from phdslam_tpu_torch.filter.state import Gaussian2DMixture
 from phdslam_tpu_torch.kernels import select
 from phdslam_tpu_torch.models.measurement import (predict_measurement,
@@ -180,15 +181,23 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
                       cfg) -> UpdateResult:
     """Static-model PHD update of all particles. pose [P, 6]; gm [P, F]
     channels; z_rb [M, 2]; z_label [M]; z_valid [M] bool."""
-    P, F = gm.w.shape
+    F = gm.w.shape[1]
     M = z_rb.shape[0]
     k1 = min(cfg.selectTopK or (4 if cfg.mergeMode == 1 else 8), F)
 
     pre = kalman_preupdate(pose, gm, cfg)
     nv = n_valid_of(z_valid) if cfg.dynamicMeasurementCount else None
-    (sum_exp, w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel, lpw_sel,
-     compatible) = select.fused_update_select(z_rb, pre, gm, cfg, k1=k1,
-                                              n_valid=nv)
+    if cfg.selectByIndex:
+        sum_exp, w_sel, f_sel, compatible = \
+            select.fused_update_select_by_index(z_rb, pre, gm, cfg, k1=k1,
+                                                n_valid=nv)
+        (mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
+         lpw_sel) = gather_selected(pre, gm, z_rb, f_sel,
+                                    with_lpw=cfg.particleWeighting == 2)
+    else:
+        (sum_exp, w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel, lpw_sel,
+         compatible) = select.fused_update_select(z_rb, pre, gm, cfg, k1=k1,
+                                                  n_valid=nv)
     if cfg.labeledMeasurements:
         m_ok = z_valid & (z_label == STATIC_MEASUREMENT)
     else:
@@ -227,42 +236,10 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
         dw = (n_measure * cfg.clutterDensity + cn_update - cn_predict
               - cfg.clutterRate)
 
-    # prune
-    minw = cfg.minFeatureWeight
-    w_nd_p = torch.where(w_nondetect >= minw, w_nondetect, 0.0)
-    w_birth_p = torch.where(w_birth >= minw, w_birth, 0.0)
-
-    # candidate pool: [0, F) originals (non-detection terms for in-range
-    # features, untouched weights otherwise), [F, F + M k1) detection
-    # terms, then the M births
-    w_sec1 = torch.where(in_mask, w_nd_p, gm.w)
-    theta_b = pose[:, None, 2] + z_rb[None, :, 1]
-    ct, st = torch.cos(theta_b), torch.sin(theta_b)
-    bdx = z_rb[None, :, 0] * ct
-    bdy = z_rb[None, :, 0] * st
-    var_rb = (cfg.stdRange * cfg.birthNoiseFactor) ** 2
-    var_bb = (cfg.stdBearing * cfg.birthNoiseFactor) ** 2
-
-    flat = lambda a: a.reshape(P, M * k1)
-    cat = lambda a, b, c: torch.cat([a, b, c], dim=-1)
-    cand_w = cat(w_sec1, flat(torch.where(w_sel >= minw, w_sel, 0.0)),
-                 w_birth_p)
-    cand_mx = cat(gm.mx, flat(mx_sel), pose[:, None, 0] + bdx)
-    cand_my = cat(gm.my, flat(my_sel), pose[:, None, 1] + bdy)
-    cand_00 = cat(gm.c00, flat(u00_sel),
-                  ct * ct * var_rb + bdy * bdy * var_bb)
-    cand_01 = cat(gm.c01, flat(u01_sel),
-                  ct * st * var_rb - bdy * bdx * var_bb)
-    cand_11 = cat(gm.c11, flat(u11_sel),
-                  st * st * var_rb + bdx * bdx * var_bb)
-
-    if cfg.mergeMode == 1:
-        cand_w = fast_prune_renormalize(cand_w, cfg.mergeMinWeight)
-    mw, mmx, mmy, m00, m01, m11 = greedy_merge_channels(
-        cand_w, cand_mx, cand_my, cand_00, cand_01, cand_11,
-        cfg.minSeparation, F, metric=cfg.distanceMetric)
-    map_out = Gaussian2DMixture(w=mw, mx=mmx, my=mmy, c00=m00, c01=m01,
-                                c11=m11)
+    map_out = pool_merge_static_sel(
+        gm, pre, w_nondetect,
+        (w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel), w_birth, z_rb,
+        pose, cfg)
 
     if cfg.particleWeighting == 2:
         dw = _single_feature_weighting(cfg, gm, map_out, w_sel, lpw_sel,
@@ -278,6 +255,47 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
         det_mass=sum_exp / normalizer * mvalid[None, :],
         pre=pre,
     )
+
+
+def pool_merge_static_sel(gm: Gaussian2DMixture, pre: PreUpdate, w_nd, sel,
+                          w_birth, z_rb, pose, cfg) -> Gaussian2DMixture:
+    """Prune, pool and merge into the new static map (``_pool_merge_static_
+    sel`` of ``phdslam_tpu/filter/update4.py``; the static update inlines
+    the same steps). The pool is [0, F) originals (non-detection terms for
+    in-range features, untouched weights otherwise), [F, F + M k1) the
+    selected detection terms sel = (w, mx, my, u00, u01, u11) [P, M, k1],
+    then the M births."""
+    w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel = sel
+    P, F = gm.w.shape
+    M, k1 = w_sel.shape[1:]
+    minw = cfg.minFeatureWeight
+    w_nd_p = torch.where(w_nd >= minw, w_nd, 0.0)
+    w_b_p = torch.where(w_birth >= minw, w_birth, 0.0)
+    w_sec1 = torch.where(pre.rclass == 1, w_nd_p, gm.w)
+    w_sel = torch.where(w_sel >= minw, w_sel, 0.0)
+
+    theta_b = pose[:, None, 2] + z_rb[None, :, 1]
+    ct, st = torch.cos(theta_b), torch.sin(theta_b)
+    bdx = z_rb[None, :, 0] * ct
+    bdy = z_rb[None, :, 0] * st
+    var_rb = (cfg.stdRange * cfg.birthNoiseFactor) ** 2
+    var_bb = (cfg.stdBearing * cfg.birthNoiseFactor) ** 2
+
+    flat = lambda a: a.reshape(P, M * k1)
+    cat = lambda a, b, c: torch.cat([a, b, c], dim=-1)
+    cand_w = cat(w_sec1, flat(w_sel), w_b_p)
+    if cfg.mergeMode == 1:
+        cand_w = fast_prune_renormalize(cand_w, cfg.mergeMinWeight)
+    mw, mmx, mmy, m00, m01, m11 = greedy_merge_channels(
+        cand_w,
+        cat(gm.mx, flat(mx_sel), pose[:, None, 0] + bdx),
+        cat(gm.my, flat(my_sel), pose[:, None, 1] + bdy),
+        cat(gm.c00, flat(u00_sel), ct * ct * var_rb + bdy * bdy * var_bb),
+        cat(gm.c01, flat(u01_sel), ct * st * var_rb - bdy * bdx * var_bb),
+        cat(gm.c11, flat(u11_sel), st * st * var_rb + bdx * bdx * var_bb),
+        cfg.minSeparation, F, metric=cfg.distanceMetric)
+    return Gaussian2DMixture(w=mw, mx=mmx, my=mmy, c00=m00, c01=m01,
+                             c11=m11)
 
 
 def _single_feature_weighting(cfg, gm, map_out, w_sel, lpw_sel, normalizer,

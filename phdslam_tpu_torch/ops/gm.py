@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from phdslam_tpu_torch.kernels import merge
+from phdslam_tpu_torch.kernels import _build, merge
 
 
 def fast_prune_renormalize(w, min_weight):
@@ -25,11 +25,7 @@ def greedy_merge_channels(w, mx, my, c00, c01, c11, min_separation,
     version on CPU tensors."""
     if metric not in (0, 1):
         raise ValueError(f"distance_metric must be 0 or 1, got {metric}")
-    if w.device.type == "cuda":
-        run = merge.merge_cuda
-    elif w.device.type == "cpu":
-        run = merge.merge_plain
-    else:
-        raise ValueError(f"no merge kernel for device {w.device}")
+    run = _build.kernel_for(w.device, merge.merge_cuda, merge.merge_plain,
+                            "merge")
     return run(*(c.contiguous() for c in (w, mx, my, c00, c01, c11)),
                float(min_separation), max_out, metric)

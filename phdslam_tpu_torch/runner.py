@@ -1,18 +1,24 @@
-"""Command-line entry point of the static GM-PHD SLAM port.
+"""Command-line entry point of the GM-PHD SLAM port.
 
     python -m phdslam_tpu_torch.runner <config.cfg> synth \\
         --measurements M.txt --controls C.txt --out-dir OUT \\
         [--mode loop|scan] [--device cuda|cpu] [--seed N]
 
+It runs on the GPU (``--device cuda``, the default) and raises when CUDA is
+missing; ``--device cpu`` runs the kernels' plain versions on the CPU.
+
 Mirrors ``phdslam_tpu/runner.py::run_synth``: timestamp-interleaved input
 scheduling when ``*_times.txt`` files exist and lockstep otherwise,
 prediction skipped at step 0, the update only on steps with measurements,
 and the same ``state_estimateXXXXX.log``, ``loopTime.log`` and
-``metrics.jsonl`` files, written by the shared ``io/logs.py``.
+``metrics.jsonl`` files, written by ``io/logs.py`` (the JAX package's log
+format). Under the dynamic and mixed feature models line 3 of each log holds
+the dynamic map.
 
 ``--mode loop`` steps in a Python loop and writes the logs after every step;
 ``--mode scan`` queues the whole run on the device, then writes the logs
-from the stacked per-step outputs. The map in the log is the MAP particle's.
+from the stacked per-step outputs. The maps in the log are the MAP
+particle's.
 """
 
 from __future__ import annotations
@@ -24,10 +30,11 @@ import time
 import numpy as np
 import torch
 
-from phdslam_tpu_torch import _shared
+from phdslam_tpu_torch.config import load_config
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
 from phdslam_tpu_torch.filter.step import (check_supported, log_aux,
                                            run_scan, slam_step)
+from phdslam_tpu_torch.io import loaders, logs
 
 
 def schedule_inputs(n_steps, meas_times, ctrl_times):
@@ -106,8 +113,21 @@ def _step_inputs(sched, controls, rb, labels, valid, cfg, device):
     return out
 
 
+def unpack_cov_channels(ch):
+    """[10, F] channels in the S4 order -> [F, 4, 4] symmetric."""
+    cov = np.zeros((ch.shape[-1], 4, 4), ch.dtype)
+    k = 0
+    for i in range(4):
+        for j in range(i, 4):
+            cov[:, i, j] = cov[:, j, i] = ch[k]
+            k += 1
+    return cov
+
+
 def _write_log(out_dir, t, exp_pose, la, repeat, cfg):
-    """One state_estimate log from host copies of a LogAux."""
+    """One state_estimate log from host copies of a LogAux: the MAP
+    particle's static map on line 2 and, under the dynamic and mixed
+    feature models, its dynamic map on line 3."""
     w = la["map_w"]
     sel = w > 0
     mean = np.stack([la["map_mx"][sel], la["map_my"][sel]], axis=-1)
@@ -115,8 +135,15 @@ def _write_log(out_dir, t, exp_pose, la, repeat, cfg):
     cov[:, 0, 0] = la["map_c00"][sel]
     cov[:, 0, 1] = cov[:, 1, 0] = la["map_c01"][sel]
     cov[:, 1, 1] = la["map_c11"][sel]
-    _shared.write_state_estimate_log(
-        out_dir, t, exp_pose, w[sel], mean, cov,
+    dyn_w = dyn_mean = dyn_cov = None
+    if cfg.featureModel != 0 and la["dyn_w"].shape[-1] > 0:
+        dsel = la["dyn_w"] > 0
+        dyn_w = la["dyn_w"][dsel]
+        dyn_mean = la["dyn_mean"].T[dsel]
+        dyn_cov = unpack_cov_channels(la["dyn_cov"])[dsel]
+    logs.write_state_estimate_log(
+        out_dir, t, exp_pose, w[sel], mean, cov, dynamic_w=dyn_w,
+        dynamic_mean=dyn_mean, dynamic_cov=dyn_cov,
         particle_log_weights=la["log_weights"],
         particle_poses=la["poses"], resample_idx=la["resample_idx"],
         max_cardinality=cfg.maxCardinality, repeat=repeat)
@@ -133,18 +160,18 @@ def run_synth(cfg, args) -> dict:
     meas_path = args.measurements or os.path.join(data_dir,
                                                   "measurements.txt")
     ctrl_path = args.controls or os.path.join(data_dir, "controls.txt")
-    meas_sets = _shared.load_measurements(meas_path,
+    meas_sets = loaders.load_measurements(meas_path,
                                           labeled=cfg.labeledMeasurements)
-    controls = _shared.load_controls(ctrl_path)
-    meas_times = _shared.load_timestamps(
+    controls = loaders.load_controls(ctrl_path)
+    meas_times = loaders.load_timestamps(
         os.path.join(data_dir, "measurement_times.txt"))
-    ctrl_times = _shared.load_timestamps(
+    ctrl_times = loaders.load_timestamps(
         os.path.join(data_dir, "control_times.txt"))
 
     traj = None
     if cfg.followTrajectory:
         # one particle driven along the given trajectory
-        traj = _shared.load_trajectory(os.path.join(data_dir, "traj.txt"))
+        traj = loaders.load_trajectory(os.path.join(data_dir, "traj.txt"))
         cfg = cfg.replace(n_particles=1)
 
     n_steps = len(meas_sets)
@@ -154,7 +181,7 @@ def run_synth(cfg, args) -> dict:
         n_steps = min(n_steps, cfg.nSteps)
     n_steps = min(n_steps, cfg.maxSteps)
 
-    rb, labels, valid = _shared.pad_measurement_sets(meas_sets,
+    rb, labels, valid = loaders.pad_measurement_sets(meas_sets,
                                                      cfg.maxMeasurements)
     out_dir = args.out_dir
     os.makedirs(out_dir, exist_ok=True)
@@ -188,13 +215,13 @@ def run_synth(cfg, args) -> dict:
         aux_h = {k: v.cpu().numpy() for k, v in auxs._asdict().items()}
         la_h = _host(las)
         for t in range(t_valid):
-            _shared.append_loop_time(out_dir, ms)
+            logs.append_loop_time(out_dir, ms)
             if args.no_logs:
                 continue
             la_t = {k: v[t] for k, v in la_h.items()}
             _write_log(out_dir, t, poses[t], la_t,
                        repeat0 if t == 0 else 1, cfg)
-            _shared.append_metrics_jsonl(out_dir, dict(
+            logs.append_metrics_jsonl(out_dir, dict(
                 t=t, ms=ms, neff=float(aux_h["neff"][t]),
                 n_measure=int(aux_h["n_measure"][t]),
                 resampled=bool(aux_h["resampled"][t]),
@@ -205,6 +232,7 @@ def run_synth(cfg, args) -> dict:
                     nan_step=t_valid if t_valid < t_len else None)
 
     poses_out = []
+    z_prev = None
     for t, (ctrl, z, dt, do_predict) in enumerate(steps):
         t0 = time.perf_counter()
         if traj is not None and t < len(traj):
@@ -213,16 +241,17 @@ def run_synth(cfg, args) -> dict:
             do_predict = False
         state, aux = slam_step(state, ctrl, z, dt, do_predict, cfg,
                                generator=generator,
-                               with_variance=args.variance)
+                               with_variance=args.variance, z_prev=z_prev)
+        z_prev = z
         neff_val = float(aux.neff)                   # waits for the device
         elapsed_ms = (time.perf_counter() - t0) * 1000
-        _shared.append_loop_time(out_dir, elapsed_ms)
+        logs.append_loop_time(out_dir, elapsed_ms)
         exp_pose = aux.expected_pose.cpu().numpy()
         la = _host(log_aux(state))
         if not args.no_logs:
             _write_log(out_dir, t, exp_pose, la, repeat0 if t == 0 else 1,
                        cfg)
-        _shared.append_metrics_jsonl(out_dir, dict(
+        logs.append_metrics_jsonl(out_dir, dict(
             t=t, ms=elapsed_ms, neff=neff_val, n_measure=z.count,
             resampled=bool(aux.resampled), log_lik=float(aux.log_lik),
             card=float(la["map_w"].sum())))
@@ -246,8 +275,8 @@ def build_parser():
                     help="'profile' replays the step-100 fixture (not "
                          "ported yet)")
     ap.add_argument("--mode", default="loop", choices=["loop", "scan"])
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the default) or cpu")
     ap.add_argument("--out-dir", default=".")
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--measurements", default=None)
@@ -270,8 +299,11 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.device is None:
-        args.device = "cuda" if torch.cuda.is_available() else "cpu"
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {args.device}: CUDA is not available; pass --device "
+            "cpu to run the kernels' plain versions on the CPU")
     if args.run_type == "disparity":
         raise NotImplementedError(
             "the disparity pipeline is ROADMAP Queue 1 item 12")
@@ -279,7 +311,7 @@ def main(argv=None):
         raise NotImplementedError(
             "profile replay needs the step-100 checkpoint, ROADMAP Queue 1 "
             "item 13")
-    cfg = _shared.load_config(args.config)
+    cfg = load_config(args.config)
     return run_synth(cfg, args)
 
 

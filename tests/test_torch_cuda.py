@@ -8,10 +8,11 @@ no JAX, run them without the suite's JAX conftest:
         tests/test_torch_cuda.py
 
 The shapes are the awkward ones chip_smoke.py does not take: F and K not
-multiples of 32, odd P and cap, k1 from 1 to 8, and pools large enough
-that a CTA needs more than 48 KB of dynamic shared memory. Tolerance
-rtol 2e-4 / atol 1e-5, as in chip_smoke.py; at these sizes no particle
-may differ.
+multiples of 32, odd P and cap, k1 from 1 to 8, n_valid < M, and pools
+large enough that a CTA needs more than 48 KB of dynamic shared memory.
+Tolerance rtol 2e-4 / atol 1e-5, as in chip_smoke.py; at these sizes no
+particle may differ. Payload rows with w = 0 are don't-care (the merge
+skips them) and are compared only where w > 0; indices exactly.
 """
 
 import numpy as np
@@ -19,12 +20,16 @@ import pytest
 import torch
 
 from phdslam_tpu_torch import load_config
-from phdslam_tpu_torch.filter.state import Gaussian2DMixture, Measurements
+from phdslam_tpu_torch.filter.state import (Gaussian2DMixture,
+                                            Gaussian4DMixture, Measurements)
 from phdslam_tpu_torch.filter.state import SlamState
 from phdslam_tpu_torch.filter.step import slam_step
 from phdslam_tpu_torch.filter.update import kalman_preupdate
+from phdslam_tpu_torch.filter.update4 import kalman_preupdate4
 from phdslam_tpu_torch.kernels import merge as G
+from phdslam_tpu_torch.kernels import merge4 as G4
 from phdslam_tpu_torch.kernels import select as S
+from phdslam_tpu_torch.kernels import select4 as S4
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +95,81 @@ def test_select_kernel_matches_plain(dev, P, F, M, k1, raw, nv):
     assert not kern[1][:, nv:].any() and not kern[8][:, nv:].any()
 
 
+@pytest.mark.parametrize("P,F,M,k1,raw,nv", [
+    (37, 45, 11, 1, False, 11),
+    (37, 45, 11, 3, True, 6),
+    (5, 1024, 8, 8, False, 8),      # 60 KB of shared memory per CTA
+])
+def test_select_by_index_matches_plain(dev, P, F, M, k1, raw, nv):
+    cfg, chans, z = _select_inputs(P, F, M, P + F + 1, dev)
+    kw = dict(k1=k1, clutter_birth=float(cfg.clutterDensity
+                                         + cfg.birthWeight),
+              min_weight=float(cfg.minFeatureWeight),
+              gate_threshold=9.0, raw=raw, with_compat=True, by_index=True)
+    n_valid = torch.tensor([nv], dtype=torch.int32, device=dev)
+    before = S.launches_by_index
+    kern = S.select_cuda(chans[:S.N_LOOP], z, n_valid, **kw)
+    assert S.launches_by_index == before + 1
+    plain = S.select_plain(chans[:S.N_LOOP], z, n_valid, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern[0], plain[0], **TOL)
+    torch.testing.assert_close(kern[1], plain[1], **TOL)
+    assert kern[2].dtype == torch.int32 and torch.equal(kern[2], plain[2])
+    assert torch.equal(kern[3], plain[3])
+    # the payload kernel picks the same slots
+    pay = S.select_cuda(chans, z, n_valid, **{**kw, "by_index": False})
+    torch.testing.assert_close(pay[1], kern[1], rtol=0, atol=0)
+
+
+def _select4_inputs(P, F, M, seed, dev):
+    rng = np.random.default_rng(seed)
+    cfg = load_config("cfg/mixed_synth.cfg").replace(
+        n_particles=P, maxFeatures=F, maxMeasurements=M)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    a = rng.normal(size=(P, F, 4, 4)) * 0.5
+    cov = a @ np.swapaxes(a, -1, -2) + 0.2 * np.eye(4)
+    gm = Gaussian4DMixture(
+        w=t((rng.uniform(size=(P, F)) < 0.5)
+            * rng.uniform(0.05, 1.0, (P, F))),
+        mean_channels=t(np.concatenate([rng.uniform(-8, 8, (P, 2, F)),
+                                        rng.normal(0, 0.5, (P, 2, F))], 1)),
+        cov_channels=t(np.stack([cov[..., i, j] for i in range(4)
+                                 for j in range(i, 4)], 1)))
+    pose = t(np.concatenate([rng.normal(0, 0.3, (P, 3)), np.zeros((P, 3))],
+                            1))
+    z = t(np.stack([rng.uniform(0.5, 10, M), rng.uniform(-1.6, 1.6, M)], 1))
+    pre4 = kalman_preupdate4(pose, gm, cfg)
+    loop, gain, mean, cov = S4.select4_channels(pre4, gm)
+    return [c.contiguous() for c in loop], gain, mean, cov, z
+
+
+@pytest.mark.parametrize("P,F,M,k1", [
+    (37, 45, 11, 1), (37, 45, 11, 3), (64, 200, 19, 8),
+    (5, 1024, 8, 8),                # 60 KB of shared memory per CTA
+])
+def test_select4_kernel_matches_plain(dev, P, F, M, k1):
+    loop, gain, mean, cov, z = _select4_inputs(P, F, M, P + F + 2, dev)
+    before = (S4.launches, S4.launches_by_index)
+    kern = S4.select4_cuda(loop, gain, mean, cov, z, k1=k1)
+    idx_k = S4.select4_cuda(loop, None, None, None, z, k1=k1,
+                            by_index=True)
+    assert (S4.launches, S4.launches_by_index) == (before[0] + 1,
+                                                   before[1] + 1)
+    plain = S4.select4_plain(loop, gain, mean, cov, z, k1=k1)
+    idx_p = S4.select4_plain(loop, None, None, None, z, k1=k1,
+                             by_index=True)
+    torch.cuda.synchronize()
+    live = plain[1] > 0
+    assert live.any()
+    torch.testing.assert_close(kern[0], plain[0], **TOL)
+    torch.testing.assert_close(kern[1], plain[1], **TOL)
+    for k, p in zip(kern[2:], plain[2:]):
+        lv = live[:, None].expand_as(p)
+        torch.testing.assert_close(k[lv], p[lv], **TOL)
+    assert torch.equal(idx_k[2], idx_p[2])
+    assert torch.equal(idx_k[1], kern[1]) and torch.equal(idx_k[0], kern[0])
+
+
 def _pool(P, K, seed, dev):
     rng = np.random.default_rng(seed)
     w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
@@ -119,6 +199,38 @@ def test_merge_kernel_matches_plain(dev, P, K, cap, metric, sep):
     assert not kern[0][0].any() and bool((kern[3][0] == 1).all())
 
 
+def _pool4(P, K, seed, dev):
+    rng = np.random.default_rng(seed)
+    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
+    w[0] = 0.0                                     # an empty row
+    a = rng.normal(size=(P, K, 4, 4)) * 0.5
+    cov = a @ np.swapaxes(a, -1, -2) + 0.2 * np.eye(4)
+    mean = np.concatenate([rng.uniform(-10, 10, (P, 2, K)),
+                           rng.normal(0, 0.5, (P, 2, K))], 1)
+    arrs = (w, mean, np.stack([cov[..., i, j] for i in range(4)
+                               for j in range(i, 4)], 1))
+    return [torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            for x in arrs]
+
+
+@pytest.mark.parametrize("P,K,cap,sep", [
+    (37, 97, 13, 5.0),
+    (37, 97, 64, 1.0),
+    (9, 1100, 301, 1.0),            # 66 KB of shared memory per CTA
+])
+def test_merge4_kernel_matches_plain(dev, P, K, cap, sep):
+    pool = _pool4(P, K, P + K, dev)
+    before = G4.launches
+    kern = G4.merge4_cuda(*pool, sep, cap)
+    assert G4.launches == before + 1
+    plain = G4.merge4_plain(*pool, sep, cap)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        torch.testing.assert_close(k, p, **TOL)
+    assert not kern[0][0].any()
+    assert bool((kern[2][0, [0, 4, 7, 9]] == 1).all())
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     pool = _pool(4, 40, 0, dev)
     with pytest.raises(ValueError):
@@ -130,6 +242,24 @@ def test_wrappers_refuse_bad_inputs(dev):
         S.select_cuda(chans, z, torch.tensor([5], device=dev), k1=8,
                       clutter_birth=1.0, min_weight=1e-5,
                       gate_threshold=9.0)                 # int64 n_valid
+    n5 = torch.tensor([5], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                       # 16 channels
+        S.select_cuda(chans, z, n5, k1=8, clutter_birth=1.0,
+                      min_weight=1e-5, gate_threshold=9.0, by_index=True)
+    loop, gain, mean, cov, z4 = _select4_inputs(4, 40, 5, 0, dev)
+    with pytest.raises(ValueError):
+        S4.select4_cuda(loop, gain[:, :4], mean, cov, z4, k1=8)
+    with pytest.raises(ValueError):
+        S4.select4_cuda(loop, gain, mean, cov, z4.cpu(), k1=8)
+    with pytest.raises(ValueError):
+        S4.select4_cuda(loop, gain, mean, cov, z4, k1=33)
+    w, mean4, cov4 = _pool4(4, 40, 0, dev)
+    with pytest.raises(ValueError):
+        G4.merge4_cuda(w, mean4.transpose(1, 2), cov4, 1.0, 8)
+    with pytest.raises(ValueError):
+        G4.merge4_cuda(w, mean4, cov4.double(), 1.0, 8)
+    with pytest.raises(RuntimeError):     # 15 x 4000 floats: 240 KB
+        G4.merge4_cuda(*_pool4(2, 4000, 0, dev), 1.0, 8)
 
 
 def test_slam_step_cuda_matches_cpu(dev):
@@ -159,3 +289,33 @@ def test_slam_step_cuda_matches_cpu(dev):
         torch.testing.assert_close(getattr(gpu.map_static, name),
                                    getattr(cpu.map_static, name),
                                    rtol=2e-4, atol=1e-4)
+
+
+def test_mixed_slam_step_cuda_matches_cpu(dev):
+    """Two steps of the mixed static + dynamic step on the card and on the
+    CPU, from the same state with the same draws."""
+    cfg = load_config("cfg/mixed_synth.cfg").replace(
+        n_particles=32, maxFeatures=32, maxMeasurements=16, y0=0.0)
+    rng = np.random.default_rng(5)
+    states = {d: SlamState.create(cfg, d) for d in ("cpu", dev)}
+    for t in range(2):
+        rb = np.stack([rng.uniform(0.5, 9, 16), rng.uniform(-1.4, 1.4, 16)],
+                      1).astype(np.float32)
+        valid = np.arange(16) < 12
+        normals = torch.as_tensor(rng.normal(size=(1, 32, 2)),
+                                  dtype=torch.float32)
+        u = torch.as_tensor(rng.uniform(size=32), dtype=torch.float32)
+        for d in states:
+            z = Measurements.from_numpy(rb, np.zeros(16, np.int32), valid, d)
+            states[d], _ = slam_step(states[d], (1.0, 0.05), z, 1.0, t > 0,
+                                     cfg, noise=(normals.to(d), u.to(d)))
+    cpu, gpu = states["cpu"], states[dev].to("cpu")
+    torch.testing.assert_close(gpu.pose, cpu.pose, **TOL)
+    torch.testing.assert_close(gpu.log_weights, cpu.log_weights,
+                               rtol=2e-4, atol=1e-4)
+    assert torch.equal(gpu.resample_idx, cpu.resample_idx)
+    for name in ("w", "mean_channels", "cov_channels"):
+        torch.testing.assert_close(getattr(gpu.map_dynamic, name),
+                                   getattr(cpu.map_dynamic, name),
+                                   rtol=2e-4, atol=1e-4)
+    assert float(cpu.map_dynamic.w.sum()) > 0

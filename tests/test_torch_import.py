@@ -1,6 +1,8 @@
 """The port imports without JAX: in a fresh interpreter, import the package
-and every module of it, then check that neither jax nor flax was loaded.
-Nothing is built: no nvcc, triton or CUDA is needed."""
+and every module of it, then check that neither jax nor flax was loaded and
+that no loaded module comes from a file of the JAX package (``phdslam_tpu/``),
+which would catch a module loaded from there by path. Nothing is built: no
+nvcc, triton or CUDA is needed."""
 
 import json
 import os
@@ -16,9 +18,16 @@ names = [m.name for m in pkgutil.walk_packages(
     phdslam_tpu_torch.__path__, "phdslam_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-import torch
+import os, torch
+jax_pkg = os.path.join(os.path.abspath("phdslam_tpu"), "")
 print(json.dumps(dict(
     modules=names,
+    from_jax_pkg=sorted(
+        n for n, m in list(sys.modules.items())
+        if os.path.abspath(getattr(m, "__file__", None) or "").startswith(
+            jax_pkg)),
+    jax_pkg_modules=sorted(m for m in sys.modules
+                           if m.split(".")[0] == "phdslam_tpu"),
     jax=sorted(m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax")),
     tf32=[torch.backends.cuda.matmul.allow_tf32,
@@ -39,11 +48,15 @@ def test_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] == []
+    assert out["from_jax_pkg"] == [] and out["jax_pkg_modules"] == []
     expected = {"phdslam_tpu_torch." + m for m in (
-        "bridge", "runner", "_shared", "filter.state", "filter.predict",
-        "filter.update", "filter.step", "filter.estimate", "ops.linalg",
-        "ops.gm", "ops.resample", "models.measurement", "models.motion",
-        "kernels.select", "kernels.merge", "kernels._build")}
+        "bridge", "runner", "config", "simdata", "io.loaders", "io.logs",
+        "filter.state", "filter.predict", "filter.update", "filter.update4",
+        "filter.step", "filter.estimate", "ops.linalg", "ops.gm",
+        "ops.resample", "models.measurement", "models.motion",
+        "kernels.select", "kernels.select4", "kernels.merge",
+        "kernels.merge4", "kernels._build")}
     assert expected <= set(out["modules"])
+    assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert out["tf32"] == [False, False]
     assert not out["built"]          # importing builds no kernel

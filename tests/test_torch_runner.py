@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from phdslam_tpu_torch import _shared, runner
+from phdslam_tpu_torch import runner, simdata
+from phdslam_tpu_torch.io.logs import read_state_estimate_log
 
 torch.set_num_threads(1)
 
@@ -27,15 +28,15 @@ initial_y = 0.0
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
-    sc = _shared.make_scenario(np.random.default_rng(11), n_landmarks=12,
+    sc = simdata.make_scenario(np.random.default_rng(11), n_landmarks=12,
                                n_steps=T, clutter_rate=2.0)
     # seed 21: every step has a measurement (the shared text loader skips
     # an empty line, which would shift the steps against the truth)
-    controls, meas = _shared.generate_run(np.random.default_rng(21), sc,
+    controls, meas = simdata.generate_run(np.random.default_rng(21), sc,
                                           control_noise=(0.05, 0.005))
     assert all(len(z) for z in meas[:T])
     d = tmp_path_factory.mktemp("simrun")
-    _shared.write_run_files(str(d), controls, meas[:T])
+    simdata.write_run_files(str(d), controls, meas[:T])
     with open("cfg/ackerman_synth.cfg") as f:
         base = f.read()
     (d / "tiny.cfg").write_text(base + TINY)
@@ -65,7 +66,7 @@ def test_runner_log_contract_and_tracking(dataset, tmp_path, mode):
     assert all(np.isfinite(m["neff"]) for m in metrics)
     errs = []
     for t in range(T):
-        log = _shared.read_state_estimate_log(
+        log = read_state_estimate_log(
             str(out / f"state_estimate{t:05d}.log"))
         assert log["weights"].shape == (8,)
         assert log["poses"].shape == (8, 6)
@@ -82,8 +83,8 @@ def test_runner_log_contract_and_tracking(dataset, tmp_path, mode):
 @pytest.mark.parametrize("extra_cfg,extra_args,match", [
     ("filter_type = 1", (), "item 9"),
     ("filter_type = 2", (), "item 11"),
-    ("feature_model = 2", (), "item 10"),
-    ("select_by_index = 1", (), "Queue 2"),
+    ("save_prediction = 1", (), "item 8"),
+    ("", ("--mat-export",), "item 8"),
     ("map_estimate = 3", (), "item 8"),
     ("", ("--truth", "truth.txt"), "item 8"),
     ("", ("--islands", "4"), "item 14"),
@@ -91,8 +92,9 @@ def test_runner_log_contract_and_tracking(dataset, tmp_path, mode):
 ])
 def test_uncovered_branches_raise(dataset, tmp_path, extra_cfg, extra_args,
                                   match):
-    """A branch outside the static slice raises NotImplementedError naming
-    the ROADMAP item that ports it; nothing else runs in its place."""
+    """A branch the port does not cover yet raises NotImplementedError
+    naming the ROADMAP item that ports it; nothing else runs in its
+    place."""
     _, d = dataset
     cfg = tmp_path / "x.cfg"
     cfg.write_text((d / "tiny.cfg").read_text() + "\n" + extra_cfg + "\n")
