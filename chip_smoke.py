@@ -23,6 +23,12 @@ code is not 0:
        same by-index checks
      - merge4: [256, 704] -> 128 at min_sep 1.0, [8192, 1088] -> 512 at
        1.0 and 5.0, an odd P (1001) and an odd cap (77)
+     - merge3: the shipped disparity pool ([64, 496] -> 64), an odd P
+       ([1001, 496] -> 64) and the dense pool ([8192, 560] -> 128), each
+       timed beside its bound, min_sep 4
+     - esf: [1024, 64], [256, 64], [1001, 48] with 9 trailing -inf slots,
+       [7, 1] and [64, 256], each timed beside its bound; finite entries
+       compared, the -1e30 sentinel in the same places
      Values are held to rtol 2e-4 / atol 1e-5 (payload only where w > 0;
      indices exactly); a particle whose outputs miss that (a near-tie
      picked in another order) is counted, and a check fails above 0.1 % of
@@ -43,21 +49,41 @@ code is not 0:
      it, the four kernels against their plain versions on the last launch;
      then 40 steps with select_by_index = 1, which must launch the two
      by-index kernels once per update step and the payload kernels never
-  5. dense step - 8192 x 512 x 64 (the static cfg at bench.py's dense
+  5. disparity main path - the runner (loop mode, --device cuda) on
+     cfg/disparity_synth.cfg (64 particles x 64 slots x 64 cloud points x
+     48 measurements) over data/disparity_synth/ (100 steps): the log
+     contract (12-DOF pose, map stride 13), merge3 launched once per step
+     with measurements and no other kernel, mean camera position error
+     against traj.txt below 1.5 m, merge3 against plain on the last launch
+  6. CPHD main path - the runner (loop mode) on cfg/ackerman_synth.cfg
+     with filter_type = 1 (256 x 128 x 64, max_cardinality 255) over the
+     static phase's 330-step run: esf, select (raw) and merge launched
+     once per update step, mean pose error below 1.5 m, every cardinality
+     line a normalised log-pmf (exp finite, logsumexp 0 within 1e-3), the
+     three kernels against plain on their last launches
+  7. dense step - 8192 x 512 x 64 (the static cfg at bench.py's dense
      shape and stress stream): 3 warm-up steps, 16 timed with CUDA events,
      split into pre-update and glue, select and merge; then both kernels
      against their plain versions on the last step's own inputs
-  6. dense mixed step - cfg/mixed_synth.cfg with the same overrides and
+  8. dense mixed step - cfg/mixed_synth.cfg with the same overrides and
      stream: the same timing, split into glue, select, select4, merge and
      merge4, then the four kernels against plain on the last step's inputs
-  7. the card's name and power limit, the kernels' JSON line, then
+  9. dense CPHD and disparity steps - stress shapes, as the dense static
+     and mixed ones: CPHD at BASELINE config 3's shape (1024 x 128 x 64,
+     max_cardinality 127, gate_births 1 at 9.0, the dense overrides) on the
+     stress stream, split into glue, select, esf and merge; disparity at
+     8192 particles x 128 slots x 64 points x 48 measurements (clouds
+     805 MB) on the shipped measurement stream, split into glue and merge3;
+     the kernels against plain on the last step's inputs
+ 10. the card's name and power limit, the kernels' JSON line, then
      {"ok": true, "device": {...}} last
 
     python3 chip_smoke.py --profile
 
 adds, before the JSON lines, a torch.profiler pass over the static step at
-the dense and the shipped shape: host wall time, the device's busy share
-and the ops with the most device time (the breakdown in PERF.md).
+the dense and the shipped shape, the dense CPHD step and the dense
+disparity step: host wall time, the device's busy share and the ops with
+the most device time (the breakdown in PERF.md).
 """
 
 from __future__ import annotations
@@ -94,6 +120,18 @@ MERGE4_CASES = [                    # (P, K, cap, min_separation)
     (1001, 1088, 512, 1.0),         # odd P
     (512, 1088, 77, 1.0),           # odd cap
 ]
+MERGE3_CASES = [                    # (P, K, cap, min_separation)
+    (8192, 560, 128, 4.0),          # dense: 128 + 48 x 8 + 48 candidates
+    (64, 496, 64, 4.0),             # the shipped disparity pool
+    (1001, 496, 64, 4.0),           # odd P
+]
+ESF_CASES = [                       # (P, M, trailing -inf slots)
+    (1024, 64, 0),                  # the dense CPHD shape
+    (256, 64, 0),                   # the shipped CPHD shape
+    (1001, 48, 9),
+    (7, 1, 0),
+    (64, 256, 0),
+]
 RUN_STEPS = 330
 POSE_BAR_M = 1.5
 MIXED_LANDMARKS, MIXED_STEPS = 40, 150
@@ -103,6 +141,10 @@ MOVER_V = np.array([[-0.22, -0.10], [0.20, -0.12], [-0.14, 0.18]])
 MIXED_POSE_BAR_M = 2.0
 MOVER_SHARE = 0.5                   # settled mover steps confirmed, at least
 BY_INDEX_STEPS = 40
+DISP_POSE_BAR_M = 1.5
+DENSE_CPHD = dict(P=1024, F=128, M=64)
+DENSE_DISP = dict(P=8192, F=128, M=48)
+DISP_WARMUP = 8                     # fills the dense disparity map first
 WARMUP, TIMED = 3, 16
 PROFILE_WARMUP, PROFILED, PROFILE_ROWS = 8, 4, 12
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
@@ -118,6 +160,13 @@ SELECT_TRIPLE_OPS = 20
 # 4x4 Cholesky (4 sqrt, 6 divides, ~20 others), the triangular solve (4
 # divides, ~12 others), the squared norm (7), the compares
 MERGE_TEST_OPS, MERGE4_TEST_OPS = 24, 80
+# 3-D: the averaged covariance (12), determinant and adjugate (27), the
+# quadratic form (15), the divide and the compares
+MERGE3_TEST_OPS = 60
+# one logaddexp of the ESF build-up: the add of ll_j, max, min, sub, exp,
+# log1p, add; the exp and log1p counted as one operation each (the special
+# function units run them at a quarter of this rate: an optimistic bound)
+LAE_OPS = 7
 KERNELS = (                         # name, source, the TPU kernel replaced
     ("select", "phdslam_tpu_torch/csrc/select.cu",
      "phdslam_tpu/kernels/preupdate_pallas.py:274"),
@@ -131,6 +180,10 @@ KERNELS = (                         # name, source, the TPU kernel replaced
      "phdslam_tpu/kernels/merge_pallas.py:331"),
     ("merge4", "phdslam_tpu_torch/csrc/merge4.cu",
      "phdslam_tpu/kernels/merge_pallas.py:546"),
+    ("merge3", "phdslam_tpu_torch/csrc/merge3.cu",
+     "phdslam_tpu/kernels/merge_pallas.py:685"),
+    ("esf", "phdslam_tpu_torch/csrc/esf.cu",
+     "phdslam_tpu/kernels/esf_pallas.py:85"),
 )
 
 
@@ -164,23 +217,25 @@ def cuda_ms(fn, reps, warmup=1):
 
 
 def _mods():
-    from phdslam_tpu_torch.kernels import merge, merge4, select, select4
-    return select, select4, merge, merge4
+    from phdslam_tpu_torch.kernels import (esf, merge, merge3, merge4,
+                                           select, select4)
+    return select, select4, merge, merge4, merge3, esf
 
 
 def launch_counts():
     """Every kernel's launch count, by the names of the JSON line."""
-    S, S4, G, G4 = _mods()
+    S, S4, G, G4, G3, E = _mods()
     return dict(select=S.launches, select_by_index=S.launches_by_index,
                 select4=S4.launches, select4_by_index=S4.launches_by_index,
-                merge=G.launches, merge4=G4.launches)
+                merge=G.launches, merge4=G4.launches, merge3=G3.launches,
+                esf=E.launches)
 
 
 def zero_launch_counts():
-    S, S4, G, G4 = _mods()
+    S, S4, G, G4, G3, E = _mods()
     S.launches = S.launches_by_index = 0
     S4.launches = S4.launches_by_index = 0
-    G.launches = G4.launches = 0
+    G.launches = G4.launches = G3.launches = E.launches = 0
 
 
 def bound(stats, name, n_bytes, n_ops):
@@ -636,6 +691,122 @@ def phase_merge4(dev, stats):
     log(f"phase merge4: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+# ------------------------------------------------------ phase 2: merge3 --
+
+def random_pool3(P, K, seed, dev):
+    """A seeded disparity-space pool: ~60 % live weights, (u, v) in a
+    100-pixel box and d in [50, 300] (so that neighbours merge at min_sep
+    4), random positive definite covariances of a few pixels."""
+    import torch
+    from phdslam_tpu_torch.kernels.merge3 import PAIRS
+    rng = np.random.default_rng(seed)
+    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
+    a = rng.normal(size=(3, 3, P, K)).astype(np.float32) \
+        * np.array([4.0, 4.0, 20.0], np.float32)[:, None, None, None]
+    cov = [(a[i] * a[j]).sum(0) + (np.array([4.0, 4.0, 25.0])[i]
+                                   if i == j else 0.0) for i, j in PAIRS]
+    arrs = [w, rng.uniform(300, 400, (P, K)), rng.uniform(200, 300, (P, K)),
+            rng.uniform(50, 300, (P, K))] + cov
+    return [torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            for x in arrs]
+
+
+def merge3_tests(pool, sep, cap):
+    import torch
+    from phdslam_tpu_torch.kernels.merge3 import mahalanobis3
+    w, means, covs = pool[0], pool[1:4], pool[4:]
+
+    def near(pick):
+        take = lambda a: torch.gather(a, 1, pick)
+        return mahalanobis3([0.5 * (take(c) + c) for c in covs],
+                            [take(m) - m for m in means]) < sep
+    return candidate_tests(w, near, cap)
+
+
+def phase_merge3(dev, stats):
+    G3 = _mods()[4]
+    t0 = time.perf_counter()
+    _new_stats(stats, "merge3")
+    for i, (P, K, cap, sep) in enumerate(MERGE3_CASES):
+        pool = random_pool3(P, K, 40 + i, dev)
+        kern = G3.merge3_cuda(*pool, sep, cap)
+        plain = G3.merge3_plain(*pool, sep, cap)
+        n_bad, err = compare_rows(kern, plain)
+        _err(stats, "merge3", err)
+        _limit(n_bad, P, f"merge3 [{P}, {K}] -> {cap}")
+        case = dict(ms=cuda_ms(lambda: G3.merge3_cuda(*pool, sep, cap), 5),
+                    plain_ms=cuda_ms(lambda: G3.merge3_plain(*pool, sep,
+                                                             cap), 2),
+                    library_ms=None)
+        tests = merge3_tests(pool, sep, cap)
+        one = {"merge3": case}
+        bound(one, "merge3", 4 * 10 * P * (K + cap), tests * MERGE3_TEST_OPS)
+        log(f"merge3 [{P}, {K}] -> {cap} min_sep {sep}: particles differing "
+            f"{n_bad}/{P}, max_abs_err {err:.3e}, live slots "
+            f"{int((plain[0] > 0).sum(1).max())} max; {case['ms']:.4f} ms "
+            f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.4f}"
+            f" ms by {case['bound_by']}, {tests} candidate tests)")
+        if i == 0:                  # the dense pool goes to the JSON line
+            stats["merge3"].update(case)
+    log(f"phase merge3: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# --------------------------------------------------------- phase 2: esf --
+
+def esf_agree(kern, plain):
+    """(esf, esfd) per particle: entries finite in either version within
+    rtol/atol (so a sentinel, below -1e29, in one version only, or a NaN,
+    makes its particle differ); entries that are the sentinel in both are
+    not compared. Returns (particles that differ, max abs error over the
+    others)."""
+    import torch
+    live = [(p > -1e29) | (k > -1e29) | torch.isnan(k)
+            for k, p in zip(kern, plain)]
+    return compare_rows(kern, plain, live)
+
+
+def esf_logaddexps(ll):
+    """The logaddexps the ESF build-up needs on these inputs: with n live
+    (finite) measurements, the full set takes n (n + 1) / 2 coefficient
+    updates and each of the n sets with a live measurement deleted
+    (n - 1) n / 2; a deleted padded slot's set is the full one."""
+    n = (ll > -1e30).sum(1).double()
+    return int((n * (n - 1) * n / 2 + n * (n + 1) / 2).sum())
+
+
+def phase_esf(dev, stats):
+    import torch
+    E = _mods()[5]
+    t0 = time.perf_counter()
+    _new_stats(stats, "esf")
+    for i, (P, M, pad) in enumerate(ESF_CASES):
+        rng = np.random.default_rng(50 + i)
+        # log Lambda_m as the CPHD update makes them: log detection mass +
+        # log(clutter rate / clutter density), a few units around 0
+        ll = rng.normal(-1.0, 2.0, (P, M)).astype(np.float32)
+        if pad:
+            ll[:, M - pad:] = -np.inf
+        ll = torch.as_tensor(ll, device=dev)
+        kern = E.esf_all_cuda(ll)
+        plain = E.esf_all_plain(ll)
+        n_bad, err = esf_agree(kern, plain)
+        _err(stats, "esf", err)
+        _limit(n_bad, P, f"esf [{P}, {M}]")
+        case = dict(ms=cuda_ms(lambda: E.esf_all_cuda(ll), 10),
+                    plain_ms=cuda_ms(lambda: E.esf_all_plain(ll), 3),
+                    library_ms=None)
+        n_lae = esf_logaddexps(ll)
+        one = {"esf": case}
+        bound(one, "esf", 4 * P * (M + (M + 1) + M * M), n_lae * LAE_OPS)
+        log(f"esf [{P}, {M}] ({pad} padded slots): particles differing "
+            f"{n_bad}/{P}, max_abs_err {err:.3e}; {case['ms']:.4f} ms "
+            f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.4f}"
+            f" ms by {case['bound_by']}, {n_lae} logaddexps)")
+        if i == 0:                  # the dense CPHD shape goes to the JSON
+            stats["esf"].update(case)
+    log(f"phase esf: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # --------------------------------------------- the kernels on real inputs --
 
 class _KernelTimer:
@@ -673,20 +844,23 @@ class _KernelTimer:
 
 def timers():
     """One _KernelTimer per kernel wrapper: select (both modes), select4
-    (both modes), merge, merge4."""
-    S, S4, G, G4 = _mods()
+    (both modes), merge, merge4, merge3, esf."""
+    S, S4, G, G4, G3, E = _mods()
     return dict(select=_KernelTimer(S, "select_cuda"),
                 select4=_KernelTimer(S4, "select4_cuda"),
                 merge=_KernelTimer(G, "merge_cuda"),
-                merge4=_KernelTimer(G4, "merge4_cuda"))
+                merge4=_KernelTimer(G4, "merge4_cuda"),
+                merge3=_KernelTimer(G3, "merge3_cuda"),
+                esf=_KernelTimer(E, "esf_all_cuda"))
 
 
 def agree_on_last_args(tm, stats, what):
     """Run every kernel the timers saw, and its plain version, again on the
     arguments of its last launch."""
-    S, S4, G, G4 = _mods()
+    S, S4, G, G4, G3, E = _mods()
     plain_of = dict(select=S.select_plain, select4=S4.select4_plain,
-                    merge=G.merge_plain, merge4=G4.merge4_plain)
+                    merge=G.merge_plain, merge4=G4.merge4_plain,
+                    merge3=G3.merge3_plain, esf=E.esf_all_plain)
     parts = []
     for name, t in tm.items():
         if t.last_args is None:
@@ -700,11 +874,14 @@ def agree_on_last_args(tm, stats, what):
             n_bad, err = select_outputs_agree(kern, plain)
         elif name == "select4":
             n_bad, err = select4_outputs_agree(kern, plain)
+        elif name == "esf":
+            n_bad, err = esf_agree(kern, plain)
         else:
             n_bad, err = compare_rows(kern, plain)
         P = kern[0].shape[0]
         key = name + ("_by_index" if by else "")
         _limit(n_bad, P, f"{key} ({what} inputs)")
+        _new_stats(stats, key)
         _err(stats, key, err)
         parts.append(f"{key} {'x'.join(map(str, kern[1].shape))} "
                      f"{n_bad}/{P} (max_abs_err {err:.3e})")
@@ -712,22 +889,32 @@ def agree_on_last_args(tm, stats, what):
         + "; ".join(parts))
 
 
-def run_runner(d, cfg_text, steps_cfg, dev, tm):
-    """The runner in loop mode on the run files in d, with every launch
-    count set to 0 just before; returns (launch counts, run seconds, out
-    dir)."""
+def run_cli(args, tm):
+    """runner.main(args) with every launch count set to 0 just before and
+    every timer on; returns (launch counts, run seconds)."""
+    from contextlib import ExitStack
+
     from phdslam_tpu_torch import runner
+    zero_launch_counts()
+    t_run = time.perf_counter()
+    with ExitStack() as stack:
+        for t in tm.values():
+            stack.enter_context(t)
+        runner.main(args)
+    return launch_counts(), time.perf_counter() - t_run
+
+
+def run_runner(d, cfg_text, steps_cfg, dev, tm):
+    """The synth runner in loop mode on the run files in d; returns (launch
+    counts, run seconds, out dir)."""
     Path(d, "run.cfg").write_text(cfg_text + steps_cfg)
     out = Path(d, f"out{len(list(Path(d).glob('out*')))}")
     args = [str(Path(d, "run.cfg")), "synth", "--measurements",
             str(Path(d, "measurements.txt")), "--controls",
             str(Path(d, "controls.txt")), "--data-dir", str(d),
             "--out-dir", str(out), "--mode", "loop", "--device", dev.type]
-    zero_launch_counts()
-    t_run = time.perf_counter()
-    with tm["select"], tm["select4"], tm["merge"], tm["merge4"]:
-        runner.main(args)
-    return launch_counts(), time.perf_counter() - t_run, out
+    launches, run_s = run_cli(args, tm)
+    return launches, run_s, out
 
 
 def check_launches(launches, expect, what):
@@ -774,7 +961,8 @@ def phase_main_path(dev, stats):
         raise RuntimeError("log contract incomplete")
     check_launches(launches, dict(select=n_update, merge=n_update,
                                   select_by_index=0, select4=0,
-                                  select4_by_index=0, merge4=0),
+                                  select4_by_index=0, merge4=0, merge3=0,
+                                  esf=0),
                    "static main path")
     if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
         raise RuntimeError(f"mean pose error {errs.mean():.3f} m is not "
@@ -858,7 +1046,7 @@ def phase_mixed_main_path(dev, stats):
         check_launches(launches, dict(select=n_steps, select4=n_steps,
                                       merge=n_steps, merge4=n_steps,
                                       select_by_index=0,
-                                      select4_by_index=0),
+                                      select4_by_index=0, merge3=0, esf=0),
                        "mixed main path")
         if not np.isfinite(errs).all() or errs.mean() >= MIXED_POSE_BAR_M:
             raise RuntimeError(f"mixed: mean pose error {errs.mean():.3f} "
@@ -869,7 +1057,7 @@ def phase_mixed_main_path(dev, stats):
                                f"{MOVER_SHARE}")
         agree_on_last_args(tm, stats, "mixed main path")
         log(f"mixed main path kernels (CUDA events, ms/step): " + ", ".join(
-            f"{k} {t.ms() / n_steps:.4f}" for k, t in tm.items()))
+            f"{k} {t.ms() / n_steps:.4f}" for k, t in tm.items() if t.pairs))
         for k in ("select4", "merge4"):
             stats[k]["launches"] = launches[k]
 
@@ -894,7 +1082,118 @@ def phase_mixed_main_path(dev, stats):
     log(f"phase mixed main path: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-# ------------------------------------------ phases 5 and 6: dense steps --
+# --------------------------------------- phase 5: disparity main path --
+
+def phase_disparity_main_path(dev, stats):
+    from phdslam_tpu_torch.io.logs import read_state_estimate_log
+
+    t0 = time.perf_counter()
+    data = ROOT / "data/disparity_synth"
+    traj = np.loadtxt(data / "traj.txt", comments="%")
+    tm = timers()
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d, "out")
+        launches, run_s = run_cli(
+            [str(ROOT / "cfg/disparity_synth.cfg"), "disparity",
+             "--data-dir", str(data), "--out-dir", str(out), "--mode",
+             "loop", "--device", dev.type], tm)
+        loop_ms = np.loadtxt(out / "loopTime.log")
+        n_steps = len(loop_ms)
+        metrics = [json.loads(x) for x in
+                   (out / "metrics.jsonl").read_text().splitlines()]
+        logs = [read_state_estimate_log(str(out / f"state_estimate{t:05d}"
+                                            ".log")) for t in range(n_steps)]
+    n_update = sum(m["n_measure"] > 0 for m in metrics)
+    errs = np.array([np.linalg.norm(lg["pose"][:3] - traj[t, :3])
+                     for t, lg in enumerate(logs)])
+    n_map = np.array([len(lg["static"]) for lg in logs])
+    log(f"disparity main path: {n_steps} steps, launches {launches} (steps "
+        f"with measurements {n_update}), camera position error mean "
+        f"{errs.mean():.3f} m max {errs.max():.3f} m, MAP features logged "
+        f"mean {n_map.mean():.1f}, {loop_ms.mean():.3f} ms/step (median "
+        f"{np.median(loop_ms):.3f}, incl. per-step log host copies), run "
+        f"{run_s:.1f} s")
+    if n_steps != len(traj) or not all(
+            lg["pose"].shape == (12,) and lg["static"].shape[1] == 13
+            for lg in logs if len(lg["static"])) or n_map.max() == 0:
+        raise RuntimeError("disparity log contract incomplete")
+    check_launches(launches, dict(merge3=n_update, select=0, merge=0,
+                                  select_by_index=0, select4=0,
+                                  select4_by_index=0, merge4=0, esf=0),
+                   "disparity main path")
+    if not np.isfinite(errs).all() or errs.mean() >= DISP_POSE_BAR_M:
+        raise RuntimeError(f"disparity: mean camera error {errs.mean():.3f}"
+                           f" m is not below {DISP_POSE_BAR_M} m")
+    agree_on_last_args(tm, stats, "disparity main path")
+    log(f"disparity main path kernels: merge3 "
+        f"{tm['merge3'].ms() / n_steps:.4f} ms/step (CUDA events)")
+    stats["merge3"]["launches"] = launches["merge3"]
+    stats["disparity_ms_per_step"] = float(loop_ms.mean())
+    log(f"phase disparity main path: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# -------------------------------------------- phase 6: CPHD main path --
+
+def phase_cphd_main_path(dev, stats):
+    from phdslam_tpu_torch import simdata
+    from phdslam_tpu_torch.io.logs import read_state_estimate_log
+
+    t0 = time.perf_counter()
+    sc = simdata.make_scenario(np.random.default_rng(0), n_steps=RUN_STEPS)
+    controls, meas = simdata.generate_run(np.random.default_rng(1), sc,
+                                          control_noise=(0.2, 0.01))
+    n_steps = len(meas)
+    tm = timers()
+    with tempfile.TemporaryDirectory() as d:
+        simdata.write_run_files(d, controls, meas)
+        x0, y0, yaw0 = sc.traj[0]
+        launches, run_s, out = run_runner(
+            d, (ROOT / "cfg/ackerman_synth.cfg").read_text(),
+            f"\ninitial_x = {x0}\ninitial_y = {y0}\ninitial_yaw = {yaw0}\n"
+            "filter_type = 1\n", dev, tm)
+        loop_ms = np.loadtxt(out / "loopTime.log")
+        logs = [read_state_estimate_log(str(out / f"state_estimate{t:05d}"
+                                            ".log")) for t in range(n_steps)]
+    errs = np.array([np.linalg.norm(lg["pose"][:2] - sc.traj[t, :2])
+                     for t, lg in enumerate(logs)])
+    cn = np.stack([lg["cardinality"] for lg in logs])       # [T, N+1]
+    with np.errstate(over="ignore"):
+        pmf = np.exp(cn.astype(np.float64))
+    lse = np.log(pmf.sum(1))
+    e_n = (pmf * np.arange(cn.shape[1])).sum(1)
+    log(f"CPHD main path: {n_steps} steps, launches {launches}, pose error "
+        f"mean {errs.mean():.3f} m max {errs.max():.3f} m, cardinality "
+        f"lines {cn.shape}, |logsumexp| max {np.abs(lse).max():.2e}, E[n] "
+        f"of the MAP particle last {e_n[-1]:.2f} (mean {e_n.mean():.2f}), "
+        f"{loop_ms.mean():.3f} ms/step (median {np.median(loop_ms):.3f}), "
+        f"run {run_s:.1f} s")
+    if len(loop_ms) != n_steps or cn.shape[1] != 256:
+        raise RuntimeError("CPHD log contract incomplete")
+    # a -inf entry is a zero probability (the Poisson prior of an empty
+    # in-range submap): the check is on the pmf
+    if not np.isfinite(pmf).all() or np.isnan(cn).any() \
+            or np.abs(lse).max() > 1e-3:
+        raise RuntimeError("CPHD: a cardinality line is not a normalised "
+                           "log-pmf")
+    # every step of this run has measurements, so every step updates
+    check_launches(launches, dict(esf=n_steps, select=n_steps,
+                                  merge=n_steps, select_by_index=0,
+                                  select4=0, select4_by_index=0, merge4=0,
+                                  merge3=0), "CPHD main path")
+    if not tm["select"].last_args[1].get("raw"):
+        raise RuntimeError("CPHD: the select kernel ran outside raw mode")
+    if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
+        raise RuntimeError(f"CPHD: mean pose error {errs.mean():.3f} m is "
+                           f"not below {POSE_BAR_M} m")
+    agree_on_last_args(tm, stats, "CPHD main path")
+    log(f"CPHD main path kernels (CUDA events, ms/step): " + ", ".join(
+        f"{k} {t.ms() / n_steps:.4f}" for k, t in tm.items() if t.pairs))
+    stats["esf"]["launches"] = launches["esf"]
+    stats["cphd_ms_per_step"] = float(loop_ms.mean())
+    log(f"phase CPHD main path: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------------ phases 7-9: dense steps --
 
 def stress_inputs(cfg, n_steps, seed=0):
     """bench.py's clutter-heavy stream (make_stress_inputs), same seed and
@@ -915,9 +1214,10 @@ def stress_inputs(cfg, n_steps, seed=0):
 
 
 def stress_stepper(shape, n_steps, dev, dense=True,
-                   cfg_file="cfg/ackerman_synth.cfg"):
+                   cfg_file="cfg/ackerman_synth.cfg", **overrides):
     """(cfg, state, step(state, t)) for a shipped cfg at a shape on the
-    stress stream; dense adds bench.py's dense_stress_config overrides."""
+    stress stream; dense adds bench.py's dense_stress_config overrides,
+    then the given cfg overrides."""
     import torch
     from phdslam_tpu_torch import load_config
     from phdslam_tpu_torch.filter.state import Measurements, SlamState
@@ -928,6 +1228,7 @@ def stress_stepper(shape, n_steps, dev, dense=True,
         maxMeasurements=shape["M"])
     if dense:
         cfg = cfg.replace(y0=0.0, birthWeight=1e-3, clutterRate=50.0)
+    cfg = cfg.replace(**overrides)
     rb, valid, controls = stress_inputs(cfg, n_steps)
     label = np.zeros((cfg.maxMeasurements,), np.int32)
     zs = [Measurements.from_numpy(rb[t], label, valid[t], dev)
@@ -943,19 +1244,25 @@ def stress_stepper(shape, n_steps, dev, dense=True,
     return cfg, SlamState.create(cfg, dev), step
 
 
-def dense_run(dev, stats, cfg_file, what):
+def timed_steps(stats, state, step, warmup, what, shape):
+    """warmup steps, then TIMED steps with CUDA events around the whole
+    and around every kernel launch (glue is the remainder); logs the split
+    and checks every kernel against its plain version on the last timed
+    step's own inputs (real pools hold exact weight ties, e.g. births of
+    measurements no feature explains). Returns (state, ms/step)."""
     import torch
-    n = WARMUP + TIMED
-    _, state, step = stress_stepper(DENSE, n, dev, cfg_file=cfg_file)
-    for t in range(WARMUP):
+    from contextlib import ExitStack
+    for t in range(warmup):
         state, aux = step(state, t)
     torch.cuda.synchronize()
     tm = timers()
-    with tm["select"], tm["select4"], tm["merge"], tm["merge4"]:
+    with ExitStack() as stack:
+        for tmr in tm.values():
+            stack.enter_context(tmr)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for t in range(WARMUP, n):
+        for t in range(warmup, warmup + TIMED):
             state, aux = step(state, t)
         end.record()
         torch.cuda.synchronize()
@@ -963,20 +1270,25 @@ def dense_run(dev, stats, cfg_file, what):
     k_ms = {k: t.ms() / TIMED for k, t in tm.items() if t.pairs}
     glue_ms = step_ms - sum(k_ms.values())
     neff = float(aux.neff)
-    live = int((state.map_static.w > 0).sum(1).max())
-    live4 = int((state.map_dynamic.w > 0).sum(1).max()) \
-        if state.map_dynamic.w.shape[1] else 0
-    log(f"{what} {DENSE['P']}x{DENSE['F']}x{DENSE['M']}: {step_ms:.3f} "
-        f"ms/step = pre-update and glue {glue_ms:.3f} + " + " + ".join(
+    log(f"{what} {shape}: {step_ms:.3f} ms/step = pre-update and glue "
+        f"{glue_ms:.3f} + " + " + ".join(
             f"{k} kernel {v:.3f}" for k, v in k_ms.items())
-        + f" (neff {neff:.4f}, max live map slots {live} static, {live4} "
-        "dynamic)")
-    # the kernels against their plain versions on the last timed step's
-    # own inputs (real pools hold exact weight ties, e.g. births of
-    # measurements no feature explains)
+        + f" (neff {neff:.4f})")
     agree_on_last_args(tm, stats, what)
     if not np.isfinite(neff) or glue_ms < 0:
         raise RuntimeError(f"{what}: neff {neff}, glue {glue_ms} ms")
+    return state, step_ms
+
+
+def dense_run(dev, stats, cfg_file, what):
+    _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev,
+                                    cfg_file=cfg_file)
+    state, step_ms = timed_steps(stats, state, step, WARMUP, what,
+                                 f"{DENSE['P']}x{DENSE['F']}x{DENSE['M']}")
+    live = int((state.map_static.w > 0).sum(1).max())
+    live4 = int((state.map_dynamic.w > 0).sum(1).max()) \
+        if state.map_dynamic.w.shape[1] else 0
+    log(f"{what}: max live map slots {live} static, {live4} dynamic")
     return step_ms
 
 
@@ -996,11 +1308,80 @@ def phase_dense(dev, stats, gpu):
     log(f"phase dense mixed: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+def disparity_stepper(shape, n_steps, dev):
+    """(state, step(state, t)) of the disparity cfg widened to shape on the
+    shipped measurement stream (data/disparity_synth/), with the runner's
+    initial roll and yaw jitter."""
+    import torch
+    from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.filter.disparity import (DisparityState,
+                                                    disparity_step)
+    from phdslam_tpu_torch.filter.state import Measurements
+    from phdslam_tpu_torch.io import loaders
+
+    cfg = load_config(str(ROOT / "cfg/disparity_synth.cfg")).replace(
+        n_particles=shape["P"], maxFeatures=shape["F"],
+        maxMeasurements=shape["M"])
+    sets = loaders.load_measurements(
+        str(ROOT / "data/disparity_synth/measurements.txt"))[:n_steps]
+    rb, labels, valid = loaders.pad_measurement_sets(sets,
+                                                     cfg.maxMeasurements)
+    zs = [Measurements.from_numpy(rb[t], labels[t], valid[t], dev)
+          for t in range(len(sets))]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = DisparityState.create(cfg, dev)
+    jitter = torch.rand((cfg.n_particles, 2), generator=gen,
+                        device=dev) * 0.06 - 0.03
+    pose = state.pose.clone()
+    pose[:, 3] += jitter[:, 0]
+    pose[:, 5] += jitter[:, 1]
+
+    def step(st, t):
+        return disparity_step(st, zs[t], float(cfg.dt), t > 0, cfg,
+                              generator=gen)
+
+    return state.replace(pose=pose), step
+
+
+def phase_dense_cphd_disparity(dev, stats, gpu):
+    """The two stress shapes of this slice (not shipped cfgs): CPHD at
+    BASELINE config 3's shape and the disparity step at 8192 particles."""
+    import torch
+    t0 = time.perf_counter()
+    _, state, step = stress_stepper(
+        DENSE_CPHD, WARMUP + TIMED, dev, filterType=1, maxCardinality=127,
+        gateBirths=True, gateThreshold=9.0)
+    state, ms = timed_steps(stats, state, step, WARMUP, "dense CPHD step",
+                            "x".join(str(DENSE_CPHD[k]) for k in "PFM")
+                            + " N+1=128")
+    stats["dense_cphd_ms_per_step"] = ms
+    log(f"dense CPHD step: max live map slots "
+        f"{int((state.map_static.w > 0).sum(1).max())}")
+    log(f"phase dense CPHD: ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = disparity_stepper(DENSE_DISP, DISP_WARMUP + TIMED, dev)
+    state, ms = timed_steps(stats, state, step, DISP_WARMUP,
+                            "dense disparity step",
+                            "x".join(str(DENSE_DISP[k]) for k in "PFM")
+                            + " x 64 points")
+    stats["dense_disparity_ms_per_step"] = ms
+    log(f"dense disparity step: max live map slots "
+        f"{int((state.w > 0).sum(1).max())}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"dense timing on {gpu}: CPHD step "
+        f"{stats['dense_cphd_ms_per_step']:.3f} ms, disparity step "
+        f"{stats['dense_disparity_ms_per_step']:.3f} ms")
+    log(f"phase dense disparity: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ---------------------------------------------------- optional: --profile --
 
 def phase_profile(dev):
-    """torch.profiler over PROFILED steps of the static step at the dense
-    and the shipped shape (stress stream), after PROFILE_WARMUP steps.
+    """torch.profiler over PROFILED steps, after PROFILE_WARMUP steps, of
+    the static step at the dense and the shipped shape (stress stream), the
+    dense CPHD step and the dense disparity step (phase 9's shapes).
     Prints the host wall time per step (without the profiler), the device's
     busy share of the profiled window (the union of its kernel and copy
     intervals) and the ops and kernels with the most device time."""
@@ -1010,9 +1391,17 @@ def phase_profile(dev):
 
     t0 = time.perf_counter()
     n = PROFILE_WARMUP + 2 * PROFILED
-    for name, shape, dense in (("dense", DENSE, True),
-                               ("shipped", SHIPPED, False)):
-        _, state, step = stress_stepper(shape, n, dev, dense)
+    cases = (
+        ("dense", DENSE, lambda: stress_stepper(DENSE, n, dev)[1:]),
+        ("shipped", SHIPPED,
+         lambda: stress_stepper(SHIPPED, n, dev, False)[1:]),
+        ("dense CPHD", DENSE_CPHD, lambda: stress_stepper(
+            DENSE_CPHD, n, dev, filterType=1, maxCardinality=127,
+            gateBirths=True, gateThreshold=9.0)[1:]),
+        ("dense disparity", DENSE_DISP,
+         lambda: disparity_stepper(DENSE_DISP, n, dev)))
+    for name, shape, make in cases:
+        state, step = make()
         for t in range(PROFILE_WARMUP):
             state, _ = step(state, t)
         torch.cuda.synchronize()
@@ -1064,8 +1453,9 @@ def main(argv=None):
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the dense and shipped-shape step "
-                    "with torch.profiler")
+                    help="also profile the static step (dense and shipped "
+                    "shape) and the dense CPHD and disparity steps with "
+                    "torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1098,9 +1488,14 @@ def main(argv=None):
     phase_merge(dev, stats)
     phase_select4(dev, stats)
     phase_merge4(dev, stats)
+    phase_merge3(dev, stats)
+    phase_esf(dev, stats)
     phase_main_path(dev, stats)
     phase_mixed_main_path(dev, stats)
+    phase_disparity_main_path(dev, stats)
+    phase_cphd_main_path(dev, stats)
     phase_dense(dev, stats, gpu)
+    phase_dense_cphd_disparity(dev, stats, gpu)
     if args.profile:
         phase_profile(dev)
 

@@ -4,9 +4,12 @@
 numpy arrays (what ``jax.device_get(state)`` returns) or the nested dict that
 ``state_to_numpy`` writes, and builds the port's tensors. The bridge itself
 imports no JAX: the caller does the ``device_get``.
+``disparity_state_from_numpy`` / ``disparity_state_to_numpy`` do the same
+for the disparity pipeline's ``DisparityState``.
 
 On the static path ``map_dynamic`` has width 0 and ``cardinality`` /
-``cn_birth`` are None; both round-trip as they are.
+``cn_birth`` are None; both round-trip as they are. Under CPHD both are
+[P, N+1] log-pmfs.
 """
 
 from __future__ import annotations
@@ -16,11 +19,13 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from phdslam_tpu_torch.filter.disparity import DisparityState
 from phdslam_tpu_torch.filter.state import (Gaussian2DMixture,
                                             Gaussian4DMixture, SlamState)
 
 _G2 = ("w", "mx", "my", "c00", "c01", "c11")
 _G4 = ("w", "mean_channels", "cov_channels")
+_DISP = ("pose", "log_weights", "w", "px", "py", "pz")
 
 
 def _get(obj, name):
@@ -64,3 +69,15 @@ def state_to_numpy(s: SlamState) -> dict:
         cardinality=host(s.cardinality),
         cn_birth=host(s.cn_birth),
     )
+
+
+def disparity_state_from_numpy(d, device=None) -> DisparityState:
+    return DisparityState(
+        **{k: _tensor(_get(d, k), device, np.float32) for k in _DISP},
+        resample_idx=_tensor(_get(d, "resample_idx"), device, np.int32))
+
+
+def disparity_state_to_numpy(s: DisparityState) -> dict:
+    """Dict of numpy arrays with the JAX ``DisparityState`` field names."""
+    return {k: getattr(s, k).detach().cpu().numpy()
+            for k in _DISP + ("resample_idx",)}

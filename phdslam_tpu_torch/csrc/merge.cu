@@ -27,19 +27,24 @@
 // shared memory (24 B per candidate, 26 KB at K = 1088). Thread t owns
 // candidates j = t (mod 128), so the remaining weights need no barrier
 // between picks; candidates already merged are skipped. Each pick ends in
-// one block reduction of the six moment sums and the next (max, argmax),
-// as a fixed shuffle tree per warp and a fixed-order sum across warps
-// (double-buffered, so one __syncthreads per pick): no atomics, and the
-// same result on every run. Every thread combines the warp partials itself,
-// so the whole block holds the next pick without a second barrier.
+// one block reduction (merge_common.cuh) of the six moment sums and the
+// next (max, argmax), as a fixed shuffle tree per warp and a fixed-order
+// sum across warps (double-buffered, so one __syncthreads per pick): no
+// atomics, and the same result on every run. Every thread combines the
+// warp partials itself, so the whole block holds the next pick without a
+// second barrier.
 
 #include <cuda_runtime.h>
 
+#include "merge_common.cuh"
+
 namespace {
+
+using phd_merge::better;
+using phd_merge::block_reduce;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSums = 6;
 
 struct Pool {
@@ -49,46 +54,6 @@ struct Pool {
 struct Merged {
   float *w, *mx, *my, *c00, *c01, *c11;
 };
-
-// (value desc, index asc): the candidate order of the greedy pick.
-__device__ __forceinline__ void better(float& bv, int& bi, float ov, int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
-  }
-}
-
-// Block-wide sums of s[] and argmax of (mv, mi); every thread gets the
-// result. red is this pick's half of the double buffer.
-__device__ __forceinline__ void block_reduce(float (&s)[kSums], float& mv,
-                                             int& mi, float* red_f,
-                                             int* red_i) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) s[k] += __shfl_xor_sync(kFull, s[k], o);
-    better(mv, mi, __shfl_xor_sync(kFull, mv, o),
-           __shfl_xor_sync(kFull, mi, o));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) red_f[warp * (kSums + 1) + k] = s[k];
-    red_f[warp * (kSums + 1) + kSums] = mv;
-    red_i[warp] = mi;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) s[k] = red_f[k];
-  mv = red_f[kSums];
-  mi = red_i[0];
-  for (int v = 1; v < kWarps; ++v) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) s[k] += red_f[v * (kSums + 1) + k];
-    better(mv, mi, red_f[v * (kSums + 1) + kSums], red_i[v]);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
     merge_kernel(Pool in, Merged out, int K, int cap, float min_sep,
@@ -122,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   float s[kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   // the barrier inside also publishes the staged pool
-  block_reduce(s, mv, mi, red_f[1], red_i[1]);
+  block_reduce<kSums, kWarps>(s, mv, mi, red_f[1], red_i[1]);
 
   int i = 0;
   for (; i < cap && mv > 0.0f; ++i) {
@@ -177,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
         better(nv, ni, w, j);
       }
     }
-    block_reduce(s, nv, ni, red_f[i & 1], red_i[i & 1]);
+    block_reduce<kSums, kWarps>(s, nv, ni, red_f[i & 1], red_i[i & 1]);
     if (t == 0) {
       const float wsum = s[0];
       const bool live = wsum > 0.0f;
@@ -220,15 +185,8 @@ int phd_merge_launch(const float* w, const float* mx, const float* my,
   if (P <= 0 || cap <= 0) return static_cast<int>(cudaSuccess);
   if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(6) * K * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not see it
-      return static_cast<int>(e);
-    }
-  }
+  const cudaError_t e = phd_merge::allow_smem(merge_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   Pool in{w, mx, my, c00, c01, c11};
   Merged out{ow, omx, omy, o00, o01, o11};
   merge_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -28,19 +28,23 @@
 // K = 704, 65 KB at the dense K = 1088, so the launcher raises the dynamic
 // shared-memory limit above 48 KB). Thread t owns candidates j = t
 // (mod 256) and skips those already merged, so the remaining weights need
-// no barrier between picks. Each pick ends in one block reduction of the 15
-// moment sums (1 + 4 + 10) and the next (max, argmax): a fixed shuffle tree
-// per warp and a fixed-order sum across warps, double-buffered so that one
-// __syncthreads per pick suffices. No atomics: every run gives the same
-// result.
+// no barrier between picks. Each pick ends in one block reduction
+// (merge_common.cuh) of the 15 moment sums (1 + 4 + 10) and the next
+// (max, argmax): a fixed shuffle tree per warp and a fixed-order sum across
+// warps, double-buffered so that one __syncthreads per pick suffices. No
+// atomics: every run gives the same result.
 
 #include <cuda_runtime.h>
 
+#include "merge_common.cuh"
+
 namespace {
+
+using phd_merge::better;
+using phd_merge::block_reduce;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSums = 15;
 constexpr float kEps = 1e-12f;
 
@@ -51,46 +55,6 @@ struct Pool4 {
 struct Merged4 {
   float *w, *mean, *cov;            // [P, cap], [P, 4, cap], [P, 10, cap]
 };
-
-// (value desc, index asc): the candidate order of the greedy pick.
-__device__ __forceinline__ void better(float& bv, int& bi, float ov, int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
-  }
-}
-
-// Block-wide sums of s[] and argmax of (mv, mi); every thread gets the
-// result. red_f / red_i are this pick's half of the double buffer.
-__device__ __forceinline__ void block_reduce(float (&s)[kSums], float& mv,
-                                             int& mi, float* red_f,
-                                             int* red_i) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) s[k] += __shfl_xor_sync(kFull, s[k], o);
-    better(mv, mi, __shfl_xor_sync(kFull, mv, o),
-           __shfl_xor_sync(kFull, mi, o));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) red_f[warp * (kSums + 1) + k] = s[k];
-    red_f[warp * (kSums + 1) + kSums] = mv;
-    red_i[warp] = mi;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) s[k] = red_f[k];
-  mv = red_f[kSums];
-  mi = red_i[0];
-  for (int v = 1; v < kWarps; ++v) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) s[k] += red_f[v * (kSums + 1) + k];
-    better(mv, mi, red_f[v * (kSums + 1) + kSums], red_i[v]);
-  }
-}
 
 // ||L^-1 d||^2 for the symmetric 4x4 a (S4 order): chol4_solve_sq.
 __device__ __forceinline__ float chol4_solve_sq(const float (&a)[10],
@@ -141,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < kSums; ++k) s[k] = 0.f;
   // the barrier inside also publishes the staged pool
-  block_reduce(s, mv, mi, red_f[1], red_i[1]);
+  block_reduce<kSums, kWarps>(s, mv, mi, red_f[1], red_i[1]);
 
   int i = 0;
   for (; i < cap && mv > 0.0f; ++i) {
@@ -181,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
         better(nv, ni, w, j);
       }
     }
-    block_reduce(s, nv, ni, red_f[i & 1], red_i[i & 1]);
+    block_reduce<kSums, kWarps>(s, nv, ni, red_f[i & 1], red_i[i & 1]);
     if (t == 0) {
       const float wsum = s[0];
       const bool live = wsum > 0.0f;
@@ -234,15 +198,8 @@ int phd_merge4_launch(const float* w, const float* mean, const float* cov,
   if (P <= 0 || cap <= 0) return static_cast<int>(cudaSuccess);
   if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(kSums) * K * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        merge4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not see it
-      return static_cast<int>(e);
-    }
-  }
+  const cudaError_t e = phd_merge::allow_smem(merge4_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   Pool4 in{w, mean, cov};
   Merged4 out{ow, omean, ocov};
   merge4_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -115,15 +115,23 @@ class SlamState(_TensorTree):
     @classmethod
     def create(cls, config, device=None,
                dtype=torch.float32) -> "SlamState":
-        """All particles at the configured initial pose, uniform weights."""
-        if config.filterType == 1:
-            raise NotImplementedError(
-                "CPHD state (filter_type = 1) is ROADMAP Queue 1 item 9")
+        """All particles at the configured initial pose, uniform weights;
+        under CPHD (filter_type = 1) a uniform cardinality [P, N+1] and a
+        birth cardinality that puts all mass on 0 (-FLT_MAX elsewhere, not
+        -inf, as the JAX package starts it)."""
         n = config.n_particles
         pose0 = torch.tensor([config.x0, config.y0, config.yaw0, config.vx0,
                               config.vy0, config.vyaw0], dtype=dtype,
                              device=device)
         f_dynamic = config.maxFeatures if config.featureModel != 0 else 0
+        cardinality = cn_birth = None
+        if config.filterType == 1:
+            nc = config.maxCardinality + 1
+            cardinality = torch.full((n, nc), -math.log(float(nc)),
+                                     dtype=dtype, device=device)
+            cn_birth = torch.full((n, nc), torch.finfo(dtype).min, dtype=dtype,
+                                  device=device)
+            cn_birth[:, 0] = 0.0
         return cls(
             pose=pose0.expand(n, 6).clone(),
             log_weights=torch.full((n,), -math.log(float(n)), dtype=dtype,
@@ -134,6 +142,8 @@ class SlamState(_TensorTree):
                                                 dtype),
             resample_idx=torch.arange(n, dtype=torch.int32, device=device),
             variances=torch.zeros((n,), dtype=dtype, device=device),
+            cardinality=cardinality,
+            cn_birth=cn_birth,
         )
 
 

@@ -1,14 +1,17 @@
-"""One SLAM step of the GM-PHD filter, and a whole-run loop.
+"""One SLAM step of the GM-PHD and CPHD filters, and a whole-run loop.
 
-Port of ``phdslam_tpu/filter/step.py``, PHD filter, static map or the
-dynamic / mixed static + dynamic maps:
+Port of ``phdslam_tpu/filter/step.py``: the PHD filter on the static map or
+the dynamic / mixed static + dynamic maps, and the CPHD filter
+(filter_type = 1) on the static map:
 
-    predict -> PHD update -> weight normalize -> nEff -> resample
+    predict -> [CPHD births] -> update -> weight normalize -> nEff ->
+    resample
 
 JAX gates predict, update and resample with ``lax.cond`` on traced values.
 Here the first two are known on the host (the runner's schedule and the
 numpy measurement mask), so they are Python bools and the device is never
-read inside a step. The resample trigger lives on the device: the indices
+read inside a step; so is the CPHD birth gate (the previous step's
+measurement count). The resample trigger lives on the device: the indices
 are always computed and ``torch.where(trigger, idx, arange)`` picks them or
 the identity before the gather, which gives the ``cond``'s result.
 """
@@ -23,6 +26,7 @@ import torch
 from phdslam_tpu_torch.config import (CPHD_TYPE, DYNAMIC_MODEL,
                                       FASTSLAM_TYPE, MIXED_MODEL,
                                       STATIC_MODEL)
+from phdslam_tpu_torch.filter import cphd
 from phdslam_tpu_torch.filter.estimate import expected_pose
 from phdslam_tpu_torch.filter.predict import (noise_dim, predict,
                                               shotgun_expand)
@@ -58,15 +62,12 @@ class LogAux(NamedTuple):
     log_weights: torch.Tensor     # [P]
     poses: torch.Tensor           # [P, 6]
     resample_idx: torch.Tensor    # [P]
-    cardinality: torch.Tensor     # zeros(1) on the PHD path
+    cardinality: torch.Tensor     # [N+1] MAP particle's; zeros(1) (PHD)
 
 
 def check_supported(cfg):
     """Raise NotImplementedError for a configuration the port does not
     cover yet, naming the ROADMAP item that ports it."""
-    if cfg.filterType == CPHD_TYPE:
-        raise NotImplementedError(
-            "filter_type = 1 (CPHD) is ROADMAP Queue 1 item 9")
     if cfg.filterType == FASTSLAM_TYPE:
         raise NotImplementedError(
             "filter_type = 2 (FastSLAM) is ROADMAP Queue 1 item 11")
@@ -108,9 +109,11 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
                 resample_uniforms [P]) to replay given draws; otherwise the
                 draws come from ``generator`` on the state's device
     z_prev      the previous step's Measurements: under birthVelocityInit
-                the dynamic births take their velocity from them
+                the dynamic births take their velocity from them, and the
+                CPHD births come from them (None: no births)
     """
     check_supported(cfg)
+    is_cphd = cfg.filterType == CPHD_TYPE
     n_target = cfg.n_particles
     n_copies = max(int(cfg.nPredictParticles), 1)
     sub = max(int(cfg.subdividePredict), 1)
@@ -136,10 +139,31 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     if do_predict:
         for i in range(sub):
             state = predict(state, control, normals[i], cfg, dt / sub)
+        if is_cphd and not cfg.cnPoissonPredict:
+            # the carried prior convolved with the birth cardinality
+            state = state.replace(cardinality=cphd.cardinality_predict(
+                state.cardinality, state.cn_birth))
+
+    # ---- CPHD births from the previous measurements ----
+    if is_cphd:
+        consts = cphd.make_constants(cfg, dev)
+        if z_prev is not None and z_prev.count > 0:
+            new_map, cn_birth = cphd.add_births(
+                state.map_static, state.pose, z_prev.rb, z_prev.valid, cfg,
+                consts)
+            state = state.replace(map_static=new_map, cn_birth=cn_birth)
 
     # ---- measurement update ----
     n_measure = z.valid.sum()
-    if z.count > 0 and mixed:
+    if z.count > 0 and is_cphd:
+        map_out, cn_update, dw = cphd.cphd_update(
+            state.pose, state.map_static, state.cardinality, z.rb, z.label,
+            z.valid, cfg, consts)
+        lw = state.log_weights + dw
+        log_lik = torch.logsumexp(lw, 0)
+        state = state.replace(map_static=map_out, log_weights=lw - log_lik,
+                              cardinality=cn_update)
+    elif z.count > 0 and mixed:
         birth_vel = None
         if zw_prev is not None:
             birth_vel = informed_birth_velocity(state.pose, z.rb, z.valid,
@@ -204,13 +228,15 @@ def log_aux(state: SlamState) -> LogAux:
     idx = torch.argmax(state.log_weights).reshape(1)
     row = lambda t: t.index_select(0, idx)[0]
     ms, md = state.map_static, state.map_dynamic
+    cn = (state.log_weights.new_zeros((1,)) if state.cardinality is None
+          else row(state.cardinality))
     return LogAux(
         map_w=row(ms.w), map_mx=row(ms.mx), map_my=row(ms.my),
         map_c00=row(ms.c00), map_c01=row(ms.c01), map_c11=row(ms.c11),
         dyn_w=row(md.w), dyn_mean=row(md.mean_channels),
         dyn_cov=row(md.cov_channels), log_weights=state.log_weights,
         poses=state.pose, resample_idx=state.resample_idx,
-        cardinality=state.log_weights.new_zeros((1,)))
+        cardinality=cn)
 
 
 def run_scan(state: SlamState, controls, zs, dts, cfg, *, generator=None,

@@ -48,6 +48,8 @@ SIGNATURES = {
     "phd_merge_launch": [_P] * 6 + [_P] * 6
     + [_I, _I, _I, _F, _I, _P],
     "phd_merge4_launch": [_P] * 3 + [_P] * 3 + [_I, _I, _I, _F, _P],
+    "phd_merge3_launch": [_P] * 10 + [_P] * 10 + [_I, _I, _I, _F, _P],
+    "phd_esf_launch": [_P] * 3 + [_I, _I, _P],
     "phd_error_string": [_I],
 }
 

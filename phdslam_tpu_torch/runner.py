@@ -3,6 +3,8 @@
     python -m phdslam_tpu_torch.runner <config.cfg> synth \\
         --measurements M.txt --controls C.txt --out-dir OUT \\
         [--mode loop|scan] [--device cuda|cpu] [--seed N]
+    python -m phdslam_tpu_torch.runner <config.cfg> disparity \\
+        [--data-dir D] --out-dir OUT [--mode loop|scan] [--device cuda|cpu]
 
 It runs on the GPU (``--device cuda``, the default) and raises when CUDA is
 missing; ``--device cpu`` runs the kernels' plain versions on the CPU.
@@ -13,7 +15,9 @@ prediction skipped at step 0, the update only on steps with measurements,
 and the same ``state_estimateXXXXX.log``, ``loopTime.log`` and
 ``metrics.jsonl`` files, written by ``io/logs.py`` (the JAX package's log
 format). Under the dynamic and mixed feature models line 3 of each log holds
-the dynamic map.
+the dynamic map; under the CPHD filter (filter_type = 1) the last line holds
+the MAP particle's cardinality log-pmf. The ``disparity`` run type runs the
+monocular SC-PHD pipeline (``filter/disparity.py::run_disparity``).
 
 ``--mode loop`` steps in a Python loop and writes the logs after every step;
 ``--mode scan`` queues the whole run on the device, then writes the logs
@@ -30,7 +34,8 @@ import time
 import numpy as np
 import torch
 
-from phdslam_tpu_torch.config import load_config
+from phdslam_tpu_torch.config import CPHD_TYPE, load_config
+from phdslam_tpu_torch.filter.disparity import run_disparity
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
 from phdslam_tpu_torch.filter.step import (check_supported, log_aux,
                                            run_scan, slam_step)
@@ -141,12 +146,14 @@ def _write_log(out_dir, t, exp_pose, la, repeat, cfg):
         dyn_w = la["dyn_w"][dsel]
         dyn_mean = la["dyn_mean"].T[dsel]
         dyn_cov = unpack_cov_channels(la["dyn_cov"])[dsel]
+    is_cphd = cfg.filterType == CPHD_TYPE
     logs.write_state_estimate_log(
         out_dir, t, exp_pose, w[sel], mean, cov, dynamic_w=dyn_w,
         dynamic_mean=dyn_mean, dynamic_cov=dyn_cov,
         particle_log_weights=la["log_weights"],
         particle_poses=la["poses"], resample_idx=la["resample_idx"],
-        max_cardinality=cfg.maxCardinality, repeat=repeat)
+        cardinality=la["cardinality"] if is_cphd else None,
+        max_cardinality=cfg.maxCardinality, is_cphd=is_cphd, repeat=repeat)
 
 
 def _host(la) -> dict:
@@ -304,14 +311,13 @@ def main(argv=None):
         raise RuntimeError(
             f"--device {args.device}: CUDA is not available; pass --device "
             "cpu to run the kernels' plain versions on the CPU")
-    if args.run_type == "disparity":
-        raise NotImplementedError(
-            "the disparity pipeline is ROADMAP Queue 1 item 12")
     if args.profile == "profile":
         raise NotImplementedError(
             "profile replay needs the step-100 checkpoint, ROADMAP Queue 1 "
             "item 13")
     cfg = load_config(args.config)
+    if args.run_type == "disparity":
+        return run_disparity(cfg, args)
     return run_synth(cfg, args)
 
 

@@ -26,7 +26,10 @@ from phdslam_tpu_torch.filter.state import SlamState
 from phdslam_tpu_torch.filter.step import slam_step
 from phdslam_tpu_torch.filter.update import kalman_preupdate
 from phdslam_tpu_torch.filter.update4 import kalman_preupdate4
+from phdslam_tpu_torch.filter import disparity as D
+from phdslam_tpu_torch.kernels import esf as E
 from phdslam_tpu_torch.kernels import merge as G
+from phdslam_tpu_torch.kernels import merge3 as G3
 from phdslam_tpu_torch.kernels import merge4 as G4
 from phdslam_tpu_torch.kernels import select as S
 from phdslam_tpu_torch.kernels import select4 as S4
@@ -231,6 +234,63 @@ def test_merge4_kernel_matches_plain(dev, P, K, cap, sep):
     assert bool((kern[2][0, [0, 4, 7, 9]] == 1).all())
 
 
+def _pool3(P, K, seed, dev):
+    rng = np.random.default_rng(seed)
+    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
+    w[0] = 0.0                                     # an empty row
+    w[1, 3] = w[1, 7] = w[1].max()                 # an exact tie
+    a = rng.normal(size=(P, K, 3, 3)) * np.array([4.0, 4.0, 20.0])[:, None]
+    cov = a @ np.swapaxes(a, -1, -2) + np.diag([4.0, 4.0, 25.0])
+    arrs = [w, rng.uniform(300, 400, (P, K)), rng.uniform(200, 300, (P, K)),
+            rng.uniform(50, 300, (P, K))] + [cov[..., i, j]
+                                             for i, j in G3.PAIRS]
+    return [torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            for x in arrs]
+
+
+@pytest.mark.parametrize("P,K,cap,sep", [
+    (37, 97, 13, 4.0),
+    (37, 97, 64, 16.0),
+    (3, 496, 64, 4.0),              # the shipped disparity pool
+    (5, 1500, 200, 4.0),            # 60 KB of shared memory per CTA
+])
+def test_merge3_kernel_matches_plain(dev, P, K, cap, sep):
+    pool = _pool3(P, K, P + K, dev)
+    before = G3.launches
+    kern = G3.merge3_cuda(*pool, sep, cap)
+    assert G3.launches == before + 1
+    plain = G3.merge3_plain(*pool, sep, cap)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        torch.testing.assert_close(k, p, rtol=2e-4, atol=1e-3)
+    assert not kern[0][0].any()
+    assert bool((kern[4][0] == 1).all()) and bool((kern[9][0] == 1).all())
+
+
+@pytest.mark.parametrize("P,M,n_pad", [
+    (7, 1, 0), (5, 2, 1), (33, 13, 4), (3, 64, 0),
+    (2, 256, 17),                   # 67 KB of shared memory per CTA
+])
+def test_esf_kernel_matches_plain(dev, P, M, n_pad):
+    """Finite entries within tolerance, the sentinel (below -1e29) in the
+    same places; no NaN anywhere."""
+    rng = np.random.default_rng(P + M)
+    ll = rng.uniform(-6.0, 3.0, (P, M)).astype(np.float32)
+    if n_pad:
+        ll[:, M - n_pad:] = -np.inf
+    ll = torch.as_tensor(ll, device=dev)
+    before = E.launches
+    kern = E.esf_all_cuda(ll)
+    assert E.launches == before + 1
+    plain = E.esf_all_plain(ll)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        assert not torch.isnan(k).any()
+        live = p > -1e29
+        assert torch.equal(k > -1e29, live)
+        torch.testing.assert_close(k[live], p[live], **TOL)
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     pool = _pool(4, 40, 0, dev)
     with pytest.raises(ValueError):
@@ -260,6 +320,13 @@ def test_wrappers_refuse_bad_inputs(dev):
         G4.merge4_cuda(w, mean4, cov4.double(), 1.0, 8)
     with pytest.raises(RuntimeError):     # 15 x 4000 floats: 240 KB
         G4.merge4_cuda(*_pool4(2, 4000, 0, dev), 1.0, 8)
+    pool3 = _pool3(4, 40, 0, dev)
+    with pytest.raises(ValueError):
+        G3.merge3_cuda(*pool3[:9], pool3[9].double(), 4.0, 8)
+    with pytest.raises(RuntimeError):     # 10 x 6000 floats: 240 KB
+        G3.merge3_cuda(*_pool3(2, 6000, 0, dev), 4.0, 8)
+    with pytest.raises(ValueError):
+        E.esf_all_cuda(torch.zeros((4, 6), device=dev).t())
 
 
 def test_slam_step_cuda_matches_cpu(dev):
@@ -319,3 +386,75 @@ def test_mixed_slam_step_cuda_matches_cpu(dev):
                                    getattr(cpu.map_dynamic, name),
                                    rtol=2e-4, atol=1e-4)
     assert float(cpu.map_dynamic.w.sum()) > 0
+
+
+def test_cphd_slam_step_cuda_matches_cpu(dev):
+    """Three CPHD steps (births from the previous measurements from the
+    second on) on the card and on the CPU, from the same state with the
+    same draws."""
+    cfg = load_config("cfg/ackerman_synth.cfg").replace(
+        n_particles=32, maxFeatures=32, maxMeasurements=16, y0=0.0,
+        birthWeight=0.02, filterType=1, maxCardinality=63)
+    rng = np.random.default_rng(6)
+    states = {d: SlamState.create(cfg, d) for d in ("cpu", dev)}
+    prev = {d: None for d in states}
+    for t in range(3):
+        rb = np.stack([rng.uniform(0.5, 9, 16), rng.uniform(-1.4, 1.4, 16)],
+                      1).astype(np.float32)
+        valid = np.arange(16) < 12
+        normals = torch.as_tensor(rng.normal(size=(1, 32, 2)),
+                                  dtype=torch.float32)
+        u = torch.as_tensor(rng.uniform(size=32), dtype=torch.float32)
+        for d in states:
+            z = Measurements.from_numpy(rb, np.zeros(16, np.int32), valid, d)
+            states[d], _ = slam_step(states[d], (1.0, 0.05), z, 1.0, t > 0,
+                                     cfg, noise=(normals.to(d), u.to(d)),
+                                     z_prev=prev[d])
+            prev[d] = z
+    cpu, gpu = states["cpu"], states[dev].to("cpu")
+    torch.testing.assert_close(gpu.pose, cpu.pose, **TOL)
+    torch.testing.assert_close(gpu.log_weights, cpu.log_weights,
+                               rtol=2e-4, atol=1e-3)
+    assert torch.equal(gpu.resample_idx, cpu.resample_idx)
+    live = cpu.cardinality > -1e30
+    assert torch.equal(gpu.cardinality > -1e30, live)
+    torch.testing.assert_close(gpu.cardinality[live], cpu.cardinality[live],
+                               rtol=2e-4, atol=1e-3)
+    for name in ("w", "mx", "my", "c00", "c01", "c11"):
+        torch.testing.assert_close(getattr(gpu.map_static, name),
+                                   getattr(cpu.map_static, name),
+                                   rtol=2e-4, atol=1e-4)
+
+
+def test_disparity_step_cuda_matches_cpu(dev):
+    """Two disparity steps at the shipped widths on the card and on the
+    CPU, from the same state with the same draws."""
+    cfg = load_config("cfg/disparity_synth.cfg").replace(n_particles=16)
+    rng = np.random.default_rng(8)
+    base = D.DisparityState.create(cfg)
+    P, F, npp = base.px.shape
+    states = {d: base.to(d) for d in ("cpu", dev)}
+    M = cfg.maxMeasurements
+    for t in range(2):
+        uv = np.stack([rng.uniform(20, 780, M), rng.uniform(20, 580, M)],
+                      1).astype(np.float32)
+        valid = np.arange(M) < 30
+        noise = (torch.as_tensor(rng.normal(size=(P, 6)), dtype=torch.float32),
+                 torch.as_tensor(rng.normal(size=(P, F, npp, 3)),
+                                 dtype=torch.float32),
+                 torch.as_tensor(rng.uniform(size=P), dtype=torch.float32))
+        for d in states:
+            z = Measurements.from_numpy(uv, np.zeros(M, np.int32), valid, d)
+            states[d], _ = D.disparity_step(
+                states[d], z, 1.0, t > 0, cfg,
+                noise=tuple(x.to(d) for x in noise))
+    cpu, gpu = states["cpu"], states[dev].to("cpu")
+    torch.testing.assert_close(gpu.pose, cpu.pose, **TOL)
+    torch.testing.assert_close(gpu.log_weights, cpu.log_weights,
+                               rtol=2e-4, atol=1e-4)
+    assert torch.equal(gpu.resample_idx, cpu.resample_idx)
+    torch.testing.assert_close(gpu.w, cpu.w, rtol=2e-4, atol=1e-5)
+    for name in ("px", "py", "pz"):
+        torch.testing.assert_close(getattr(gpu, name), getattr(cpu, name),
+                                   rtol=2e-4, atol=1e-3)
+    assert float(cpu.w.sum()) > 0

@@ -52,10 +52,11 @@ def test_import_without_jax():
     expected = {"phdslam_tpu_torch." + m for m in (
         "bridge", "runner", "config", "simdata", "io.loaders", "io.logs",
         "filter.state", "filter.predict", "filter.update", "filter.update4",
-        "filter.step", "filter.estimate", "ops.linalg", "ops.gm",
-        "ops.resample", "models.measurement", "models.motion",
-        "kernels.select", "kernels.select4", "kernels.merge",
-        "kernels.merge4", "kernels._build")}
+        "filter.step", "filter.estimate", "filter.cphd", "filter.disparity",
+        "ops.linalg", "ops.gm", "ops.resample", "models.measurement",
+        "models.motion", "models.camera", "kernels.select",
+        "kernels.select4", "kernels.merge", "kernels.merge4",
+        "kernels.merge3", "kernels.esf", "kernels._build")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert out["tf32"] == [False, False]

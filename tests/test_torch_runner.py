@@ -81,7 +81,7 @@ def test_runner_log_contract_and_tracking(dataset, tmp_path, mode):
 
 
 @pytest.mark.parametrize("extra_cfg,extra_args,match", [
-    ("filter_type = 1", (), "item 9"),
+    ("filter_type = 1", ("--checkpoint-every", "5"), "item 13"),
     ("filter_type = 2", (), "item 11"),
     ("save_prediction = 1", (), "item 8"),
     ("", ("--mat-export",), "item 8"),
