@@ -17,12 +17,18 @@ code is not 0:
        by-index kernel picks what the payload kernel picks, and the gather
        at its indices reproduces the payload
      - merge: the dense pool ([8192, 1088] -> 512, metrics 0 and 1), the
-       shipped pool ([256, 704] -> 128), an odd P and an odd cap
+       shipped pool ([256, 704] -> 128), an odd P, an odd cap and a pool of
+       exact weight ties ([1024, 1088] -> 512); two launches on the dense
+       pool bit-identical; CTAs per SM
      - select4 and select4 by index: the shipped mixed (256 x 128 x 64),
        dense (8192 x 512 x 64) and odd-P (1001) shapes, k1 = 8, with the
        same by-index checks
      - merge4: [256, 704] -> 128 at min_sep 1.0, [8192, 1088] -> 512 at
-       1.0 and 5.0, an odd P (1001) and an odd cap (77)
+       1.0 and 5.0, an odd P (1001), an odd cap (77), a pool of exact
+       weight ties and pools of zero, singular and slightly indefinite
+       covariances at 1.0 and 5.0 ([1024, 1088] -> 512); two launches on
+       the dense pool bit-identical; CTAs per SM; the share of candidate
+       tests each early exit decides (a replay of the pick loop)
      - merge3: the shipped disparity pool ([64, 496] -> 64), an odd P
        ([1001, 496] -> 64) and the dense pool ([8192, 560] -> 128), each
        timed beside its bound, min_sep 4
@@ -60,7 +66,9 @@ code is not 0:
      static phase's 330-step run: esf, select (raw) and merge launched
      once per update step, mean pose error below 1.5 m, every cardinality
      line a normalised log-pmf (exp finite, logsumexp 0 within 1e-3), the
-     three kernels against plain on their last launches
+     three kernels against plain on their last launches, and merge against
+     plain on every launch of the run (its inputs and outputs kept on the
+     card, compared after the run)
   7. dense step - 8192 x 512 x 64 (the static cfg at bench.py's dense
      shape and stress stream): 3 warm-up steps, 16 timed with CUDA events,
      split into pre-update and glue, select and merge; then both kernels
@@ -119,6 +127,14 @@ MERGE4_CASES = [                    # (P, K, cap, min_separation)
     (8192, 1088, 512, 5.0),
     (1001, 1088, 512, 1.0),         # odd P
     (512, 1088, 77, 1.0),           # odd cap
+]
+MERGE_TIES = [                      # exact weight ties throughout
+    (1024, 1088, 512, 0, 5.0),
+]
+MERGE4_TIES = [(1024, 1088, 512, 1.0)]
+MERGE4_DEGENERATE = [               # zero, singular, indefinite covariances
+    (1024, 1088, 512, 1.0),
+    (1024, 1088, 512, 5.0),
 ]
 MERGE3_CASES = [                    # (P, K, cap, min_separation)
     (8192, 560, 128, 4.0),          # dense: 128 + 48 x 8 + 48 candidates
@@ -263,6 +279,13 @@ def compare_rows(kern, plain, live=None):
     per tensor of the entries to compare. Returns (particles that differ,
     max abs error over the others)."""
     import torch
+    bad, errs = differing_rows(kern, plain, live)
+    return int(bad.sum()), float(torch.where(bad, 0.0, errs).max())
+
+
+def differing_rows(kern, plain, live=None):
+    """compare_rows' per-particle masks: (differs [P], max abs error [P])."""
+    import torch
     bad = errs = None
     for i, (k, p) in enumerate(zip(kern, plain)):
         if not k.is_floating_point():
@@ -278,7 +301,7 @@ def compare_rows(kern, plain, live=None):
         row_err = err.reshape(err.shape[0], -1).amax(1)
         bad = row_bad if bad is None else bad | row_bad
         errs = row_err if errs is None else torch.maximum(errs, row_err)
-    return int(bad.sum()), float(torch.where(bad, 0.0, errs).max())
+    return bad, errs
 
 
 def _limit(n_bad, P, what):
@@ -459,14 +482,17 @@ def random_pool(P, K, seed, dev):
             for a in arrs]
 
 
-def candidate_tests(w, near, cap):
+def candidate_tests(w, near, cap, exits=()):
     """The candidate tests the greedy merge of this pool makes: at each
     pick, one for every remaining live candidate of every particle still
-    picking. near(pick [P, 1]) -> [P, K] bool is the merge's test."""
+    picking. near(pick [P, 1]) -> [P, K] bool is the merge's test; each of
+    exits(pick) -> [P, K] bool marks the tests an early exit decides.
+    Returns (tests, per exit the tests of a candidate other than the pick
+    it decides)."""
     import torch
     w_rem = w.clone()
     col = torch.arange(w.shape[1], device=w.device)
-    tests = 0
+    tests, decided = 0, [0] * len(exits)
     for _ in range(cap):
         pick = torch.argmax(w_rem, dim=1, keepdim=True)
         active = torch.gather(w_rem, 1, pick) > 0.0
@@ -474,9 +500,31 @@ def candidate_tests(w, near, cap):
             break
         live = w_rem > 0.0
         tests += int((live & active).sum())
+        for e, ex in enumerate(exits):
+            decided[e] += int((ex(pick) & live & active
+                               & (col[None, :] != pick)).sum())
         sel = ((near(pick) & live) | (col[None, :] == pick)) & active
         w_rem = torch.where(sel, 0.0, w_rem)
-    return tests
+    return tests, decided
+
+
+def tie_weights(w, seed):
+    """w with every live weight rounded to one of eight values: exact ties
+    throughout, which the greedy order breaks by the lowest index."""
+    import torch
+    gen = torch.Generator(device=w.device).manual_seed(seed)
+    q = torch.randint(1, 9, w.shape, generator=gen, device=w.device)
+    return torch.where(w > 0, q.float() * 0.25, w)
+
+
+def bit_identical(fn, what):
+    """Two launches of fn on the same inputs give the same bits."""
+    import torch
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError(f"{what}: two launches on the same inputs differ")
+    log(f"{what}: two launches bit-identical")
 
 
 def merge_tests(pool, sep, cap, metric):
@@ -488,15 +536,21 @@ def merge_tests(pool, sep, cap, metric):
         take = lambda a: torch.gather(a, 1, pick)
         return G._near(metric, take(mx) - mx, take(my) - my, take(c00),
                        take(c01), take(c11), c00, c01, c11, sep)
-    return candidate_tests(w, near, cap)
+    return candidate_tests(w, near, cap)[0]
 
 
 def phase_merge(dev, stats):
+    from phdslam_tpu_torch.kernels import _build
     G = _mods()[2]
     t0 = time.perf_counter()
     _new_stats(stats, "merge")
-    for i, (P, K, cap, metric, sep) in enumerate(MERGE_CASES):
+    lib, _ = _build.library()
+    log(f"merge: {lib.phd_merge_ctas_per_sm(MERGE_CASES[0][1])} CTAs per "
+        f"SM at K = {MERGE_CASES[0][1]}")
+    for i, (P, K, cap, metric, sep) in enumerate(MERGE_CASES + MERGE_TIES):
         pool = random_pool(P, K, 10 + i, dev)
+        if i >= len(MERGE_CASES):
+            pool[0] = tie_weights(pool[0], i)
         kern = G.merge_cuda(*pool, sep, cap, metric)
         plain = G.merge_plain(*pool, sep, cap, metric)
         n_bad, err = compare_rows(kern, plain)
@@ -506,6 +560,8 @@ def phase_merge(dev, stats):
             f"{int((plain[0] > 0).sum(1).max())} max")
         _limit(n_bad, P, f"merge metric {metric}")
         if i == 0:                  # the dense pool
+            bit_identical(lambda: G.merge_cuda(*pool, sep, cap, metric),
+                          f"merge [{P}, {K}] -> {cap}")
             s = stats["merge"]
             s.update(ms=cuda_ms(lambda: G.merge_cuda(*pool, sep, cap,
                                                      metric), 5),
@@ -650,39 +706,102 @@ def random_pool4(P, K, seed, dev):
 
 
 def merge4_tests(pool, sep, cap):
+    """(candidate tests, tests the kernel's division-free first-pivot test
+    rejects, tests the first two pivots reject: y0^2 + y1^2 >= min_sep)."""
     import torch
     from phdslam_tpu_torch.ops.linalg import chol4_quad
     w, mean, cov = pool
+    k0 = _mods()[3].reject_scale(sep)
 
-    def near(pick):
+    def terms(pick):
         take = lambda a: torch.gather(a, 1, pick)
         a = [0.5 * (take(cov[:, q]) + cov[:, q]) for q in range(10)]
         d = [take(mean[:, k]) - mean[:, k] for k in range(4)]
-        return chol4_quad(a, d) < sep
-    return candidate_tests(w, near, cap)
+        return a, d
+
+    def near(pick):
+        return chol4_quad(*terms(pick)) < sep
+
+    def first(pick):
+        a, d = terms(pick)
+        return d[0].double() ** 2 > k0 * torch.clamp(a[0], min=1e-12).double()
+
+    def two(pick):
+        a, d = terms(pick)
+        l00 = torch.sqrt(torch.clamp(a[0], min=1e-12))
+        l10 = a[1] / l00
+        l11 = torch.sqrt(torch.clamp(a[4] - l10 * l10, min=1e-12))
+        y0 = d[0] / l00
+        y1 = (d[1] - l10 * y0) / l11
+        return y0 * y0 + y1 * y1 >= sep
+    tests, (n_first, n_two) = candidate_tests(w, near, cap, (first, two))
+    return tests, n_first, n_two
+
+
+def degenerate_pool4(P, K, seed, dev):
+    """A 4-D pool whose covariances make the clamped Cholesky bind: a
+    quarter zero, a quarter singular (rank 1), a quarter slightly
+    indefinite (rank 1 minus 1e-3 on the diagonal), a quarter random
+    positive definite; positions in a 6 m box, so that many candidates pass
+    the early exit and reach the full test."""
+    import torch
+    rng = np.random.default_rng(seed)
+    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
+    mean = np.concatenate([rng.uniform(-3, 3, (P, 2, K)),
+                           rng.normal(0, 0.5, (P, 2, K))], 1)
+    cov = random_cov4(rng, (P, K))
+    u = rng.normal(size=(4, P, K)).astype(np.float32)
+    rank1 = np.stack([u[i] * u[j] for i in range(4) for j in range(i, 4)], 1)
+    kind = rng.integers(0, 4, (P, 1, K))
+    diag = np.zeros((1, 10, 1), np.float32)
+    diag[0, [0, 4, 7, 9], 0] = 1e-3
+    cov = np.where(kind == 0, 0.0, np.where(kind == 1, rank1, np.where(
+        kind == 2, rank1 - diag, cov)))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return t(w), t(mean), t(cov)
 
 
 def phase_merge4(dev, stats):
+    from phdslam_tpu_torch.kernels import _build
     G4 = _mods()[3]
     t0 = time.perf_counter()
     _new_stats(stats, "merge4")
-    for i, (P, K, cap, sep) in enumerate(MERGE4_CASES):
-        pool = random_pool4(P, K, 30 + i, dev)
+    lib, _ = _build.library()
+    log(f"merge4: {lib.phd_merge4_ctas_per_sm(MERGE4_CASES[0][1])} CTAs "
+        f"per SM at K = {MERGE4_CASES[0][1]}")
+    cases = [(c, "random") for c in MERGE4_CASES] \
+        + [(c, "tie") for c in MERGE4_TIES] \
+        + [(c, "degenerate") for c in MERGE4_DEGENERATE]
+    for i, ((P, K, cap, sep), kind) in enumerate(cases):
+        if kind == "degenerate":
+            pool = degenerate_pool4(P, K, 30 + i, dev)
+        else:
+            pool = random_pool4(P, K, 30 + i, dev)
+        if kind == "tie":
+            pool = (tie_weights(pool[0], i),) + tuple(pool[1:])
         kern = G4.merge4_cuda(*pool, sep, cap)
         plain = G4.merge4_plain(*pool, sep, cap)
         n_bad, err = compare_rows(kern, plain)
         _err(stats, "merge4", err)
-        log(f"merge4 [{P}, {K}] -> {cap} min_sep {sep}: particles "
+        log(f"merge4 {kind} [{P}, {K}] -> {cap} min_sep {sep}: particles "
             f"differing {n_bad}/{P}, max_abs_err {err:.3e}, live slots "
             f"{int((plain[0] > 0).sum(1).max())} max")
-        _limit(n_bad, P, f"merge4 min_sep {sep}")
+        _limit(n_bad, P, f"merge4 {kind} min_sep {sep}")
+        if i in (0, 2) or kind == "degenerate":
+            tests, n_first, n_two = merge4_tests(pool, sep, cap)
+            log(f"merge4 {kind} [{P}, {K}] -> {cap} min_sep {sep}: {tests} "
+                f"candidate tests; the early exits decide {n_two} "
+                f"({n_two / tests:.1%}) on the first two pivots, {n_first} "
+                f"({n_first / tests:.1%}) of them on the first alone, "
+                "without a division")
         if i == 0:                  # the dense pool at the shipped gate
+            bit_identical(lambda: G4.merge4_cuda(*pool, sep, cap),
+                          f"merge4 [{P}, {K}] -> {cap}")
             s = stats["merge4"]
             s.update(ms=cuda_ms(lambda: G4.merge4_cuda(*pool, sep, cap), 5),
                      plain_ms=cuda_ms(lambda: G4.merge4_plain(*pool, sep,
                                                               cap), 2),
                      library_ms=None)
-            tests = merge4_tests(pool, sep, cap)
             bound(stats, "merge4", 4 * 15 * P * (K + cap),
                   tests * MERGE4_TEST_OPS)
             log(f"merge4 timing [{P}, {K}] -> {cap}: {s['ms']:.3f} ms "
@@ -720,7 +839,7 @@ def merge3_tests(pool, sep, cap):
         take = lambda a: torch.gather(a, 1, pick)
         return mahalanobis3([0.5 * (take(c) + c) for c in covs],
                             [take(m) - m for m in means]) < sep
-    return candidate_tests(w, near, cap)
+    return candidate_tests(w, near, cap)[0]
 
 
 def phase_merge3(dev, stats):
@@ -818,6 +937,7 @@ class _KernelTimer:
         self.orig = getattr(module, name)
         self.pairs = []
         self.last_args = None
+        self.kept = None            # a list: keep every launch's (a, kw, out)
 
     def __enter__(self):
         import torch
@@ -830,6 +950,10 @@ class _KernelTimer:
             e.record()
             self.pairs.append((s, e))
             self.last_args = (a, kw)
+            if self.kept is not None:
+                clone = lambda x: x.clone() if torch.is_tensor(x) else x
+                self.kept.append((tuple(map(clone, a)), kw,
+                                  tuple(map(clone, out))))
             return out
 
         setattr(self.module, self.name, timed)
@@ -887,6 +1011,36 @@ def agree_on_last_args(tm, stats, what):
                      f"{n_bad}/{P} (max_abs_err {err:.3e})")
     log(f"{what} inputs, kernels against plain, particles differing: "
         + "; ".join(parts))
+
+
+def agree_on_every_launch(t, plain_fn, stats, what):
+    """Every launch the timer kept against the plain version on the same
+    inputs: at most MAX_DIFFER of the particles over all launches differ.
+    A particle that differs is run again through the plain version in
+    float64, to see which of the two float32 results it sides with."""
+    import torch
+    n_bad = n_rows = worst = by_kern = by_plain = 0
+    err = 0.0
+    for a, kw, out in t.kept:
+        plain = plain_fn(*a, **kw)
+        bad, errs = differing_rows(out, plain)
+        b = int(bad.sum())
+        n_bad, n_rows = n_bad + b, n_rows + out[0].shape[0]
+        worst = max(worst, b)
+        err = max(err, float(torch.where(bad, 0.0, errs).max()))
+        if b:
+            i = bad.nonzero()[:, 0]
+            ref = [r.float() for r in plain_fn(*(
+                x[i].double() if torch.is_tensor(x) else x for x in a), **kw)]
+            by_kern += b - compare_rows([o[i] for o in out], ref)[0]
+            by_plain += b - compare_rows([q[i] for q in plain], ref)[0]
+    log(f"{what}: {t.name} against plain on every one of its {len(t.kept)}"
+        f" launches: particles differing {n_bad}/{n_rows} (at most {worst} "
+        f"in one launch), max_abs_err {err:.3e}; of those, the plain version"
+        f" in float64 agrees with the kernel on {by_kern} and with the "
+        f"float32 plain version on {by_plain}")
+    _limit(n_bad, n_rows, f"{t.name} ({what}, every launch)")
+    _err(stats, t.name.removesuffix("_cuda"), err)
 
 
 def run_cli(args, tm):
@@ -1144,6 +1298,7 @@ def phase_cphd_main_path(dev, stats):
                                           control_noise=(0.2, 0.01))
     n_steps = len(meas)
     tm = timers()
+    tm["merge"].kept = []
     with tempfile.TemporaryDirectory() as d:
         simdata.write_run_files(d, controls, meas)
         x0, y0, yaw0 = sc.traj[0]
@@ -1186,6 +1341,9 @@ def phase_cphd_main_path(dev, stats):
         raise RuntimeError(f"CPHD: mean pose error {errs.mean():.3f} m is "
                            f"not below {POSE_BAR_M} m")
     agree_on_last_args(tm, stats, "CPHD main path")
+    agree_on_every_launch(tm["merge"], _mods()[2].merge_plain, stats,
+                          "CPHD main path")
+    tm["merge"].kept = None
     log(f"CPHD main path kernels (CUDA events, ms/step): " + ", ".join(
         f"{k} {t.ms() / n_steps:.4f}" for k, t in tm.items() if t.pairs))
     stats["esf"]["launches"] = launches["esf"]

@@ -86,7 +86,8 @@ def merge_plain(w, mx, my, c00, c01, c11, min_separation: float,
 
 def merge_cuda(w, mx, my, c00, c01, c11, min_separation: float,
                max_out: int, metric: int = 0):
-    """Launch ``csrc/merge.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/merge.cu`` on PyTorch's current stream. The pool
+    lives in one CTA's shared memory: K up to 7744, a larger one raises."""
     global launches
     chans = (w, mx, my, c00, c01, c11)
     P, K = w.shape

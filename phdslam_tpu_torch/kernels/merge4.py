@@ -12,6 +12,7 @@ hold w = 0, mean 0 and the identity covariance.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from phdslam_tpu_torch.kernels import _build
@@ -64,8 +65,28 @@ def merge4_plain(w, mean, cov, min_separation: float, max_out: int):
     return ow, om, oc
 
 
+def reject_scale(min_separation: float) -> float:
+    """The factor of the kernel's division-free first test (``csrc/
+    merge4.cu::reject_scale``): a candidate whose d0^2 > k0 max(a0, 1e-12)
+    fails the neighbour test. k0 = mid^2 (1 + 2^-21), mid the midpoint
+    below the least float32 v with fl(v v) >= min_separation; inf (no early
+    reject) unless 0 < min_separation < 3e38."""
+    f = np.float32
+    if not 0.0 < min_separation < 3.0e38:
+        return float("inf")
+    s = f(min_separation)
+    v = np.sqrt(s)
+    while f(v * v) >= s:
+        v = np.nextafter(v, f(0))
+    while f(v * v) < s:
+        v = np.nextafter(v, f(np.inf))
+    mid = 0.5 * (float(np.nextafter(v, f(0))) + float(v))
+    return mid * mid * (1.0 + 2.0 ** -21)
+
+
 def merge4_cuda(w, mean, cov, min_separation: float, max_out: int):
-    """Launch ``csrc/merge4.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/merge4.cu`` on PyTorch's current stream. The pool
+    lives in one CTA's shared memory: K up to 3520, a larger one raises."""
     global launches
     P, K = w.shape
     dev = w.device

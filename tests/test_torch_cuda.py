@@ -188,7 +188,7 @@ def _pool(P, K, seed, dev):
 @pytest.mark.parametrize("P,K,cap,metric,sep", [
     (37, 97, 13, 0, 4.0),
     (37, 97, 64, 1, 0.6),
-    (16, 2200, 300, 0, 5.0),        # 52.8 KB of shared memory per CTA
+    (16, 2200, 300, 0, 5.0),        # 66 KB of shared memory per CTA
 ])
 def test_merge_kernel_matches_plain(dev, P, K, cap, metric, sep):
     pool = _pool(P, K, P + K, dev)
@@ -200,6 +200,125 @@ def test_merge_kernel_matches_plain(dev, P, K, cap, metric, sep):
     for k, p in zip(kern, plain):
         torch.testing.assert_close(k, p, **TOL)
     assert not kern[0][0].any() and bool((kern[3][0] == 1).all())
+
+
+def _edge_weights(w):
+    """Row 0 keeps no live weight; row 1 is <= 0 everywhere but one
+    candidate; row 2 has an exact three-way tie at the top (the lowest
+    index is picked first); row 3 takes a few weight values only, ties
+    throughout."""
+    w = w.clone()
+    K = w.shape[1]
+    w[1] = -torch.linspace(0.0, 1.0, K, device=w.device)
+    w[1, K // 2] = 0.5
+    w[2, [3, 7, 11]] = 2.5
+    w[3] = torch.where(w[3] > 0, torch.round(w[3] * 2) / 2 + 0.5, w[3])
+    return w
+
+
+@pytest.mark.parametrize("P,K,cap,metric,sep", [
+    (9, 97, 5, 0, 4.0),             # cap reached before the weight runs out
+    (9, 97, 200, 0, 4.0),           # the weight runs out before cap
+    (9, 97, 200, 1, 0.6),
+    (4, 7744, 300, 0, 5.0),         # the widest K: 227 KB of shared memory
+])
+def test_merge_kernel_edge_pools(dev, P, K, cap, metric, sep):
+    """Ties, dead rows, both ends of the pick loop and the widest pool,
+    against the plain version; two launches give the same bits."""
+    pool = _pool(P, K, P + K + 3, dev)
+    pool[0] = _edge_weights(pool[0])
+    kern = G.merge_cuda(*pool, sep, cap, metric)
+    again = G.merge_cuda(*pool, sep, cap, metric)
+    plain = G.merge_plain(*pool, sep, cap, metric)
+    torch.cuda.synchronize()
+    for k, a, p in zip(kern, again, plain):
+        assert torch.equal(k, a)
+        torch.testing.assert_close(k, p, **TOL)
+    n_live = (kern[0] > 0).sum(1)
+    assert n_live[0] == 0 and n_live[1] == 1
+    if cap < 10:
+        assert bool((n_live == cap).any())
+    if cap >= K:
+        assert bool((n_live < cap).all())
+
+
+def _degenerate_cov4(cov, seed):
+    """cov with a quarter of the candidates zero, a quarter singular (rank
+    1) and a quarter slightly indefinite (rank 1 minus 1e-3 I): the clamps
+    of the Cholesky bind."""
+    rng = np.random.default_rng(seed)
+    P, _, K = cov.shape
+    u = rng.normal(size=(4, P, K))
+    rank1 = np.stack([u[i] * u[j] for i in range(4) for j in range(i, 4)], 1)
+    diag = np.zeros((1, 10, 1))
+    diag[0, [0, 4, 7, 9], 0] = 1e-3
+    kind = rng.integers(0, 4, (P, 1, K))
+    alt = np.where(kind == 0, 0.0, np.where(kind == 1, rank1, rank1 - diag))
+    alt = torch.as_tensor(alt.astype(np.float32), device=cov.device)
+    return torch.where(torch.as_tensor(kind < 3, device=cov.device), alt,
+                       cov)
+
+
+@pytest.mark.parametrize("P,K,cap,sep,degenerate", [
+    (9, 97, 5, 1.0, False),         # cap reached before the weight runs out
+    (9, 97, 200, 1.0, False),       # the weight runs out before cap
+    (9, 97, 200, 1.0, True),
+    (9, 300, 300, 5.0, True),
+    (4, 3520, 200, 1.0, False),     # the widest K: 227 KB of shared memory
+])
+def test_merge4_kernel_edge_pools(dev, P, K, cap, sep, degenerate):
+    """Ties, dead rows, both ends of the pick loop, the widest pool, and
+    covariances where the clamps bind (so that the early exit must decide
+    as the full test does), against the plain version; two launches give
+    the same bits."""
+    w, mean, cov = _pool4(P, K, P + K + 4, dev)
+    w = _edge_weights(w)
+    if degenerate:
+        mean = mean * 0.3               # close enough for full tests
+        cov = _degenerate_cov4(cov, P + K)
+    kern = G4.merge4_cuda(w, mean, cov, sep, cap)
+    again = G4.merge4_cuda(w, mean, cov, sep, cap)
+    plain = G4.merge4_plain(w, mean, cov, sep, cap)
+    torch.cuda.synchronize()
+    for k, a, p in zip(kern, again, plain):
+        assert torch.equal(k, a)
+        torch.testing.assert_close(k, p, **TOL)
+    n_live = (kern[0] > 0).sum(1)
+    assert n_live[0] == 0 and n_live[1] == 1
+    if cap < 10:
+        assert bool((n_live == cap).any())
+    if cap >= K:
+        assert bool((n_live < cap).all())
+
+
+def test_merge4_reject_scale_is_the_kernels(dev):
+    """kernels/merge4.py::reject_scale, which tests/test_torch_update4.py
+    proves exact, is the k0 that csrc/merge4.cu computes on the card, bit
+    for bit: the CPU tests' min_sep values, those out of range and 4096
+    log-uniform ones from 1e-30 to 1e30."""
+    from phdslam_tpu_torch.kernels import _build
+    rng = np.random.default_rng(4)
+    seps = [1.0, 5.0, 0.37, 9.0, 123.456, 1e-20, 0.0, -1.0, float("nan"),
+            3.1e38, float("inf")] + [
+        float(x) for x in np.float32(10.0) ** rng.uniform(-30, 30, 4096)
+        .astype(np.float32)]
+    x = torch.tensor(seps, dtype=torch.float32, device=dev)
+    k0 = torch.empty(len(seps), dtype=torch.float64, device=dev)
+    lib, _ = _build.library()
+    _build.check(lib, lib.phd_merge4_reject_scale(
+        x.data_ptr(), k0.data_ptr(), len(seps),
+        torch.cuda.current_stream(dev).cuda_stream), "reject_scale")
+    want = [G4.reject_scale(float(s)) for s in x.cpu().tolist()]
+    assert k0.cpu().tolist() == want
+
+
+def test_merge_kernels_refuse_one_past_the_widest_pool(dev):
+    G.merge_cuda(*_pool(2, 7744, 0, dev), 5.0, 8)
+    with pytest.raises(RuntimeError):
+        G.merge_cuda(*_pool(2, 7745, 0, dev), 5.0, 8)
+    G4.merge4_cuda(*_pool4(2, 3520, 0, dev), 1.0, 8)
+    with pytest.raises(RuntimeError):
+        G4.merge4_cuda(*_pool4(2, 3521, 0, dev), 1.0, 8)
 
 
 def _pool4(P, K, seed, dev):
@@ -219,7 +338,7 @@ def _pool4(P, K, seed, dev):
 @pytest.mark.parametrize("P,K,cap,sep", [
     (37, 97, 13, 5.0),
     (37, 97, 64, 1.0),
-    (9, 1100, 301, 1.0),            # 66 KB of shared memory per CTA
+    (9, 1100, 301, 1.0),            # 73 KB of shared memory per CTA
 ])
 def test_merge4_kernel_matches_plain(dev, P, K, cap, sep):
     pool = _pool4(P, K, P + K, dev)
@@ -318,7 +437,7 @@ def test_wrappers_refuse_bad_inputs(dev):
         G4.merge4_cuda(w, mean4.transpose(1, 2), cov4, 1.0, 8)
     with pytest.raises(ValueError):
         G4.merge4_cuda(w, mean4, cov4.double(), 1.0, 8)
-    with pytest.raises(RuntimeError):     # 15 x 4000 floats: 240 KB
+    with pytest.raises(RuntimeError):     # 66 B x 4000: 264 KB
         G4.merge4_cuda(*_pool4(2, 4000, 0, dev), 1.0, 8)
     pool3 = _pool3(4, 40, 0, dev)
     with pytest.raises(ValueError):

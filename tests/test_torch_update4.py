@@ -360,6 +360,33 @@ CASES = [dict(particleWeighting=pw, labeledMeasurements=bool(lab),
     dict(birthVelocityInit=True)]
 
 
+@pytest.mark.parametrize("sep", [1.0, 5.0, 0.37, 9.0, 123.456, 1e-20])
+def test_merge4_first_pivot_exit_is_exact(sep):
+    """csrc/merge4.cu's division-free exit, d0^2 > k0 max(a0, eps) in
+    double, rejects a candidate only where the kernel's float32 first pivot
+    already gives fl(y0 y0) >= min_sep (so its distance is >= min_sep too):
+    pairs within 1e-6 of the boundary, a twentieth of them clamped."""
+    f = np.float32
+    rng = np.random.default_rng(int(sep * 1000) % 2**32)
+    k0 = TM4.reject_scale(sep)
+    n = 200_000
+    a0 = (f(10.0) ** rng.uniform(-13, 3, n)).astype(f)
+    a0 = np.where(rng.uniform(size=n) < 0.05, f(-1e-3), a0).astype(f)
+    ap = np.maximum(a0, f(1e-12))
+    d0 = (np.sqrt(sep * ap.astype(np.float64))
+          * (1 + rng.normal(0, 1e-6, n))).astype(f)
+    d0 = np.where(rng.uniform(size=n) < 0.5, -d0, d0)
+    y0 = d0 / np.sqrt(ap)                   # IEEE float32, as the kernel
+    reject = d0.astype(np.float64) ** 2 > k0 * ap.astype(np.float64)
+    assert 0 < reject.sum() < n
+    assert not (reject & ~(y0 * y0 >= f(sep))).any()
+
+
+def test_merge4_first_pivot_exit_off_outside_its_range():
+    for sep in (0.0, -1.0, float("nan"), 3.1e38, float("inf")):
+        assert TM4.reject_scale(sep) == float("inf")
+
+
 @pytest.mark.parametrize("over", CASES, ids=[
     "-".join(f"{k}={v}" for k, v in c.items()) for c in CASES])
 def test_phd_update_mixed_matches_jax(mixed_cfg, over):
