@@ -15,14 +15,18 @@ code is not 0:
      - select and select by index: the shipped (256 x 128 x 64) and dense
        (8192 x 512 x 64) shapes, normalised, raw and n_valid < M; the
        by-index kernel picks what the payload kernel picks, and the gather
-       at its indices reproduces the payload
+       at its indices reproduces the payload; registers and CTAs per SM;
+       at the dense shape, the share of rows whose argmax rounds exit
+       early, the mean rounds run per row and the mean live slots per
+       particle
      - merge: the dense pool ([8192, 1088] -> 512, metrics 0 and 1), the
        shipped pool ([256, 704] -> 128), an odd P, an odd cap and a pool of
        exact weight ties ([1024, 1088] -> 512); two launches on the dense
        pool bit-identical; CTAs per SM
      - select4 and select4 by index: the shipped mixed (256 x 128 x 64),
        dense (8192 x 512 x 64) and odd-P (1001) shapes, k1 = 8, with the
-       same by-index checks
+       same by-index checks, registers, CTAs per SM and early exits (raw
+       values)
      - merge4: [256, 704] -> 128 at min_sep 1.0, [8192, 1088] -> 512 at
        1.0 and 5.0, an odd P (1001), an odd cap (77), a pool of exact
        weight ties and pools of zero, singular and slightly indefinite
@@ -31,7 +35,8 @@ code is not 0:
        tests each early exit decides (a replay of the pick loop)
      - merge3: the shipped disparity pool ([64, 496] -> 64), an odd P
        ([1001, 496] -> 64) and the dense pool ([8192, 560] -> 128), each
-       timed beside its bound, min_sep 4
+       timed beside its bound, min_sep 4; two launches on the dense pool
+       bit-identical; registers and CTAs per SM
      - esf: [1024, 64], [256, 64], [1001, 48] with 9 trailing -inf slots,
        [7, 1] and [64, 256], each timed beside its bound; finite entries
        compared, the -1e30 sentinel in the same places
@@ -43,7 +48,7 @@ code is not 0:
      330-step simdata run at cfg/ackerman_synth.cfg: the log contract,
      select and merge launched once per update step, mean pose error below
      1.5 m, both kernels against their plain versions on the run's last
-     launch
+     launch, and select's early exits and live slots on that launch
   4. mixed main path - the runner (loop mode, --device cuda) at
      cfg/mixed_synth.cfg's full width (256 particles x 128 static + 128
      dynamic slots x 64 measurements) over the 150-step scenario of
@@ -374,6 +379,31 @@ def _select_args(S, cfg, pre, gm, z, case):
     return chans, kw, nv
 
 
+def select_rows(w_sel, lpw, nv):
+    """What the select loop's design rests on, from a launch's picks w_sel
+    [P, M, k1] and its lpw channel [P, F] (the first nv columns): the share
+    of rows whose argmax rounds exit early (fewer than k1 positive picks),
+    the mean rounds a row runs (its positive picks, plus the one that finds
+    the 0, at most k1) and the mean live (in-range) slots per particle."""
+    import torch
+    k1 = w_sel.shape[-1]
+    n_pos = (w_sel[:, :nv] > 0).sum(-1)
+    return (float((n_pos < k1).float().mean()),
+            float(torch.clamp(n_pos + 1, max=k1).float().mean()),
+            float((lpw > -5e29).sum(1).float().mean()))
+
+
+def occupancy(fn, size, what):
+    """Log a kernel's registers per thread and CTAs per SM from its C
+    query fn(size, &regs)."""
+    import ctypes
+    regs = ctypes.c_int(0)
+    ctas = fn(size, ctypes.byref(regs))
+    if ctas < 1:
+        raise RuntimeError(f"{what}: no CTA fits on an SM")
+    log(f"{what}: {regs.value} registers per thread, {ctas} CTAs per SM")
+
+
 def select_bytes(P, F, M, k1, by_index):
     n_in = S_LOOP if by_index else 16
     out = P * M * (4 + 1 + k1 * (8 if by_index else 7 * 4))
@@ -433,6 +463,10 @@ def phase_select(dev, stats):
                                 f"n_valid={int(nv)}")
         _err(stats, "select_by_index", err)
 
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    for F_ in (SHIPPED["F"], DENSE["F"]):
+        occupancy(lib.phd_select_ctas_per_sm, F_, f"select at F = {F_}")
     P, F, M = DENSE["P"], DENSE["F"], DENSE["M"]
     cfg, pre, gm, z = random_select_inputs(P, F, M, 2, dev)
     chans, kw, nv = _select_args(S, cfg, pre, gm, z, cases[0])
@@ -444,6 +478,10 @@ def phase_select(dev, stats):
     log(f"select {P}x{F}x{M} (chunks of {DENSE_CHUNK}): particles "
         f"differing {n_bad}/{P}, max_abs_err {err:.3e}")
     _limit(n_bad, P, "select (dense shape)")
+    early, rounds, live = select_rows(kern[1], chans[2], M)
+    log(f"select {P}x{F}x{M} normalised: rows exiting early {early:.4f}, "
+        f"rounds per row {rounds:.3f} of {K1}, live slots per particle "
+        f"{live:.1f} of {F}")
     _, err = check_by_index(S, pre, gm, z, chans, nv, kw, kern,
                             f"{P}x{F}x{M}")
     _err(stats, "select_by_index", err)
@@ -635,6 +673,10 @@ def phase_select4(dev, stats):
     S4 = _mods()[1]
     t0 = time.perf_counter()
     _new_stats(stats, "select4", "select4_by_index")
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    for F_ in (SHIPPED["F"], DENSE["F"]):
+        occupancy(lib.phd_select4_ctas_per_sm, F_, f"select4 at F = {F_}")
     for i, shape in enumerate((SHIPPED, ODD, DENSE)):
         P, F, M = shape["P"], shape["F"], shape["M"]
         pre4, gm4, z = random_select4_inputs(P, F, M, 20 + i, dev)
@@ -671,6 +713,10 @@ def phase_select4(dev, stats):
             f"(max_abs_err {err_i:.3e}), picks as the payload kernel's, "
             f"gather reproduces the payload ({n_gather} differing, "
             f"max_abs_err {err_g:.3e}); live picks {float(live.float().mean()):.3f}")
+    early, rounds, nlive = select_rows(kern[1], loop[2], M)
+    log(f"select4 {P}x{F}x{M} raw: rows exiting early {early:.4f}, rounds "
+        f"per row {rounds:.3f} of {K1}, live slots per particle "
+        f"{nlive:.1f} of {F}")
     a = ([c for c in loop], gain, mean, cov)
     for name, k_fn, p_fn, by in (
             ("select4", lambda: S4.select4_cuda(*a, z, k1=K1),
@@ -846,6 +892,10 @@ def phase_merge3(dev, stats):
     G3 = _mods()[4]
     t0 = time.perf_counter()
     _new_stats(stats, "merge3")
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    occupancy(lib.phd_merge3_ctas_per_sm, MERGE3_CASES[0][1],
+              f"merge3 at K = {MERGE3_CASES[0][1]}")
     for i, (P, K, cap, sep) in enumerate(MERGE3_CASES):
         pool = random_pool3(P, K, 40 + i, dev)
         kern = G3.merge3_cuda(*pool, sep, cap)
@@ -866,6 +916,18 @@ def phase_merge3(dev, stats):
             f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.4f}"
             f" ms by {case['bound_by']}, {tests} candidate tests)")
         if i == 0:                  # the dense pool goes to the JSON line
+            if n_bad:
+                bad, _ = differing_rows(kern, plain)
+                by_kern, by_plain = float64_sides(
+                    kern, plain, bad, G3.merge3_plain, pool, dict(
+                        min_separation=sep, max_out=cap))
+                n_w, _ = compare_rows([kern[0][bad]], [plain[0][bad]])
+                log(f"merge3 [{P}, {K}] -> {cap}: of the {n_bad} particles "
+                    f"differing, {n_w} in a slot weight; the plain version "
+                    f"in float64 agrees with the kernel on {by_kern} and "
+                    f"with the float32 plain version on {by_plain}")
+            bit_identical(lambda: G3.merge3_cuda(*pool, sep, cap),
+                          f"merge3 [{P}, {K}] -> {cap}")
             stats["merge3"].update(case)
     log(f"phase merge3: ok ({time.perf_counter() - t0:.1f} s)")
 
@@ -1013,6 +1075,19 @@ def agree_on_last_args(tm, stats, what):
         + "; ".join(parts))
 
 
+def float64_sides(out, plain, bad, plain_fn, a, kw):
+    """The particles marked bad run again through the plain version in
+    float64: (how many the kernel's outputs agree with, how many the
+    float32 plain version's agree with), each within rtol/atol."""
+    import torch
+    i = bad.nonzero()[:, 0]
+    ref = [r.float() for r in plain_fn(*(
+        x[i].double() if torch.is_tensor(x) else x for x in a), **kw)]
+    n = len(i)
+    return (n - compare_rows([o[i] for o in out], ref)[0],
+            n - compare_rows([q[i] for q in plain], ref)[0])
+
+
 def agree_on_every_launch(t, plain_fn, stats, what):
     """Every launch the timer kept against the plain version on the same
     inputs: at most MAX_DIFFER of the particles over all launches differ.
@@ -1029,11 +1104,8 @@ def agree_on_every_launch(t, plain_fn, stats, what):
         worst = max(worst, b)
         err = max(err, float(torch.where(bad, 0.0, errs).max()))
         if b:
-            i = bad.nonzero()[:, 0]
-            ref = [r.float() for r in plain_fn(*(
-                x[i].double() if torch.is_tensor(x) else x for x in a), **kw)]
-            by_kern += b - compare_rows([o[i] for o in out], ref)[0]
-            by_plain += b - compare_rows([q[i] for q in plain], ref)[0]
+            k, q = float64_sides(out, plain, bad, plain_fn, a, kw)
+            by_kern, by_plain = by_kern + k, by_plain + q
     log(f"{what}: {t.name} against plain on every one of its {len(t.kept)}"
         f" launches: particles differing {n_bad}/{n_rows} (at most {worst} "
         f"in one launch), max_abs_err {err:.3e}; of those, the plain version"
@@ -1122,6 +1194,13 @@ def phase_main_path(dev, stats):
         raise RuntimeError(f"mean pose error {errs.mean():.3f} m is not "
                            f"below {POSE_BAR_M} m")
     agree_on_last_args(tm, stats, "static main path")
+    a, kw = tm["select"].last_args
+    w_sel = tm["select"].orig(*a, **kw)[1]
+    early, rounds, live = select_rows(w_sel, a[0][2], int(a[2]))
+    log(f"static main path, select's last launch "
+        f"{'x'.join(map(str, w_sel.shape))} (n_valid {int(a[2])}): rows "
+        f"exiting early {early:.4f}, rounds per row {rounds:.3f} of "
+        f"{w_sel.shape[-1]}, live slots per particle {live:.1f}")
     log(f"main path kernels: select {tm['select'].ms() / n_steps:.4f} "
         f"ms/step, merge {tm['merge'].ms() / n_steps:.4f} ms/step (CUDA "
         f"events)")

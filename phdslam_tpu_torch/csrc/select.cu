@@ -20,20 +20,29 @@
 // u11) and lpw; by_index = 1, their index f (0 where w = 0). Columns
 // m >= n_valid are zeros.
 //
-// What bounds it on an H100: P*M*F (p, m, f) triples, each with one expf,
-// about a dozen flops and k1 compare rounds. At the dense shape
-// (8192 x 64 x 512) that is 2.7e8 triples of SFU/ALU work; the inputs are
-// 16 [P, F] channels read once (7 in the by-index mode). The [P, M, F]
-// likelihood tensor (1 GiB per float32 channel at that shape) never reaches
-// device memory.
+// What bounds it on an H100: P*M*F (p, m, f) triples, each with one expf
+// and about thirty other instructions (only the live slots' need them: a
+// dead slot's term is 0), and k1 argmax rounds per (p, m) row. At the
+// dense shape (8192 x 64 x 512) that is 2.7e8 triples of instruction-bound
+// ALU/FMA/SFU work; the inputs are 16 [P, F] channels read once (7 in the
+// by-index mode). The [P, M, F] likelihood tensor (1 GiB per float32
+// channel at that shape) never reaches device memory.
 //
-// Design (select_common.cuh): one CTA per particle, the seven loop channels
-// staged in shared memory once, one warp per measurement with a
-// lane-private slice of its row buffer, shuffle reductions for the sum and
-// the gate flag, and k1 warp argmax rounds. Lane j keeps round j's winner,
-// so the payload of all k1 winners is read from device memory in parallel
-// at the end. expf (not __expf) keeps the kernel within ulps of the plain
-// PyTorch version.
+// Design (select_common.cuh): one CTA per particle; the live slots' seven
+// loop channels compacted into shared memory once, in slot order; a warp
+// sweeps them for G measurements at a time with each lane's share of the
+// rows in registers, normalises and prunes there, and picks with argmax
+// rounds on the lanes' heads (two warp reductions a round) after a
+// prefilter at the k1-th largest head, with an exact early exit once the
+// best remaining value is 0. Lane j keeps round j's winner, so the payload
+// of all k1 winners is read from device memory in parallel at the end.
+// expf (not __expf) keeps the kernel within ulps of the plain PyTorch
+// version. What changed in the sums: lane l now adds the live positions
+// c = l + 32 i of the compacted row (the first design: the slots l + 32 i,
+// dead ones included), so each lane's share of a row, and the rounding of
+// its sum, differ from the first design's within float32 rounding. F <=
+// 1024, at most 32 KB of shared memory; 40 registers and 6 CTAs per SM at
+// F = 512.
 
 #include <cuda_runtime.h>
 
@@ -54,86 +63,98 @@ struct Outputs {
   unsigned char* compat;
 };
 
+template <int kSlots>
 __global__ void __launch_bounds__(kWarps * 32)
     select_kernel(Channels in, const float* __restrict__ z,
-                  const int* __restrict__ n_valid, Outputs out, int F, int M,
-                  int k1, float clutter_birth, float min_weight, float gate,
-                  int raw, int with_compat, int with_lpw, int by_index) {
+                  const int* __restrict__ n_valid, Outputs out, int M,
+                  Loop a, int with_lpw, int by_index) {
+  constexpr int G = group<kSlots>();
   extern __shared__ float smem[];
+  const int F = a.F, k1 = a.k1;
   const int p = blockIdx.x;
   const size_t off = static_cast<size_t>(p) * F;
   const Staged s = stage(smem, F, off, in.r, in.b, in.lpw, in.si00, in.si01,
                          in.si11, in.lds);
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* row = s.rows + warp * F;
-  const int nv = min(*n_valid, M);
+  const int nv = max(min(*n_valid, M), 0);
 
-  for (int m = warp; m < M; m += kWarps) {
+  for (int m = nv + warp; m < M; m += kWarps) {     // the zero columns
     const size_t pm = static_cast<size_t>(p) * M + m;
     const size_t sel = pm * k1;
-    if (m >= nv) {
-      if (lane < k1) {
-        out.w[sel + lane] = 0.f;
-        if (by_index) {
-          out.idx[sel + lane] = 0;
-        } else {
-          out.mx[sel + lane] = 0.f;
-          out.my[sel + lane] = 0.f;
-          out.u00[sel + lane] = 0.f;
-          out.u01[sel + lane] = 0.f;
-          out.u11[sel + lane] = 0.f;
-          out.lpw[sel + lane] = 0.f;
-        }
-      }
-      if (lane == 0) {
-        out.sum[pm] = 0.f;
-        out.compat[pm] = 0;
-      }
-      continue;
-    }
-    const float zr = z[2 * m];
-    const float zb = z[2 * m + 1];
-
-    bool hit;
-    const float sum =
-        likelihood_row(s, row, F, lane, zr, zb, with_compat, gate, &hit);
-    if (!raw) {
-      const float inv = 1.0f / (sum + clutter_birth);
-      for (int f = lane; f < F; f += 32) {
-        const float v = row[f] * inv;
-        row[f] = v >= min_weight ? v : 0.0f;
-      }
-    }
-    float my_v;
-    int my_i;
-    top_k1(row, F, k1, lane, &my_v, &my_i);
-
     if (lane < k1) {
-      const bool alive = my_v > 0.0f;
-      out.w[sel + lane] = alive ? my_v : 0.0f;
+      out.w[sel + lane] = 0.f;
       if (by_index) {
-        out.idx[sel + lane] = alive ? my_i : 0;
+        out.idx[sel + lane] = 0;
       } else {
-        const size_t g = off + my_i;
-        const float ir = zr - s.r[my_i];
-        const float ib = wrap_round(zb - s.b[my_i]);
-        out.mx[sel + lane] = in.mx[g] + in.g00[g] * ir + in.g01[g] * ib;
-        out.my[sel + lane] = in.my[g] + in.g10[g] * ir + in.g11[g] * ib;
-        out.u00[sel + lane] = in.u00[g];
-        out.u01[sel + lane] = in.u01[g];
-        out.u11[sel + lane] = in.u11[g];
-        out.lpw[sel + lane] = with_lpw ? s.lpw[my_i] : 0.0f;
+        out.mx[sel + lane] = 0.f;
+        out.my[sel + lane] = 0.f;
+        out.u00[sel + lane] = 0.f;
+        out.u01[sel + lane] = 0.f;
+        out.u11[sel + lane] = 0.f;
+        out.lpw[sel + lane] = 0.f;
       }
     }
     if (lane == 0) {
-      out.sum[pm] = sum;
-      out.compat[pm] = (with_compat && hit) ? 1 : 0;
+      out.sum[pm] = 0.f;
+      out.compat[pm] = 0;
+    }
+  }
+
+  for (int m0 = warp * G; m0 < nv; m0 += kWarps * G) {
+    const int n = min(G, nv - m0);
+    float sum[G], pv[G];
+    bool hit[G];
+    int pc[G];
+    sweep<kSlots, G>(s, a, lane, z, m0, n, sum, hit, pv, pc);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g >= n) break;
+      const int m = m0 + g;
+      const size_t pm = static_cast<size_t>(p) * M + m;
+      const size_t sel = pm * k1;
+      if (lane < k1) {
+        const float v = pv[g];
+        const int f = pc[g] < 0 ? 0 : s.slot[pc[g]];
+        const bool alive = v > 0.0f;
+        out.w[sel + lane] = alive ? v : 0.0f;
+        if (by_index) {
+          out.idx[sel + lane] = alive ? f : 0;
+        } else {
+          const size_t gi = off + f;
+          const float ir = z[2 * m] - in.r[off + f];
+          const float ib = wrap_round(z[2 * m + 1] - in.b[off + f]);
+          out.mx[sel + lane] = in.mx[gi] + in.g00[gi] * ir + in.g01[gi] * ib;
+          out.my[sel + lane] = in.my[gi] + in.g10[gi] * ir + in.g11[gi] * ib;
+          out.u00[sel + lane] = in.u00[gi];
+          out.u01[sel + lane] = in.u01[gi];
+          out.u11[sel + lane] = in.u11[gi];
+          out.lpw[sel + lane] = with_lpw ? in.lpw[gi] : 0.0f;
+        }
+      }
+      if (lane == 0) {
+        out.sum[pm] = sum[g];
+        out.compat[pm] = (a.with_compat && hit[g]) ? 1 : 0;
+      }
     }
   }
 }
+
+template <int kSlots>
+cudaError_t launch(int P, size_t smem, cudaStream_t stream, Channels in,
+                   const float* z, const int* n_valid, Outputs out, int M,
+                   Loop a, int with_lpw, int by_index) {
+  select_kernel<kSlots><<<P, kWarps * 32, smem, stream>>>(
+      in, z, n_valid, out, M, a, with_lpw, by_index);
+  return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(int, size_t, cudaStream_t, Channels,
+                               const float*, const int*, Outputs, int, Loop,
+                               int, int);
+using Kernel = void (*)(Channels, const float*, const int*, Outputs, int,
+                        Loop, int, int);
 
 }  // namespace
 
@@ -163,26 +184,29 @@ int phd_select_launch(const float* r, const float* b, const float* lpw,
                       float gate, int raw, int with_compat, int with_lpw,
                       int by_index, void* stream) {
   if (P <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
-  if (F <= 0 || k1 <= 0 || k1 > 32)
+  const Launch go =
+      for_slots<Launch>(F, launch<1>, launch<2>, launch<4>, launch<8>,
+                        launch<16>, launch<32>);
+  if (go == nullptr || k1 <= 0 || k1 > 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(F);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not see it
-      return static_cast<int>(e);
-    }
-  }
   Channels in{r,   b,   lpw, si00, si01, si11, lds, mx,
               my,  g00, g01, g10,  g11,  u00,  u01, u11};
   Outputs out{sum_out, w_out,   mx_out,  my_out,  u00_out,
               u01_out, u11_out, lpw_out, idx_out, compat_out};
-  select_kernel<<<P, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, z, n_valid, out, F, M, k1, clutter_birth, min_weight, gate, raw,
-      with_compat, with_lpw, by_index);
-  return static_cast<int>(cudaGetLastError());
+  const Loop a{F, k1, clutter_birth, min_weight, gate, raw != 0,
+               with_compat != 0};
+  return static_cast<int>(go(P, smem_bytes(F),
+                             static_cast<cudaStream_t>(stream), in, z,
+                             n_valid, out, M, a, with_lpw, by_index));
+}
+
+// CTAs of the kernel for F slots that fit on one SM, and its registers per
+// thread in *regs; 0 when F is out of range.
+int phd_select_ctas_per_sm(int F, int* regs) {
+  const Kernel k = for_slots<Kernel>(F, select_kernel<1>, select_kernel<2>,
+                                     select_kernel<4>, select_kernel<8>,
+                                     select_kernel<16>, select_kernel<32>);
+  return ctas_per_sm(k, F, regs);
 }
 
 }  // extern "C"

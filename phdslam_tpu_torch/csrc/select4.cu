@@ -24,9 +24,12 @@
 // 1 + 15 k1 output values per (p, m).
 //
 // Design: select.cu's loop (select_common.cuh): one CTA per particle, the
-// seven loop channels in shared memory (14 KB at F = 512; with the eight
-// row buffers 30 KB), one warp per measurement, shuffle argmax rounds; lane
-// j fetches round j's payload from device memory.
+// live slots' loop channels compacted in shared memory, G measurements per
+// warp sweep with the rows in registers, argmax rounds on the lanes'
+// heads after the prefilter, the exact early exit (raw values: a row ends
+// early only once every remaining e is 0, underflowed or dead); lane j
+// fetches round j's payload from device memory, as before. F <= 1024; 40
+// registers and 6 CTAs per SM at F = 512.
 
 #include <cuda_runtime.h>
 
@@ -46,61 +49,77 @@ struct Outputs4 {
   int* idx;                         // [P, 10, M, k1]; idx [P, M, k1]
 };
 
+template <int kSlots>
 __global__ void __launch_bounds__(kWarps * 32)
     select4_kernel(Channels4 in, const float* __restrict__ z, Outputs4 out,
-                   int F, int M, int k1, int by_index) {
+                   int M, Loop a, int by_index) {
+  constexpr int G = group<kSlots>();
   extern __shared__ float smem[];
+  const int F = a.F, k1 = a.k1;
   const int p = blockIdx.x;
   const size_t off = static_cast<size_t>(p) * F;
   const Staged s = stage(smem, F, off, in.r, in.b, in.lpw, in.si00, in.si01,
                          in.si11, in.lds);
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* row = s.rows + warp * F;
   const size_t mk = static_cast<size_t>(M) * k1;
 
-  for (int m = warp; m < M; m += kWarps) {
-    const size_t pm = static_cast<size_t>(p) * M + m;
-    const float zr = z[2 * m];
-    const float zb = z[2 * m + 1];
-    bool hit;
-    const float sum = likelihood_row(s, row, F, lane, zr, zb, false, 0.f,
-                                     &hit);
-    float my_v;
-    int my_i;
-    top_k1(row, F, k1, lane, &my_v, &my_i);
-
-    if (lane < k1) {
-      const bool alive = my_v > 0.0f;
-      out.w[pm * k1 + lane] = alive ? my_v : 0.0f;
-      if (by_index) {
-        out.idx[pm * k1 + lane] = alive ? my_i : 0;
-      } else {
-        const float ir = zr - s.r[my_i];
-        const float ib = wrap_round(zb - s.b[my_i]);
-        const size_t at = static_cast<size_t>(m) * k1 + lane;
+  for (int m0 = warp * G; m0 < M; m0 += kWarps * G) {
+    const int n = min(G, M - m0);
+    float sum[G], pv[G];
+    bool hit[G];
+    int pc[G];
+    sweep<kSlots, G>(s, a, lane, z, m0, n, sum, hit, pv, pc);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float g0 = in.gain[(static_cast<size_t>(p) * 8 + 2 * i) * F
-                                   + my_i];
-          const float g1 = in.gain[(static_cast<size_t>(p) * 8 + 2 * i + 1)
-                                       * F + my_i];
-          const float mi = in.mean[(static_cast<size_t>(p) * 4 + i) * F
-                                   + my_i];
-          out.mean[(static_cast<size_t>(p) * 4 + i) * mk + at] =
-              mi + g0 * ir + g1 * ib;
+    for (int g = 0; g < G; ++g) {
+      if (g >= n) break;
+      const int m = m0 + g;
+      const size_t pm = static_cast<size_t>(p) * M + m;
+      if (lane < k1) {
+        const float v = pv[g];
+        const int f = pc[g] < 0 ? 0 : s.slot[pc[g]];
+        const bool alive = v > 0.0f;
+        out.w[pm * k1 + lane] = alive ? v : 0.0f;
+        if (by_index) {
+          out.idx[pm * k1 + lane] = alive ? f : 0;
+        } else {
+          const float ir = z[2 * m] - in.r[off + f];
+          const float ib = wrap_round(z[2 * m + 1] - in.b[off + f]);
+          const size_t at = static_cast<size_t>(m) * k1 + lane;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float g0 =
+                in.gain[(static_cast<size_t>(p) * 8 + 2 * i) * F + f];
+            const float g1 =
+                in.gain[(static_cast<size_t>(p) * 8 + 2 * i + 1) * F + f];
+            const float mi = in.mean[(static_cast<size_t>(p) * 4 + i) * F + f];
+            out.mean[(static_cast<size_t>(p) * 4 + i) * mk + at] =
+                mi + g0 * ir + g1 * ib;
+          }
+#pragma unroll
+          for (int c = 0; c < 10; ++c)
+            out.cov[(static_cast<size_t>(p) * 10 + c) * mk + at] =
+                in.cov[(static_cast<size_t>(p) * 10 + c) * F + f];
         }
-#pragma unroll
-        for (int c = 0; c < 10; ++c)
-          out.cov[(static_cast<size_t>(p) * 10 + c) * mk + at] =
-              in.cov[(static_cast<size_t>(p) * 10 + c) * F + my_i];
       }
+      if (lane == 0) out.sum[pm] = sum[g];
     }
-    if (lane == 0) out.sum[pm] = sum;
   }
 }
+
+template <int kSlots>
+cudaError_t launch(int P, size_t smem, cudaStream_t stream, Channels4 in,
+                   const float* z, Outputs4 out, int M, Loop a,
+                   int by_index) {
+  select4_kernel<kSlots><<<P, kWarps * 32, smem, stream>>>(in, z, out, M, a,
+                                                           by_index);
+  return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(int, size_t, cudaStream_t, Channels4,
+                               const float*, Outputs4, int, Loop, int);
+using Kernel = void (*)(Channels4, const float*, Outputs4, int, Loop, int);
 
 }  // namespace
 
@@ -120,24 +139,26 @@ int phd_select4_launch(const float* r, const float* b, const float* lpw,
                        float* cov_out, int* idx_out, int P, int F, int M,
                        int k1, int by_index, void* stream) {
   if (P <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
-  if (F <= 0 || k1 <= 0 || k1 > 32)
+  const Launch go =
+      for_slots<Launch>(F, launch<1>, launch<2>, launch<4>, launch<8>,
+                        launch<16>, launch<32>);
+  if (go == nullptr || k1 <= 0 || k1 > 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(F);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        select4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not see it
-      return static_cast<int>(e);
-    }
-  }
   Channels4 in{r, b, lpw, si00, si01, si11, lds, gain, mean, cov};
   Outputs4 out{sum_out, w_out, mean_out, cov_out, idx_out};
-  select4_kernel<<<P, kWarps * 32, smem,
-                   static_cast<cudaStream_t>(stream)>>>(in, z, out, F, M, k1,
-                                                        by_index);
-  return static_cast<int>(cudaGetLastError());
+  const Loop a{F, k1, 0.0f, 0.0f, 0.0f, true, false};
+  return static_cast<int>(go(P, smem_bytes(F),
+                             static_cast<cudaStream_t>(stream), in, z, out,
+                             M, a, by_index));
+}
+
+// CTAs of the kernel for F slots that fit on one SM, and its registers per
+// thread in *regs; 0 when F is out of range.
+int phd_select4_ctas_per_sm(int F, int* regs) {
+  const Kernel k = for_slots<Kernel>(
+      F, select4_kernel<1>, select4_kernel<2>, select4_kernel<4>,
+      select4_kernel<8>, select4_kernel<16>, select4_kernel<32>);
+  return ctas_per_sm(k, F, regs);
 }
 
 }  // extern "C"

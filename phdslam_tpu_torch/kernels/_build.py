@@ -50,8 +50,11 @@ SIGNATURES = {
     "phd_merge4_launch": [_P] * 3 + [_P] * 3 + [_I, _I, _I, _F, _P],
     "phd_merge3_launch": [_P] * 10 + [_P] * 10 + [_I, _I, _I, _F, _P],
     "phd_esf_launch": [_P] * 3 + [_I, _I, _P],
+    "phd_select_ctas_per_sm": [_I, _P],
+    "phd_select4_ctas_per_sm": [_I, _P],
     "phd_merge_ctas_per_sm": [_I],
     "phd_merge4_ctas_per_sm": [_I],
+    "phd_merge3_ctas_per_sm": [_I, _P],
     "phd_merge4_reject_scale": [_P, _P, _I, _P],
     "phd_error_string": [_I],
 }

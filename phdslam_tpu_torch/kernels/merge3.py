@@ -11,7 +11,13 @@ identity covariance.
 
 The moments are taken in one pass centred on the pick (as in ``merge4``),
 where the JAX package takes the mean first and the moments about it; the two
-agree to float32 rounding of the centred sums.
+agree to float32 rounding of the centred sums. The kernel runs the presorted
+design of all three merges (``csrc/merge_common.cuh``): it adds each slot's
+members in the greedy pick order (weight descending), the plain version in
+index order, which again moves only the rounding. Its neighbour test is the
+plain version's arithmetic (``mahalanobis3``), whole. The widest pool one
+launch takes is K = 5051 (46 B of shared memory per candidate); a wider one
+raises.
 """
 
 from __future__ import annotations

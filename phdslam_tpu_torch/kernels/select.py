@@ -9,7 +9,9 @@ same function in plain PyTorch, on CPU tensors. The outputs have the
 layouts the JAX wrappers return after their transposes: ``sum_exp [P, M]``,
 then seven ``[P, M, k1]`` channels (w, mx, my, u00, u01, u11, lpw) or, by
 index, ``w [P, M, k1]`` and ``idx [P, M, k1]`` int32 (0 where w = 0), and
-``compat [P, M]`` bool. Columns at or past ``n_valid`` are zero.
+``compat [P, M]`` bool. Columns at or past ``n_valid`` are zero. The kernels
+take up to ``MAX_F`` map slots (a row lives in registers); the plain version
+takes any.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from phdslam_tpu_torch.ops.linalg import safe_log
 LOG_2PI = 1.8378770664093453
 NEG_LARGE = -1e30
 N_LOOP = 7                       # channels the (p, m, f) loop reads
+MAX_F = 1024                     # the kernels keep a row in 32 registers
 
 #: launches of the payload kernel since the count was last set to 0
 launches = 0
@@ -32,8 +35,11 @@ launches_by_index = 0
 
 
 def _wrap_round(x):
-    """The kernels' bearing wrap, x - 2 pi round(x / 2 pi)."""
-    two_pi = 2.0 * math.pi
+    """The kernels' bearing wrap, x - 2 pi round(x / 2 pi), with the IEEE
+    float32 quotient on every device: 2 pi is a tensor on x's device, since
+    PyTorch's CUDA division by a Python scalar multiplies by the scalar's
+    reciprocal, which rounds differently next to a half-turn."""
+    two_pi = x.new_tensor(2.0 * math.pi)
     return x - two_pi * torch.round(x / two_pi)
 
 
@@ -63,6 +69,15 @@ def top_k1(wrem, k1: int):
     w_sel = torch.cat([v for v, _ in picks], -1)
     f_sel = torch.cat([i for _, i in picks], -1)
     return torch.where(w_sel > 0.0, w_sel, 0.0), f_sel
+
+
+def check_shape(F: int, k1: int):
+    """Raise unless the select kernels take F slots and k1 picks."""
+    if not 1 <= F <= MAX_F:
+        raise ValueError(f"the select kernels take 1 to {MAX_F} map slots, "
+                         f"got {F}")
+    if not 1 <= k1 <= 32:
+        raise ValueError(f"k1 must be in [1, 32], got {k1}")
 
 
 def select_plain(chans, z, n_valid, *, k1: int, clutter_birth: float,
@@ -127,8 +142,7 @@ def select_cuda(chans, z, n_valid, *, k1: int, clutter_birth: float,
     if n_valid.dtype != torch.int32 or n_valid.numel() != 1 \
             or n_valid.device != dev:
         raise ValueError("n_valid must be one int32 on the channels' device")
-    if not 1 <= k1 <= 32:
-        raise ValueError(f"k1 must be in [1, 32], got {k1}")
+    check_shape(F, k1)
     lib, _ = _build.library()
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     sum_exp, w_sel = f32(P, M), f32(P, M, k1)

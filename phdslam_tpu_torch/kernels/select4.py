@@ -19,7 +19,8 @@ import torch
 
 from phdslam_tpu_torch.kernels import _build
 from phdslam_tpu_torch.kernels.select import (N_LOOP, _wrap_round,
-                                              likelihoods, loop_lpw, top_k1)
+                                              check_shape, likelihoods,
+                                              loop_lpw, top_k1)
 
 #: launches of the payload kernel since the count was last set to 0
 launches = 0
@@ -78,8 +79,7 @@ def select4_cuda(loop, gain, mean, cov, z, *, k1: int,
     for c in loop:
         _build.check_tensor(c, (P, F), dev, "channel")
     _build.check_tensor(z, (M, 2), dev, "z")
-    if not 1 <= k1 <= 32:
-        raise ValueError(f"k1 must be in [1, 32], got {k1}")
+    check_shape(F, k1)
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     sum_exp, w_sel = f32(P, M), f32(P, M, k1)
     if by_index:

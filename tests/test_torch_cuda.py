@@ -124,6 +124,169 @@ def test_select_by_index_matches_plain(dev, P, F, M, k1, raw, nv):
     torch.testing.assert_close(pay[1], kern[1], rtol=0, atol=0)
 
 
+def _edit_select(chans, kind):
+    """kind "dead": every slot of particle 0 out of range (lpw = -1e30, so
+    e = 0 and the rounds exit at once), half of particle 1's; "dup": the
+    second half of every row a copy of the first, so each value occurs
+    twice (exact ties in v, the lower slot first); None: as given."""
+    chans = [c.clone() for c in chans]
+    F = chans[0].shape[1]
+    if kind == "dead":
+        chans[2][0] = S.NEG_LARGE
+        chans[2][1, ::2] = S.NEG_LARGE
+    elif kind == "dup":
+        h = F // 2
+        for c in chans:
+            c[:, F - h:] = c[:, :h]
+    return chans
+
+
+@pytest.mark.parametrize("P,F,M,k1,raw,nv,kind", [
+    (9, 511, 12, 8, False, 12, "dead"),   # the register rows' edges
+    (9, 512, 12, 8, True, 12, "dup"),
+    (9, 513, 12, 32, False, 12, "dup"),
+    (9, 512, 12, 32, True, 5, "dead"),
+    (9, 64, 12, 8, False, 0, None),       # n_valid = 0
+    (9, 1024, 8, 32, False, 8, "dup"),    # the widest row
+    (9, 33, 12, 32, True, 12, "dup"),     # k1 above the live slots
+])
+def test_select_kernel_edges(dev, P, F, M, k1, raw, nv, kind):
+    """The payload and by-index kernels at the row sizes' edges, k1 = 32,
+    n_valid = 0, dead rows and exact ties, against the plain version."""
+    cfg, chans, z = _select_inputs(P, F, M, P + F + 5, dev)
+    chans = _edit_select(chans, kind)
+    kw = dict(k1=k1, clutter_birth=float(cfg.clutterDensity
+                                         + cfg.birthWeight),
+              min_weight=float(cfg.minFeatureWeight),
+              gate_threshold=9.0, raw=raw, with_compat=True, with_lpw=True)
+    n_valid = torch.tensor([nv], dtype=torch.int32, device=dev)
+    kern = S.select_cuda(chans, z, n_valid, **kw)
+    plain = S.select_plain(chans, z, n_valid, **kw)
+    kwb = dict(kw, by_index=True)
+    del kwb["with_lpw"]
+    idx_k = S.select_cuda(chans[:S.N_LOOP], z, n_valid, **kwb)
+    idx_p = S.select_plain(chans[:S.N_LOOP], z, n_valid, **kwb)
+    torch.cuda.synchronize()
+    _assert_select_equal(kern, plain)
+    assert torch.equal(idx_k[2], idx_p[2]) and torch.equal(idx_k[1], kern[1])
+    assert not kern[1][:, nv:].any() and not kern[8][:, nv:].any()
+    if kind == "dead":
+        assert not kern[1][0].any() and not idx_k[2][0].any()
+    if kind == "dup" and nv:
+        assert bool((kern[1][:, :nv, 0] == kern[1][:, :nv, 1]).any())
+
+
+@pytest.mark.parametrize("P,F,M,k1,kind", [
+    (9, 511, 12, 8, "dead"), (9, 512, 12, 8, "dup"),
+    (9, 513, 12, 32, "dup"), (5, 1024, 8, 32, "dead"),
+])
+def test_select4_kernel_edges(dev, P, F, M, k1, kind):
+    loop, gain, mean, cov, z = _select4_inputs(P, F, M, P + F + 6, dev)
+    loop = _edit_select(loop, kind)
+    if kind == "dup":
+        h = F // 2
+        gain, mean, cov = (t.clone() for t in (gain, mean, cov))
+        for t in (gain, mean, cov):
+            t[..., F - h:] = t[..., :h]
+    kern = S4.select4_cuda(loop, gain, mean, cov, z, k1=k1)
+    plain = S4.select4_plain(loop, gain, mean, cov, z, k1=k1)
+    idx_k = S4.select4_cuda(loop, None, None, None, z, k1=k1, by_index=True)
+    idx_p = S4.select4_plain(loop, None, None, None, z, k1=k1,
+                             by_index=True)
+    torch.cuda.synchronize()
+    live = plain[1] > 0
+    torch.testing.assert_close(kern[0], plain[0], **TOL)
+    torch.testing.assert_close(kern[1], plain[1], **TOL)
+    for k, p in zip(kern[2:], plain[2:]):
+        lv = live[:, None].expand_as(p)
+        torch.testing.assert_close(k[lv], p[lv], **TOL)
+    assert torch.equal(idx_k[2], idx_p[2]) and torch.equal(idx_k[1], kern[1])
+    if kind == "dead":
+        assert not kern[1][0].any()
+
+
+def test_select_kernels_take_no_index_past_the_row_on_nan(dev):
+    """A NaN lds row (particle 0) and NaN slots (particle 1): every index
+    the kernels return is < F and every weight 0 or finite, in raw and
+    normalised mode and in select4; the payload fetch stays in the row."""
+    P, F, M = 6, 200, 10
+    cfg, chans, z = _select_inputs(P, F, M, 21, dev)
+    chans = [c.clone() for c in chans]
+    chans[6][0] = float("nan")
+    chans[6][1, ::7] = float("nan")
+    n_valid = torch.tensor([M], dtype=torch.int32, device=dev)
+    for raw in (False, True):
+        kw = dict(k1=8, clutter_birth=1.0, min_weight=1e-5,
+                  gate_threshold=9.0, raw=raw)
+        pay = S.select_cuda(chans, z, n_valid, **kw)
+        _, w, idx, _ = S.select_cuda(chans[:S.N_LOOP], z, n_valid,
+                                     **kw, by_index=True)
+        torch.cuda.synchronize()
+        for ww in (w, pay[1]):
+            assert bool((torch.isfinite(ww) | (ww == 0)).all())
+        assert bool(((idx >= 0) & (idx < F)).all())
+        assert torch.equal(pay[1], w)
+    loop, gain, mean, cov, z4 = _select4_inputs(P, F, M, 22, dev)
+    loop = [c.clone() for c in loop]
+    loop[6][0] = float("nan")
+    out = S4.select4_cuda(loop, gain, mean, cov, z4, k1=8)
+    _, w4, idx4 = S4.select4_cuda(loop, None, None, None, z4, k1=8,
+                                  by_index=True)
+    torch.cuda.synchronize()
+    assert bool((torch.isfinite(w4) | (w4 == 0)).all())
+    assert bool(((idx4 >= 0) & (idx4 < F)).all()) and not w4[0].any()
+    assert torch.equal(out[1], w4)
+
+
+def test_select_kernel_wraps_bearings_as_the_plain_version(dev):
+    """Raw picks of rows whose bearing innovations sit at and around the
+    half-turns (x / 2pi within a few ulps of a half-integer, |x| up to
+    40 pi), where the wrap decides between +pi and -pi, and on random
+    values: ir = 1 and si01 = 0.5 make the sign count (the two terms differ
+    by a factor e^pi). F = 32 and k1 = 32, so every term is a pick; the
+    picks' order is not compared (many terms are equal up to rounding)."""
+    P, F, M = 64, 32, 3
+    rng = np.random.default_rng(9)
+    x = ((rng.integers(-20, 20, (P, F)) + 0.5) * 2 * np.pi
+         * (1 + rng.integers(-8, 9, (P, F)) * 2.0 ** -24))
+    x[::2] = rng.uniform(-4 * np.pi, 4 * np.pi, (P // 2, F))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    one = np.ones((P, F))
+    # z = (3, 0): ir = 1 and the innovation zb - b = x exactly
+    chans = [t(2 * one), t(-x.astype(np.float32)), t(0 * one), t(one),
+             t(0.5 * one), t(0.05 * one), t(0 * one)]
+    z = t([[3.0, 0.0]] * M)
+    n_valid = torch.tensor([M], dtype=torch.int32, device=dev)
+    kw = dict(k1=32, clutter_birth=1.0, min_weight=1e-5, gate_threshold=9.0,
+              raw=True, by_index=True)
+    kern = S.select_cuda(chans, z, n_valid, **kw)
+    plain = S.select_plain(chans, z, n_valid, **kw)
+    torch.cuda.synchronize()
+    # every term is in the sum: a wrap to the other side of a half-turn
+    # would move it by far more than the tolerance
+    torch.testing.assert_close(kern[0], plain[0], **TOL)
+    torch.testing.assert_close(kern[1], plain[1], **TOL)
+
+
+def test_select_kernels_occupancy_and_row_limit(dev):
+    """Every row size up to 1024 has a kernel that fits on an SM; F = 1025
+    is refused before a launch."""
+    import ctypes
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    regs = ctypes.c_int(0)
+    for F in (1, 32, 33, 128, 512, 513, 1024):
+        assert lib.phd_select_ctas_per_sm(F, ctypes.byref(regs)) >= 1
+        assert 0 < regs.value <= 255
+        assert lib.phd_select4_ctas_per_sm(F, ctypes.byref(regs)) >= 1
+    assert lib.phd_select_ctas_per_sm(1025, ctypes.byref(regs)) == 0
+    cfg, chans, z = _select_inputs(2, 1025, 4, 0, dev)
+    with pytest.raises(ValueError):
+        S.select_cuda(chans, z, torch.tensor([4], dtype=torch.int32,
+                                             device=dev), k1=8,
+                      clutter_birth=1.0, min_weight=1e-5, gate_threshold=9.0)
+
+
 def _select4_inputs(P, F, M, seed, dev):
     rng = np.random.default_rng(seed)
     cfg = load_config("cfg/mixed_synth.cfg").replace(
@@ -319,6 +482,9 @@ def test_merge_kernels_refuse_one_past_the_widest_pool(dev):
     G4.merge4_cuda(*_pool4(2, 3520, 0, dev), 1.0, 8)
     with pytest.raises(RuntimeError):
         G4.merge4_cuda(*_pool4(2, 3521, 0, dev), 1.0, 8)
+    G3.merge3_cuda(*_pool3(2, 5051, 0, dev), 4.0, 8)
+    with pytest.raises(RuntimeError):
+        G3.merge3_cuda(*_pool3(2, 5052, 0, dev), 4.0, 8)
 
 
 def _pool4(P, K, seed, dev):
@@ -384,6 +550,57 @@ def test_merge3_kernel_matches_plain(dev, P, K, cap, sep):
         torch.testing.assert_close(k, p, rtol=2e-4, atol=1e-3)
     assert not kern[0][0].any()
     assert bool((kern[4][0] == 1).all()) and bool((kern[9][0] == 1).all())
+
+
+def _degenerate_cov3(covs, seed):
+    """covs (six [P, K] channels) with a quarter of the candidates zero, a
+    quarter singular (rank 1), a quarter near-singular (rank 1 + 1e-3 I)
+    and a quarter slightly indefinite (rank 1 - 1e-3 I)."""
+    rng = np.random.default_rng(seed)
+    P, K = covs[0].shape
+    u = rng.normal(size=(3, P, K)) * 4.0
+    kind = rng.integers(0, 4, (P, K))
+    out = []
+    for (i, j) in G3.PAIRS:
+        rank1 = u[i] * u[j]
+        eye = 1e-3 if i == j else 0.0
+        alt = np.where(kind == 0, 0.0, np.where(
+            kind == 1, rank1, np.where(kind == 2, rank1 + eye, rank1 - eye)))
+        out.append(torch.as_tensor(alt.astype(np.float32),
+                                   device=covs[0].device))
+    return out
+
+
+@pytest.mark.parametrize("P,K,cap,sep,degenerate", [
+    (9, 97, 5, 4.0, False),         # cap reached before the weight runs out
+    (9, 97, 200, 4.0, False),       # the weight runs out before cap
+    (9, 97, 200, 16.0, True),
+    (9, 300, 300, 4.0, True),
+    (4, 5051, 200, 4.0, False),     # the widest K: 232,410 B of shared memory
+])
+def test_merge3_kernel_edge_pools(dev, P, K, cap, sep, degenerate):
+    """Ties, dead rows, both ends of the pick loop, the widest pool, and
+    zero, singular, near-singular and indefinite averaged covariances
+    (where the test's det is 0, tiny or negative), against the plain
+    version; two launches give the same bits."""
+    pool = _pool3(P, K, P + K + 7, dev)
+    pool[0] = _edge_weights(pool[0])
+    if degenerate:
+        pool[1:4] = [m * 0.05 + 300.0 for m in pool[1:4]]
+        pool[4:] = _degenerate_cov3(pool[4:], P + K)
+    kern = G3.merge3_cuda(*pool, sep, cap)
+    again = G3.merge3_cuda(*pool, sep, cap)
+    plain = G3.merge3_plain(*pool, sep, cap)
+    torch.cuda.synchronize()
+    for k, a, p in zip(kern, again, plain):
+        assert torch.equal(k, a)
+        torch.testing.assert_close(k, p, rtol=2e-4, atol=1e-3)
+    n_live = (kern[0] > 0).sum(1)
+    assert n_live[0] == 0 and n_live[1] == 1
+    if cap < 10:
+        assert bool((n_live == cap).any())
+    if cap >= K:
+        assert bool((n_live < cap).all())
 
 
 @pytest.mark.parametrize("P,M,n_pad", [

@@ -56,7 +56,8 @@ def test_import_without_jax():
         "ops.linalg", "ops.gm", "ops.resample", "models.measurement",
         "models.motion", "models.camera", "kernels.select",
         "kernels.select4", "kernels.merge", "kernels.merge4",
-        "kernels.merge3", "kernels.esf", "kernels._build")}
+        "kernels.merge3", "kernels.esf", "kernels._build",
+        "kernels.sweep")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert out["tf32"] == [False, False]
