@@ -38,8 +38,16 @@ code is not 0:
        timed beside its bound, min_sep 4; two launches on the dense pool
        bit-identical; registers and CTAs per SM
      - esf: [1024, 64], [256, 64], [1001, 48] with 9 trailing -inf slots,
-       [7, 1] and [64, 256], each timed beside its bound; finite entries
-       compared, the -1e30 sentinel in the same places
+       [7, 1], [64, 256], [1024, M] at M = 1, 2, 33, 65 and 128, [1024,
+       64] with a random 30 % of each particle's entries -inf and with
+       every other particle all -inf, each timed beside its bound; bit for
+       bit against the plain version; registers and CTAs per SM; the
+       kernels' log1p against the library's log1pf on every float in [0,
+       inf), bit for bit
+     - past the old limits, each against plain and timed: select and
+       select4 (both modes) at 64 x 4096 x 64 (the wide-row kernels), merge
+       [64, 7745] -> 256, merge4 [64, 3521] -> 256, merge3 [64, 5052] -> 128
+       (the device-memory pools)
      Values are held to rtol 2e-4 / atol 1e-5 (payload only where w > 0;
      indices exactly); a particle whose outputs miss that (a near-tie
      picked in another order) is counted, and a check fails above 0.1 % of
@@ -71,9 +79,13 @@ code is not 0:
      static phase's 330-step run: esf, select (raw) and merge launched
      once per update step, mean pose error below 1.5 m, every cardinality
      line a normalised log-pmf (exp finite, logsumexp 0 within 1e-3), the
-     three kernels against plain on their last launches, and merge against
-     plain on every launch of the run (its inputs and outputs kept on the
-     card, compared after the run)
+     three kernels against plain on their last launches (esf bit for bit),
+     and merge against plain on every launch of the run (its inputs and
+     outputs kept on the card, compared after the run)
+  6b. seed envelopes - the disparity run of phase 5 and the CPHD run of
+     phase 6 at --seed 0 .. 4 (the filter's seed; the data stay): each
+     seed's mean error, then their mean and standard deviation; every seed
+     below 1.5 m
   7. dense step - 8192 x 512 x 64 (the static cfg at bench.py's dense
      shape and stress stream): 3 warm-up steps, 16 timed with CUDA events,
      split into pre-update and glue, select and merge; then both kernels
@@ -101,6 +113,7 @@ the most device time (the breakdown in PERF.md).
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -146,13 +159,23 @@ MERGE3_CASES = [                    # (P, K, cap, min_separation)
     (64, 496, 64, 4.0),             # the shipped disparity pool
     (1001, 496, 64, 4.0),           # odd P
 ]
-ESF_CASES = [                       # (P, M, trailing -inf slots)
-    (1024, 64, 0),                  # the dense CPHD shape
-    (256, 64, 0),                   # the shipped CPHD shape
-    (1001, 48, 9),
-    (7, 1, 0),
-    (64, 256, 0),
+ESF_CASES = [                       # (P, M, n_pad): n_pad trailing -inf
+    (1024, 64, 0),                  # slots; -1: a random 30 % of each
+    (256, 64, 0),                   # particle's entries -inf; -2: every
+    (1001, 48, 9),                  # other particle all -inf. The dense
+    (7, 1, 0),                      # CPHD shape first, then the shipped
+    (64, 256, 0),                   # one
+    (1024, 1, 0), (1024, 2, 0), (1024, 33, 0), (1024, 65, 0),
+    (1024, 128, 0),
+    (1024, 64, -1),
+    (1024, 64, -2),
 ]
+WIDE = dict(P=64, F=4096, M=64)     # select rows past the register rows
+WIDE_MERGES = [                     # (kernel, P, K, cap): pools past smem
+    ("merge", 64, 7745, 256), ("merge4", 64, 3521, 256),
+    ("merge3", 64, 5052, 128),
+]
+ENVELOPE_SEEDS = range(5)
 RUN_STEPS = 330
 POSE_BAR_M = 1.5
 MIXED_LANDMARKS, MIXED_STEPS = 40, 150
@@ -955,37 +978,147 @@ def esf_logaddexps(ll):
     return int((n * (n - 1) * n / 2 + n * (n + 1) / 2).sum())
 
 
+def esf_exact(kern, plain, what):
+    """The esf kernel matches its plain version bit for bit (it runs the
+    same operations on the same operands)."""
+    import torch
+    if not all(torch.equal(k, p) for k, p in zip(kern, plain)):
+        raise RuntimeError(f"esf ({what}): not bit-identical to the plain "
+                           "version")
+
+
 def phase_esf(dev, stats):
     import torch
+    from phdslam_tpu_torch.kernels import _build
     E = _mods()[5]
     t0 = time.perf_counter()
     _new_stats(stats, "esf")
+    lib, _ = _build.library()
+    for P_, M_ in ((1024, 64), (256, 64), (1024, 128), (64, 256)):
+        occupancy(functools.partial(lib.phd_esf_ctas_per_sm, P_), M_,
+                  f"esf lanes at [{P_}, {M_}]")
+    n_mis = lib.phd_esf_log1p_mismatches()
+    log(f"esf log1p_nonneg against the library's log1pf on every float in "
+        f"[0, inf): {n_mis} differing")
+    if n_mis != 0:
+        raise RuntimeError("esf: log1p_nonneg is not log1pf bit for bit")
     for i, (P, M, pad) in enumerate(ESF_CASES):
         rng = np.random.default_rng(50 + i)
         # log Lambda_m as the CPHD update makes them: log detection mass +
         # log(clutter rate / clutter density), a few units around 0
         ll = rng.normal(-1.0, 2.0, (P, M)).astype(np.float32)
-        if pad:
+        if pad > 0:
             ll[:, M - pad:] = -np.inf
+        elif pad == -1:
+            ll[rng.uniform(size=(P, M)) < 0.3] = -np.inf
+        elif pad == -2:
+            ll[::2] = -np.inf
         ll = torch.as_tensor(ll, device=dev)
         kern = E.esf_all_cuda(ll)
         plain = E.esf_all_plain(ll)
         n_bad, err = esf_agree(kern, plain)
         _err(stats, "esf", err)
         _limit(n_bad, P, f"esf [{P}, {M}]")
+        esf_exact(kern, plain, f"[{P}, {M}] n_pad {pad}")
         case = dict(ms=cuda_ms(lambda: E.esf_all_cuda(ll), 10),
                     plain_ms=cuda_ms(lambda: E.esf_all_plain(ll), 3),
                     library_ms=None)
         n_lae = esf_logaddexps(ll)
         one = {"esf": case}
         bound(one, "esf", 4 * P * (M + (M + 1) + M * M), n_lae * LAE_OPS)
-        log(f"esf [{P}, {M}] ({pad} padded slots): particles differing "
-            f"{n_bad}/{P}, max_abs_err {err:.3e}; {case['ms']:.4f} ms "
+        log(f"esf [{P}, {M}] (n_pad {pad}): bit-identical to plain; "
+            f"{case['ms']:.4f} ms "
             f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.4f}"
             f" ms by {case['bound_by']}, {n_lae} logaddexps)")
         if i == 0:                  # the dense CPHD shape goes to the JSON
             stats["esf"].update(case)
     log(f"phase esf: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------- phase 2: past the old limits --
+
+def phase_wide(dev, stats):
+    """One case past each kernel's shared-memory or register limit (the
+    rows and pools a CTA cannot hold), at small P: the kernels'
+    device-memory paths against plain, timed."""
+    from phdslam_tpu_torch.kernels import _build
+    S, S4, G, G4, G3, _ = _mods()
+    t0 = time.perf_counter()
+    lib, _ = _build.library()
+    P, F, M = WIDE["P"], WIDE["F"], WIDE["M"]
+    occupancy(lib.phd_select_ctas_per_sm, F, f"select at F = {F} (wide)")
+    occupancy(lib.phd_select4_ctas_per_sm, F, f"select4 at F = {F} (wide)")
+    cfg, pre, gm, z = random_select_inputs(P, F, M, 60, dev)
+    chans, kw, nv = _select_args(S, cfg, pre, gm, z, dict(
+        raw=False, with_compat=True, with_lpw=True, nv=None))
+    kern = S.select_cuda(chans, z, nv, **kw)
+    n_bad, err = select_outputs_agree(kern, S.select_plain(chans, z, nv,
+                                                           **kw))
+    _limit(n_bad, P, f"select {P}x{F}x{M}")
+    _err(stats, "select", err)
+    _, err_b = check_by_index(S, pre, gm, z, chans, nv, kw, kern,
+                              f"{P}x{F}x{M} (wide)")
+    _err(stats, "select_by_index", err_b)
+    kwb = dict(kw, by_index=True)
+    pre4, gm4, z4 = random_select4_inputs(P, F, M, 61, dev)
+    loop, gain, mean, cov = S4.select4_channels(pre4, gm4)
+    loop = [c.contiguous() for c in loop]
+    k4 = S4.select4_cuda(loop, gain, mean, cov, z4, k1=K1)
+    n4, err4 = select4_outputs_agree(k4, S4.select4_plain(
+        loop, gain, mean, cov, z4, k1=K1))
+    i4 = S4.select4_cuda(loop, None, None, None, z4, k1=K1, by_index=True)
+    n4i, err4i = compare_rows(i4, S4.select4_plain(
+        loop, None, None, None, z4, k1=K1, by_index=True))
+    _limit(n4 + n4i, P, f"select4 {P}x{F}x{M}")
+    _err(stats, "select4", err4)
+    _err(stats, "select4_by_index", err4i)
+    runs = dict(
+        select=lambda: S.select_cuda(chans, z, nv, **kw),
+        select_by_index=lambda: S.select_cuda(chans[:S_LOOP], z, nv, **kwb),
+        select4=lambda: S4.select4_cuda(loop, gain, mean, cov, z4, k1=K1),
+        select4_by_index=lambda: S4.select4_cuda(
+            loop, None, None, None, z4, k1=K1, by_index=True))
+    log(f"wide rows {P}x{F}x{M}: select {n_bad}/{P} differing (max_abs_err "
+        f"{err:.3e}), select4 {n4}/{P} ({err4:.3e}), by index {n4i}/{P}; "
+        + ", ".join(f"{k} {cuda_ms(fn, 5):.4f} ms" for k, fn in runs.items()))
+    for i, (name, P, K, cap) in enumerate(WIDE_MERGES):
+        if name == "merge":
+            pool = random_pool(P, K, 70 + i, dev)
+            args = (5.0, cap, 0)
+            fns = (G.merge_cuda, G.merge_plain)
+        elif name == "merge4":
+            pool = random_pool4(P, K, 70 + i, dev)
+            args = (1.0, cap)
+            fns = (G4.merge4_cuda, G4.merge4_plain)
+        else:
+            pool = random_pool3(P, K, 70 + i, dev)
+            args = (4.0, cap)
+            fns = (G3.merge3_cuda, G3.merge3_plain)
+        n_scratch = getattr(lib, f"phd_{name}_wide_floats")(P, K)
+        if n_scratch == 0:
+            raise RuntimeError(f"{name} [{P}, {K}]: expected the "
+                               "device-memory pool path")
+        kern = fns[0](*pool, *args)
+        plain = fns[1](*pool, *args)
+        bad, errs = differing_rows(kern, plain)
+        n_bad = int(bad.sum())
+        err = float(errs[~bad].max()) if n_bad < P else 0.0
+        if n_bad:                   # rounding, if float64 sides with it
+            by_kern, _ = float64_sides(kern, plain, bad, fns[1], pool, dict(
+                zip(("min_separation", "max_out", "metric"), args)))
+            log(f"{name} [{P}, {K}]: {n_bad}/{P} particles differ, the "
+                f"plain version in float64 agrees with the kernel on "
+                f"{by_kern}")
+            if by_kern < n_bad:
+                _limit(n_bad, P, f"{name} [{P}, {K}] -> {cap}")
+        _err(stats, name, err)
+        bit_identical(lambda: fns[0](*pool, *args), f"{name} [{P}, {K}]")
+        log(f"{name} [{P}, {K}] -> {cap} (device-memory pools, "
+            f"{n_scratch * 4 / 2**20:.1f} MiB): particles differing "
+            f"{n_bad}/{P}, max_abs_err {err:.3e}, live slots "
+            f"{int((kern[0] > 0).sum(1).max())} max; "
+            f"{cuda_ms(lambda: fns[0](*pool, *args), 3):.4f} ms")
+    log(f"phase wide shapes: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # --------------------------------------------- the kernels on real inputs --
@@ -1062,6 +1195,7 @@ def agree_on_last_args(tm, stats, what):
             n_bad, err = select4_outputs_agree(kern, plain)
         elif name == "esf":
             n_bad, err = esf_agree(kern, plain)
+            esf_exact(kern, plain, f"{what} inputs")
         else:
             n_bad, err = compare_rows(kern, plain)
         P = kern[0].shape[0]
@@ -1130,7 +1264,7 @@ def run_cli(args, tm):
     return launch_counts(), time.perf_counter() - t_run
 
 
-def run_runner(d, cfg_text, steps_cfg, dev, tm):
+def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0):
     """The synth runner in loop mode on the run files in d; returns (launch
     counts, run seconds, out dir)."""
     Path(d, "run.cfg").write_text(cfg_text + steps_cfg)
@@ -1138,7 +1272,8 @@ def run_runner(d, cfg_text, steps_cfg, dev, tm):
     args = [str(Path(d, "run.cfg")), "synth", "--measurements",
             str(Path(d, "measurements.txt")), "--controls",
             str(Path(d, "controls.txt")), "--data-dir", str(d),
-            "--out-dir", str(out), "--mode", "loop", "--device", dev.type]
+            "--out-dir", str(out), "--mode", "loop", "--device", dev.type,
+            "--seed", str(seed)]
     launches, run_s = run_cli(args, tm)
     return launches, run_s, out
 
@@ -1152,30 +1287,43 @@ def check_launches(launches, expect, what):
 
 # ------------------------------------------------- phase 3: main path --
 
-def phase_main_path(dev, stats):
+def static_run_files(d):
+    """The run of phases 3, 6 and 6b in d: simdata.make_scenario(rng(0)),
+    330 steps, measurements from generate_run(rng(1)), every step with
+    measurements (so every step updates). Returns (scenario, steps, the cfg
+    lines of its start pose, appended to cfg/ackerman_synth.cfg)."""
     from phdslam_tpu_torch import simdata
-    from phdslam_tpu_torch.io.logs import read_state_estimate_log
-
-    t0 = time.perf_counter()
     sc = simdata.make_scenario(np.random.default_rng(0), n_steps=RUN_STEPS)
     controls, meas = simdata.generate_run(np.random.default_rng(1), sc,
                                           control_noise=(0.2, 0.01))
-    n_steps = len(meas)
     if not all(len(z) for z in meas):
         raise RuntimeError("scenario has a step without measurements")
+    simdata.write_run_files(d, controls, meas)
+    x0, y0, yaw0 = sc.traj[0]
+    return sc, len(meas), (f"\ninitial_x = {x0}\ninitial_y = {y0}\n"
+                           f"initial_yaw = {yaw0}\n")
+
+
+def pose_errors(out, traj, n_steps, dims):
+    """The logs of a run in out, and the distance of each step's pose
+    (its first dims entries) from traj[t, :dims]."""
+    from phdslam_tpu_torch.io.logs import read_state_estimate_log
+    logs = [read_state_estimate_log(str(out / f"state_estimate{t:05d}.log"))
+            for t in range(n_steps)]
+    return logs, np.array([np.linalg.norm(lg["pose"][:dims] - traj[t, :dims])
+                           for t, lg in enumerate(logs)])
+
+
+def phase_main_path(dev, stats):
+    t0 = time.perf_counter()
     tm = timers()
     with tempfile.TemporaryDirectory() as d:
-        simdata.write_run_files(d, controls, meas)
-        x0, y0, yaw0 = sc.traj[0]
+        sc, n_steps, start = static_run_files(d)
         launches, run_s, out = run_runner(
-            d, (ROOT / "cfg/ackerman_synth.cfg").read_text(),
-            f"\ninitial_x = {x0}\ninitial_y = {y0}\ninitial_yaw = {yaw0}\n",
-            dev, tm)
+            d, (ROOT / "cfg/ackerman_synth.cfg").read_text(), start, dev, tm)
         n_logs = len(list(out.glob("state_estimate*.log")))
         loop_ms = np.loadtxt(out / "loopTime.log")
-        errs = np.array([np.linalg.norm(read_state_estimate_log(
-            str(out / f"state_estimate{t:05d}.log"))["pose"][:2]
-            - sc.traj[t, :2]) for t in range(n_steps)])
+        _, errs = pose_errors(out, sc.traj, n_steps, 2)
     # every step of this run has measurements, so every step updates
     n_update = n_steps
     log(f"main path: {n_steps} steps, {n_logs} state_estimate logs, "
@@ -1317,28 +1465,31 @@ def phase_mixed_main_path(dev, stats):
 
 # --------------------------------------- phase 5: disparity main path --
 
-def phase_disparity_main_path(dev, stats):
-    from phdslam_tpu_torch.io.logs import read_state_estimate_log
+DISP_DATA = ROOT / "data/disparity_synth"
 
+
+def run_disparity(out, dev, tm, seed=0):
+    """The disparity runner in loop mode on the shipped cfg and data;
+    returns (launch counts, run seconds)."""
+    return run_cli([str(ROOT / "cfg/disparity_synth.cfg"), "disparity",
+                    "--data-dir", str(DISP_DATA), "--out-dir", str(out),
+                    "--mode", "loop", "--device", dev.type, "--seed",
+                    str(seed)], tm)
+
+
+def phase_disparity_main_path(dev, stats):
     t0 = time.perf_counter()
-    data = ROOT / "data/disparity_synth"
-    traj = np.loadtxt(data / "traj.txt", comments="%")
+    traj = np.loadtxt(DISP_DATA / "traj.txt", comments="%")
     tm = timers()
     with tempfile.TemporaryDirectory() as d:
         out = Path(d, "out")
-        launches, run_s = run_cli(
-            [str(ROOT / "cfg/disparity_synth.cfg"), "disparity",
-             "--data-dir", str(data), "--out-dir", str(out), "--mode",
-             "loop", "--device", dev.type], tm)
+        launches, run_s = run_disparity(out, dev, tm)
         loop_ms = np.loadtxt(out / "loopTime.log")
         n_steps = len(loop_ms)
         metrics = [json.loads(x) for x in
                    (out / "metrics.jsonl").read_text().splitlines()]
-        logs = [read_state_estimate_log(str(out / f"state_estimate{t:05d}"
-                                            ".log")) for t in range(n_steps)]
+        logs, errs = pose_errors(out, traj, n_steps, 3)
     n_update = sum(m["n_measure"] > 0 for m in metrics)
-    errs = np.array([np.linalg.norm(lg["pose"][:3] - traj[t, :3])
-                     for t, lg in enumerate(logs)])
     n_map = np.array([len(lg["static"]) for lg in logs])
     log(f"disparity main path: {n_steps} steps, launches {launches} (steps "
         f"with measurements {n_update}), camera position error mean "
@@ -1368,28 +1519,16 @@ def phase_disparity_main_path(dev, stats):
 # -------------------------------------------- phase 6: CPHD main path --
 
 def phase_cphd_main_path(dev, stats):
-    from phdslam_tpu_torch import simdata
-    from phdslam_tpu_torch.io.logs import read_state_estimate_log
-
     t0 = time.perf_counter()
-    sc = simdata.make_scenario(np.random.default_rng(0), n_steps=RUN_STEPS)
-    controls, meas = simdata.generate_run(np.random.default_rng(1), sc,
-                                          control_noise=(0.2, 0.01))
-    n_steps = len(meas)
     tm = timers()
     tm["merge"].kept = []
     with tempfile.TemporaryDirectory() as d:
-        simdata.write_run_files(d, controls, meas)
-        x0, y0, yaw0 = sc.traj[0]
+        sc, n_steps, start = static_run_files(d)
         launches, run_s, out = run_runner(
             d, (ROOT / "cfg/ackerman_synth.cfg").read_text(),
-            f"\ninitial_x = {x0}\ninitial_y = {y0}\ninitial_yaw = {yaw0}\n"
-            "filter_type = 1\n", dev, tm)
+            start + "filter_type = 1\n", dev, tm)
         loop_ms = np.loadtxt(out / "loopTime.log")
-        logs = [read_state_estimate_log(str(out / f"state_estimate{t:05d}"
-                                            ".log")) for t in range(n_steps)]
-    errs = np.array([np.linalg.norm(lg["pose"][:2] - sc.traj[t, :2])
-                     for t, lg in enumerate(logs)])
+        logs, errs = pose_errors(out, sc.traj, n_steps, 2)
     cn = np.stack([lg["cardinality"] for lg in logs])       # [T, N+1]
     with np.errstate(over="ignore"):
         pmf = np.exp(cn.astype(np.float64))
@@ -1428,6 +1567,41 @@ def phase_cphd_main_path(dev, stats):
     stats["esf"]["launches"] = launches["esf"]
     stats["cphd_ms_per_step"] = float(loop_ms.mean())
     log(f"phase CPHD main path: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------- phase 6b: seed envelopes --
+
+def phase_seed_envelopes(dev, stats):
+    """The disparity and CPHD runs at each of ENVELOPE_SEEDS (the filter's
+    seed: pose noise, resampling; the data stay): per-seed mean errors,
+    their mean and standard deviation, every seed below its bar."""
+    t0 = time.perf_counter()
+    traj = np.loadtxt(DISP_DATA / "traj.txt", comments="%")
+    cfg_text = (ROOT / "cfg/ackerman_synth.cfg").read_text()
+    with tempfile.TemporaryDirectory() as d:
+        disp = []
+        for seed in ENVELOPE_SEEDS:
+            out = Path(d, f"disp{seed}")
+            run_disparity(out, dev, {}, seed)
+            n = len(np.loadtxt(out / "loopTime.log"))
+            disp.append(float(pose_errors(out, traj, n, 3)[1].mean()))
+        sc, n_steps, start = static_run_files(d)
+        cphd = []
+        for seed in ENVELOPE_SEEDS:
+            _, _, out = run_runner(d, cfg_text, start + "filter_type = 1\n",
+                                   dev, {}, seed)
+            cphd.append(float(pose_errors(out, sc.traj, n_steps,
+                                          2)[1].mean()))
+    for name, errs, bar in (("disparity camera", disp, DISP_POSE_BAR_M),
+                            ("CPHD pose", cphd, POSE_BAR_M)):
+        a = np.array(errs)
+        log(f"seed envelope, {name} error (m), seeds "
+            f"{list(ENVELOPE_SEEDS)}: " + ", ".join(f"{e:.4f}" for e in a)
+            + f"; mean {a.mean():.4f}, std {a.std(ddof=1):.4f}")
+        if not (np.isfinite(a).all() and (a < bar).all()):
+            raise RuntimeError(f"seed envelope: a {name} error is not below "
+                               f"{bar} m")
+    log(f"phase seed envelopes: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------------ phases 7-9: dense steps --
@@ -1727,10 +1901,12 @@ def main(argv=None):
     phase_merge4(dev, stats)
     phase_merge3(dev, stats)
     phase_esf(dev, stats)
+    phase_wide(dev, stats)
     phase_main_path(dev, stats)
     phase_mixed_main_path(dev, stats)
     phase_disparity_main_path(dev, stats)
     phase_cphd_main_path(dev, stats)
+    phase_seed_envelopes(dev, stats)
     phase_dense(dev, stats, gpu)
     phase_dense_cphd_disparity(dev, stats, gpu)
     if args.profile:

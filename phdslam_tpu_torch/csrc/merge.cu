@@ -39,8 +39,10 @@
 // it.
 //
 // Shared memory: (4 * 6 + 6) = 30 B per candidate plus 112 B, 32 KB at the
-// dense K = 1088 (6 CTAs on an SM); the largest K a launch takes is 7744
-// (227 KB), and a larger pool is refused.
+// dense K = 1088 (6 CTAs on an SM); the widest pool in shared memory is
+// K = 7744 (227 KB). A wider one runs merge_wide_kernel, the same code on
+// a pool in device memory (36 B per candidate and CTA, 1024 CTAs at most):
+// K is bounded by device memory alone.
 
 #include <cuda_runtime.h>
 
@@ -178,19 +180,20 @@ struct Moments {
   }
 };
 
-template <int kMetric>
-__global__ void __launch_bounds__(kThreads)
-    merge_kernel(Pool in, Merged out, int K, int cap, float min_sep) {
-  extern __shared__ float pool[];   // [6][K]
-  const Books b(pool, kChannels, K);
+// The merge of particle p's pool, in pool (shared or device memory, Idx
+// as merge_common.cuh says).
+template <int kMetric, typename Idx>
+__device__ __forceinline__ void merge_particle(const Pool& in,
+                                               const Merged& out, int p,
+                                               int K, int cap, float min_sep,
+                                               float* pool) {
+  const Books<Idx> b(pool, kChannels, K);
   float* s_w = pool;
   float* s_mx = s_w + K;
   float* s_my = s_mx + K;
   float* s_c00 = s_my + K;
   float* s_c01 = s_c00 + K;
   float* s_c11 = s_c01 + K;
-
-  const int p = blockIdx.x;
   const size_t off = static_cast<size_t>(p) * K;
 
   const int L = phd_merge::presort<kThreads>(in.w + off, K, pool, b);
@@ -208,6 +211,28 @@ __global__ void __launch_bounds__(kThreads)
   phd_merge::moments<kThreads>(acc, L, n, cap, b);
 }
 
+template <int kMetric>
+__global__ void __launch_bounds__(kThreads)
+    merge_kernel(Pool in, Merged out, int K, int cap, float min_sep) {
+  extern __shared__ float pool[];   // [6][K]
+  merge_particle<kMetric, unsigned short>(in, out, blockIdx.x, K, cap,
+                                          min_sep, pool);
+}
+
+// A pool too wide for a CTA's shared memory: one pool per CTA in scratch
+// (device memory), the CTAs striding over the particles.
+template <int kMetric>
+__global__ void __launch_bounds__(kThreads)
+    merge_wide_kernel(Pool in, Merged out, int P, int K, int cap,
+                      float min_sep, float* scratch) {
+  float* pool = scratch + blockIdx.x *
+                              phd_merge::wide_pool_floats(kChannels, K);
+  for (int p = blockIdx.x; p < P; p += gridDim.x) {
+    merge_particle<kMetric, unsigned>(in, out, p, K, cap, min_sep, pool);
+    __syncthreads();                // the pool is the next particle's
+  }
+}
+
 // per metric, the devices where the kernel's carveout is set
 std::atomic<unsigned> g_carved[2];
 
@@ -215,26 +240,45 @@ std::atomic<unsigned> g_carved[2];
 
 extern "C" {
 
-// Pool channels are [P, K] row-major float32, outputs [P, cap]. Returns the
-// launch's cudaError_t (including the refusal of a pool too large for one
-// CTA's shared memory: K above 7744).
+// Floats of device-memory scratch a launch of P pools of K candidates
+// takes: 0 while a pool fits a CTA's shared memory (K <= 7744 on an H100).
+long long phd_merge_wide_floats(int P, int K) {
+  if (P <= 0 || K <= 0 ||
+      phd_merge::fits_shared(merge_kernel<0>,
+                             phd_merge::smem_bytes(kChannels, K)))
+    return 0;
+  return phd_merge::wide_floats(kChannels, P, K);
+}
+
+// Pool channels are [P, K] row-major float32, outputs [P, cap]; scratch:
+// phd_merge_wide_floats(P, K) floats of device memory (null when that is
+// 0). Returns the launch's cudaError_t.
 int phd_merge_launch(const float* w, const float* mx, const float* my,
                      const float* c00, const float* c01, const float* c11,
                      float* ow, float* omx, float* omy, float* o00,
                      float* o01, float* o11, int P, int K, int cap,
-                     float min_sep, int metric, void* stream) {
+                     float min_sep, int metric, float* scratch,
+                     void* stream) {
   if (P <= 0 || cap <= 0) return static_cast<int>(cudaSuccess);
-  if (K <= 0 || K >= phd_merge::kFree || (metric != 0 && metric != 1))
+  if (K <= 0 || (metric != 0 && metric != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  Pool in{w, mx, my, c00, c01, c11};
+  Merged out{ow, omx, omy, o00, o01, o11};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto kernel = metric == 1 ? merge_kernel<1> : merge_kernel<0>;
   const size_t smem = phd_merge::smem_bytes(kChannels, K);
+  if (!phd_merge::fits_shared(kernel, smem)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const auto wide = metric == 1 ? merge_wide_kernel<1>
+                                  : merge_wide_kernel<0>;
+    wide<<<phd_merge::wide_ctas(P), kThreads, 0, st>>>(in, out, P, K, cap,
+                                                       min_sep, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t e =
       phd_merge::allow_smem_max(kernel, smem, g_carved[metric]);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Pool in{w, mx, my, c00, c01, c11};
-  Merged out{ow, omx, omy, o00, o01, o11};
-  kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, out, K, cap, min_sep);
+  kernel<<<P, kThreads, smem, st>>>(in, out, K, cap, min_sep);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,9 +45,11 @@
 // order differs from the plain version's index order: rounding only).
 //
 // Shared memory: (4 * 10 + 6) = 46 B per candidate plus 64 B, 25.8 KB at
-// the dense K = 560 and 22.9 KB at the shipped K = 496; the largest K a
-// launch takes is 5051 (232,410 B of the 232,448 a CTA may use), and a
-// larger pool is refused. 72 registers and 7 CTAs per SM at K = 560 (on an
+// the dense K = 560 and 22.9 KB at the shipped K = 496; the widest pool in
+// shared memory is K = 5051 (232,410 B of the 232,448 a CTA may use). A
+// wider one runs merge3_wide_kernel, the same code on a pool in device
+// memory (52 B per candidate and CTA, 1024 CTAs at most): K is bounded by
+// device memory alone. 72 registers and 7 CTAs per SM at K = 560 (on an
 // H100; batch 8 took 119 registers and 4 CTAs and ran 30 % slower).
 
 #include <cuda_runtime.h>
@@ -205,11 +207,14 @@ struct Moments3 {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    merge3_kernel(Pool3 in, Merged3 out, int K, int cap, float min_sep) {
-  extern __shared__ float pool[];   // [10][K]: w, mean [3], cov [6]
-  const Books b(pool, kChannels, K);
-  const int p = blockIdx.x;
+// The merge of particle p's pool, in pool (shared or device memory, Idx
+// as merge_common.cuh says).
+template <typename Idx>
+__device__ __forceinline__ void merge3_particle(const Pool3& in,
+                                                const Merged3& out, int p,
+                                                int K, int cap, float min_sep,
+                                                float* pool) {
+  const Books<Idx> b(pool, kChannels, K);
   const size_t pk = static_cast<size_t>(p) * K;
 
   const int L = phd_merge::presort<kThreads>(in.ch[0] + pk, K, pool, b);
@@ -227,34 +232,69 @@ __global__ void __launch_bounds__(kThreads)
   phd_merge::moments<kThreads>(acc, L, n, cap, b);
 }
 
+__global__ void __launch_bounds__(kThreads)
+    merge3_kernel(Pool3 in, Merged3 out, int K, int cap, float min_sep) {
+  extern __shared__ float pool[];   // [10][K]: w, mean [3], cov [6]
+  merge3_particle<unsigned short>(in, out, blockIdx.x, K, cap, min_sep,
+                                  pool);
+}
+
+// A pool too wide for a CTA's shared memory: one pool per CTA in scratch
+// (device memory), the CTAs striding over the particles.
+__global__ void __launch_bounds__(kThreads)
+    merge3_wide_kernel(Pool3 in, Merged3 out, int P, int K, int cap,
+                       float min_sep, float* scratch) {
+  float* pool = scratch + blockIdx.x *
+                              phd_merge::wide_pool_floats(kChannels, K);
+  for (int p = blockIdx.x; p < P; p += gridDim.x) {
+    merge3_particle<unsigned>(in, out, p, K, cap, min_sep, pool);
+    __syncthreads();                // the pool is the next particle's
+  }
+}
+
 std::atomic<unsigned> g_carved{0};  // devices where the carveout is set
 
 }  // namespace
 
 extern "C" {
 
+// Floats of device-memory scratch a launch of P pools of K candidates
+// takes: 0 while a pool fits a CTA's shared memory (K <= 5051 on an H100).
+long long phd_merge3_wide_floats(int P, int K) {
+  if (P <= 0 || K <= 0 ||
+      phd_merge::fits_shared(merge3_kernel,
+                             phd_merge::smem_bytes(kChannels, K)))
+    return 0;
+  return phd_merge::wide_floats(kChannels, P, K);
+}
+
 // Pool: ten [P, K] row-major float32 channels (w, m0, m1, m2, c00, c01, c02,
-// c11, c12, c22); outputs: the same ten channels, [P, cap]. Returns the
-// launch's cudaError_t (including the refusal of a pool too large for one
-// CTA's shared memory: K above 5051).
+// c11, c12, c22); outputs: the same ten channels, [P, cap]; scratch:
+// phd_merge3_wide_floats(P, K) floats of device memory (null when that is
+// 0). Returns the launch's cudaError_t.
 int phd_merge3_launch(const float* w, const float* m0, const float* m1,
                       const float* m2, const float* c00, const float* c01,
                       const float* c02, const float* c11, const float* c12,
                       const float* c22, float* ow, float* om0, float* om1,
                       float* om2, float* o00, float* o01, float* o02,
                       float* o11, float* o12, float* o22, int P, int K,
-                      int cap, float min_sep, void* stream) {
+                      int cap, float min_sep, float* scratch, void* stream) {
   if (P <= 0 || cap <= 0) return static_cast<int>(cudaSuccess);
-  if (K <= 0 || K >= phd_merge::kFree)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Pool3 in{{w, m0, m1, m2, c00, c01, c02, c11, c12, c22}};
+  Merged3 out{{ow, om0, om1, om2, o00, o01, o02, o11, o12, o22}};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = phd_merge::smem_bytes(kChannels, K);
+  if (!phd_merge::fits_shared(merge3_kernel, smem)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    merge3_wide_kernel<<<phd_merge::wide_ctas(P), kThreads, 0, st>>>(
+        in, out, P, K, cap, min_sep, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t e =
       phd_merge::allow_smem_max(merge3_kernel, smem, g_carved);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Pool3 in{{w, m0, m1, m2, c00, c01, c02, c11, c12, c22}};
-  Merged3 out{{ow, om0, om1, om2, o00, o01, o02, o11, o12, o22}};
-  merge3_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, out, K, cap, min_sep);
+  merge3_kernel<<<P, kThreads, smem, st>>>(in, out, K, cap, min_sep);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -53,8 +53,10 @@
 // through to the full test, which rejects it as before.
 //
 // Shared memory: (4 * 15 + 6) = 66 B per candidate plus 112 B, 70 KB at the
-// dense K = 1088, so 3 CTAs fit on an SM; the largest K a launch takes is
-// 3520 (227 KB), and a larger pool is refused.
+// dense K = 1088, so 3 CTAs fit on an SM; the widest pool in shared memory
+// is K = 3520 (227 KB). A wider one runs merge4_wide_kernel, the same code
+// on a pool in device memory (72 B per candidate and CTA, 1024 CTAs at
+// most): K is bounded by device memory alone.
 
 #include <cuda_runtime.h>
 
@@ -235,15 +237,17 @@ struct Moments4 {
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 3)
-    merge4_kernel(Pool4 in, Merged4 out, int K, int cap, float min_sep) {
-  extern __shared__ float pool[];   // [15][K]: w, mean [4], cov [10]
-  const Books b(pool, kChannels, K);
+// The merge of particle p's pool, in pool (shared or device memory, Idx
+// as merge_common.cuh says).
+template <typename Idx>
+__device__ __forceinline__ void merge4_particle(const Pool4& in,
+                                                const Merged4& out, int p,
+                                                int K, int cap, float min_sep,
+                                                float* pool) {
+  const Books<Idx> b(pool, kChannels, K);
   float* s_w = pool;
   float* s_m = s_w + K;
   float* s_c = s_m + 4 * K;
-
-  const int p = blockIdx.x;
   const size_t pk = static_cast<size_t>(p) * K;
 
   const int L = phd_merge::presort<kThreads>(in.w + pk, K, pool, b);
@@ -263,6 +267,26 @@ __global__ void __launch_bounds__(kThreads, 3)
   phd_merge::moments<kThreads>(acc, L, n, cap, b);
 }
 
+__global__ void __launch_bounds__(kThreads, 3)
+    merge4_kernel(Pool4 in, Merged4 out, int K, int cap, float min_sep) {
+  extern __shared__ float pool[];   // [15][K]: w, mean [4], cov [10]
+  merge4_particle<unsigned short>(in, out, blockIdx.x, K, cap, min_sep,
+                                  pool);
+}
+
+// A pool too wide for a CTA's shared memory: one pool per CTA in scratch
+// (device memory), the CTAs striding over the particles.
+__global__ void __launch_bounds__(kThreads)
+    merge4_wide_kernel(Pool4 in, Merged4 out, int P, int K, int cap,
+                       float min_sep, float* scratch) {
+  float* pool = scratch + blockIdx.x *
+                              phd_merge::wide_pool_floats(kChannels, K);
+  for (int p = blockIdx.x; p < P; p += gridDim.x) {
+    merge4_particle<unsigned>(in, out, p, K, cap, min_sep, pool);
+    __syncthreads();                // the pool is the next particle's
+  }
+}
+
 __global__ void reject_scale_kernel(const float* min_sep, double* k0,
                                     int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -275,24 +299,39 @@ std::atomic<unsigned> g_carved{0};  // devices where the carveout is set
 
 extern "C" {
 
+// Floats of device-memory scratch a launch of P pools of K candidates
+// takes: 0 while a pool fits a CTA's shared memory (K <= 3520 on an H100).
+long long phd_merge4_wide_floats(int P, int K) {
+  if (P <= 0 || K <= 0 ||
+      phd_merge::fits_shared(merge4_kernel,
+                             phd_merge::smem_bytes(kChannels, K)))
+    return 0;
+  return phd_merge::wide_floats(kChannels, P, K);
+}
+
 // Pool: w [P, K], mean [P, 4, K], cov [P, 10, K], row-major float32.
-// Outputs: w [P, cap], mean [P, 4, cap], cov [P, 10, cap]. Returns the
-// launch's cudaError_t (including the refusal of a pool too large for one
-// CTA's shared memory: K above 3520).
+// Outputs: w [P, cap], mean [P, 4, cap], cov [P, 10, cap]; scratch:
+// phd_merge4_wide_floats(P, K) floats of device memory (null when that is
+// 0). Returns the launch's cudaError_t.
 int phd_merge4_launch(const float* w, const float* mean, const float* cov,
                       float* ow, float* omean, float* ocov, int P, int K,
-                      int cap, float min_sep, void* stream) {
+                      int cap, float min_sep, float* scratch, void* stream) {
   if (P <= 0 || cap <= 0) return static_cast<int>(cudaSuccess);
-  if (K <= 0 || K >= phd_merge::kFree)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Pool4 in{w, mean, cov};
+  Merged4 out{ow, omean, ocov};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = phd_merge::smem_bytes(kChannels, K);
+  if (!phd_merge::fits_shared(merge4_kernel, smem)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    merge4_wide_kernel<<<phd_merge::wide_ctas(P), kThreads, 0, st>>>(
+        in, out, P, K, cap, min_sep, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t e =
       phd_merge::allow_smem_max(merge4_kernel, smem, g_carved);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Pool4 in{w, mean, cov};
-  Merged4 out{ow, omean, ocov};
-  merge4_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, out, K, cap, min_sep);
+  merge4_kernel<<<P, kThreads, smem, st>>>(in, out, K, cap, min_sep);
   return static_cast<int>(cudaGetLastError());
 }
 

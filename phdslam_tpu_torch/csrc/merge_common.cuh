@@ -38,28 +38,55 @@ constexpr unsigned kFull = 0xffffffffu;
 // a list in position order; then one thread per slot sums the slot's
 // moments along its list: no float atomics, the same result on every run.
 //
-// Dynamic shared memory of a kernel with C float channels per candidate,
-// (4 C + 6) bytes per candidate:
-//   float pool[C][K]         the live candidates in sorted order
-//   unsigned short owner[K]  per position, the slot that absorbed it; then
-//                            the next member of that slot
-//   unsigned short pick[K]   per slot, the position of its pick
-//   unsigned short head[K]   per slot, its first member after the pick
+// The pool of a kernel with C float channels per candidate, with Idx the
+// index type (unsigned short in shared memory, (4 C + 6) bytes per
+// candidate; unsigned in the device-memory pool of a pool too wide for a
+// CTA's shared memory, (4 C + 12) bytes):
+//   float pool[C][K]   the live candidates in sorted order
+//   Idx owner[K]       per position, the slot that absorbed it; then the
+//                      next member of that slot
+//   Idx pick[K]        per slot, the position of its pick
+//   Idx head[K]        per slot, its first member after the pick
 // The presort's 64-bit keys alias the start of pool (8 pow2(L) < 16 K <=
-// 4 C K bytes) and its rank of each candidate aliases pick.
+// 4 C K bytes) and its rank of each candidate aliases pick. Every function
+// below works on either memory: shared memory while the pool fits a CTA's
+// 227 KB, else one pool per CTA in device memory that the wrapper
+// allocates (wide_floats), where the CTAs stride over the particles. The
+// only limit on K is then device memory.
 
-constexpr unsigned short kFree = 0xffffu;   // owner of an unmerged position
+// the owner of an unmerged position, the end of a member list
+template <typename Idx>
+__host__ __device__ constexpr Idx free_idx() {
+  return static_cast<Idx>(~0u);
+}
 
 __host__ __device__ constexpr size_t smem_bytes(int channels, int K) {
   return static_cast<size_t>(4 * channels + 6) * K;
 }
 
+constexpr int kWideCtas = 1024;     // grid of the device-memory pool path
+
+// Floats of one CTA's device-memory pool (a multiple of 2, so that the
+// next CTA's keys stay 8-byte aligned), and of the grid's for P particles.
+__host__ __device__ constexpr size_t wide_pool_floats(int channels, int K) {
+  return (static_cast<size_t>(4 * channels + 12) * K + 7) / 8 * 2;
+}
+
+inline int wide_ctas(int P) { return P < kWideCtas ? P : kWideCtas; }
+
+inline long long wide_floats(int channels, int P, int K) {
+  return static_cast<long long>(wide_ctas(P)) *
+         static_cast<long long>(wide_pool_floats(channels, K));
+}
+
+template <typename Idx>
 struct Books {
-  unsigned short* owner;
-  unsigned short* pick;
-  unsigned short* head;
+  Idx* owner;
+  Idx* pick;
+  Idx* head;
   __device__ Books(float* pool, int channels, int K)
-      : owner(reinterpret_cast<unsigned short*>(pool + channels * K)),
+      : owner(reinterpret_cast<Idx*>(pool + static_cast<size_t>(channels) *
+                                                 K)),
         pick(owner + K),
         head(pick + K) {}
 };
@@ -88,9 +115,10 @@ __device__ __forceinline__ void bitonic_sort(unsigned long long* key, int n) {
 // j (kFree if it is not live) and b.owner[p] = kFree for p < L.
 // The key of a live candidate is (~bits(w)) << 32 | j: the bits of a
 // positive float order as unsigned integers. Returns L, the live count.
-template <int kThreads>
+template <int kThreads, typename Idx>
 __device__ __forceinline__ int presort(const float* __restrict__ w, int K,
-                                       float* pool, const Books& b) {
+                                       float* pool, const Books<Idx>& b) {
+  constexpr Idx kFree = free_idx<Idx>();
   __shared__ int s_live;
   unsigned long long* key = reinterpret_cast<unsigned long long*>(pool);
   const int t = threadIdx.x;
@@ -119,7 +147,7 @@ __device__ __forceinline__ int presort(const float* __restrict__ w, int K,
   __syncthreads();
   bitonic_sort<kThreads>(key, n);
   for (int p = t; p < L; p += kThreads) {
-    b.pick[static_cast<unsigned>(key[p])] = static_cast<unsigned short>(p);
+    b.pick[static_cast<unsigned>(key[p])] = static_cast<Idx>(p);
     b.owner[p] = kFree;
   }
   __syncthreads();
@@ -129,14 +157,15 @@ __device__ __forceinline__ int presort(const float* __restrict__ w, int K,
 // Copies the C channels of every live candidate j from global memory
 // (src[c][j], coalesced) to its sorted position in pool[c][.], over the
 // presort's keys, and publishes them.
-template <int kThreads, int C>
+template <int kThreads, int C, typename Idx>
 __device__ __forceinline__ void stage(const float* const (&src)[C], int K,
-                                      float* pool, const Books& b) {
+                                      float* pool, const Books<Idx>& b) {
   for (int j = threadIdx.x; j < K; j += kThreads) {
-    const unsigned short r = b.pick[j];
-    if (r == kFree) continue;
+    const Idx r = b.pick[j];
+    if (r == free_idx<Idx>()) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) pool[c * K + r] = src[c][j];
+    for (int c = 0; c < C; ++c)
+      pool[static_cast<size_t>(c) * K + r] = src[c][j];
   }
   __syncthreads();
 }
@@ -150,9 +179,10 @@ __device__ __forceinline__ void stage(const float* const (&src)[C], int K,
 //                         called only where maybe held.
 // Leaves b.pick[i] and b.owner filled for the n slots it returns, published
 // by its last barrier.
-template <int kThreads, int G, typename Test>
+template <int kThreads, int G, typename Test, typename Idx>
 __device__ __forceinline__ int pick_loop(Test& test, int L, int cap,
-                                         const Books& b) {
+                                         const Books<Idx>& b) {
+  constexpr Idx kFree = free_idx<Idx>();
   static_assert(G >= 1 && G <= 32 && 3 * G <= kThreads, "batch size");
   // per batch, three buffers in turn: the least batch pick near an earlier
   // one (G: none), and each batch pick's first near earlier pick (-1: none)
@@ -223,20 +253,20 @@ __device__ __forceinline__ int pick_loop(Test& test, int L, int cap,
         s_qown[buf][k] = own;
         atomicMin(&s_cut[buf], k);
       } else {
-        b.owner[p] = static_cast<unsigned short>(n + own);
+        b.owner[p] = static_cast<Idx>(n + own);
       }
     }
-    if (t < g) b.pick[n + t] = static_cast<unsigned short>(myq);
+    if (t < g) b.pick[n + t] = static_cast<Idx>(myq);
     __syncthreads();
     const int k = min(s_cut[buf], g);
     if (k < g) {                      // keep picks 0 .. k-1 only
       for (int p = qlast + 1 + t; p < L; p += kThreads) {
-        const unsigned short o = b.owner[p];
+        const Idx o = b.owner[p];
         if (o != kFree && o >= n + k) b.owner[p] = kFree;
       }
       if (t >= k && t < g) {
         const int o = s_qown[buf][t];
-        if (o >= 0 && o < k) b.owner[myq] = static_cast<unsigned short>(n + o);
+        if (o >= 0 && o < k) b.owner[myq] = static_cast<Idx>(n + o);
       }
       __syncthreads();
     }
@@ -251,25 +281,28 @@ __device__ __forceinline__ int pick_loop(Test& test, int L, int cap,
 // p (kFree ends a list). One warp walks the positions from the last down,
 // 32 at a time; the lanes of one slot in a chunk link to each other, the
 // highest to the slot's current head, and the lowest becomes the head.
-__device__ __forceinline__ void link_members(int L, int n, const Books& b) {
+template <typename Idx>
+__device__ __forceinline__ void link_members(int L, int n,
+                                             const Books<Idx>& b) {
+  constexpr Idx kFree = free_idx<Idx>();
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     for (int s = lane; s < n; s += 32) b.head[s] = kFree;
     __syncwarp();
     for (int base = (L - 1) & ~31; base >= 0; base -= 32) {
       const int p = base + lane;
-      const unsigned short o = p < L ? b.owner[p] : kFree;
-      const unsigned grp = __match_any_sync(kFull, o);
+      const Idx o = p < L ? b.owner[p] : kFree;
+      const unsigned grp = __match_any_sync(kFull, static_cast<unsigned>(o));
       const unsigned higher = grp & ~((2u << lane) - 1u);
-      unsigned short next = kFree;
+      Idx next = kFree;
       if (o != kFree)
-        next = higher ? static_cast<unsigned short>(base + __ffs(higher) - 1)
+        next = higher ? static_cast<Idx>(base + __ffs(higher) - 1)
                       : b.head[o];
       __syncwarp();
       if (o != kFree) {
         b.owner[p] = next;
         if ((grp & ((1u << lane) - 1u)) == 0)
-          b.head[o] = static_cast<unsigned short>(p);
+          b.head[o] = static_cast<Idx>(p);
       }
       __syncwarp();
     }
@@ -280,9 +313,9 @@ __device__ __forceinline__ void link_members(int L, int n, const Books& b) {
 // The moments of the n slots, and the empty ones up to cap, one thread per
 // slot: acc.begin(pick), acc.add(j) along the slot's list, acc.store(s);
 // acc.empty(s) for a slot not filled.
-template <int kThreads, typename Acc>
+template <int kThreads, typename Acc, typename Idx>
 __device__ __forceinline__ void moments(Acc& acc, int L, int n, int cap,
-                                        const Books& b) {
+                                        const Books<Idx>& b) {
   link_members(L, n, b);
   for (int s = threadIdx.x; s < cap; s += kThreads) {
     if (s >= n) {
@@ -290,7 +323,7 @@ __device__ __forceinline__ void moments(Acc& acc, int L, int n, int cap,
       continue;
     }
     acc.begin(b.pick[s]);
-    for (int j = b.head[s]; j != kFree; j = b.owner[j]) acc.add(j);
+    for (Idx j = b.head[s]; j != free_idx<Idx>(); j = b.owner[j]) acc.add(j);
     acc.store(s);
   }
 }
@@ -320,6 +353,22 @@ inline cudaError_t allow_smem_max(Kernel kernel, size_t smem,
                              static_cast<int>(smem));
   if (e != cudaSuccess) cudaGetLastError();
   return e;
+}
+
+// Whether smem bytes of dynamic shared memory, beside kernel's static
+// shared memory, fit the most a CTA of this device may use.
+template <typename Kernel>
+inline bool fits_shared(Kernel kernel, size_t smem) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  return attr.sharedSizeBytes + smem <= static_cast<size_t>(optin);
 }
 
 // CTAs of kernel that fit on one SM at this block size and shared memory;

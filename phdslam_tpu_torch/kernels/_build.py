@@ -42,22 +42,35 @@ _F = ctypes.c_float
 # cut to 32 bits.
 SIGNATURES = {
     "phd_select_launch": [_P] * 16 + [_P, _P] + [_P] * 10
-    + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _P],
+    + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _P, _P],
     "phd_select4_launch": [_P] * 10 + [_P] + [_P] * 5
-    + [_I, _I, _I, _I, _I, _P],
+    + [_I, _I, _I, _I, _I, _P, _P],
+    "phd_select_wide_floats": [_I, _I],
     "phd_merge_launch": [_P] * 6 + [_P] * 6
-    + [_I, _I, _I, _F, _I, _P],
-    "phd_merge4_launch": [_P] * 3 + [_P] * 3 + [_I, _I, _I, _F, _P],
-    "phd_merge3_launch": [_P] * 10 + [_P] * 10 + [_I, _I, _I, _F, _P],
+    + [_I, _I, _I, _F, _I, _P, _P],
+    "phd_merge4_launch": [_P] * 3 + [_P] * 3 + [_I, _I, _I, _F, _P, _P],
+    "phd_merge3_launch": [_P] * 10 + [_P] * 10 + [_I, _I, _I, _F, _P, _P],
+    "phd_merge_wide_floats": [_I, _I],
+    "phd_merge4_wide_floats": [_I, _I],
+    "phd_merge3_wide_floats": [_I, _I],
     "phd_esf_launch": [_P] * 3 + [_I, _I, _P],
     "phd_select_ctas_per_sm": [_I, _P],
     "phd_select4_ctas_per_sm": [_I, _P],
     "phd_merge_ctas_per_sm": [_I],
     "phd_merge4_ctas_per_sm": [_I],
     "phd_merge3_ctas_per_sm": [_I, _P],
+    "phd_esf_ctas_per_sm": [_I, _I, _P],
+    "phd_esf_log1p_mismatches": [],
     "phd_merge4_reject_scale": [_P, _P, _I, _P],
     "phd_error_string": [_I],
 }
+# every other function returns an int
+RESTYPES = {"phd_error_string": ctypes.c_char_p,
+            "phd_select_wide_floats": ctypes.c_longlong,
+            "phd_merge_wide_floats": ctypes.c_longlong,
+            "phd_merge4_wide_floats": ctypes.c_longlong,
+            "phd_merge3_wide_floats": ctypes.c_longlong,
+            "phd_esf_log1p_mismatches": ctypes.c_longlong}
 
 
 class BuildError(RuntimeError):
@@ -128,8 +141,7 @@ def library():
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_char_p if name == "phd_error_string" \
-            else ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib, info
 
 
@@ -150,6 +162,20 @@ def kernel_for(device, cuda_fn, plain_fn, what: str):
     if device.type == "cpu":
         return plain_fn
     raise ValueError(f"no {what} kernel for device {device}")
+
+
+def scratch(n: int, device):
+    """n floats of device memory for a kernel's wide path (a select row
+    above 1024 slots, a merge pool past a CTA's shared memory; n from the
+    kernel's ``phd_*_wide_floats``), or None where n is 0."""
+    if n == 0:
+        return None
+    return torch.empty((n,), dtype=torch.float32, device=device)
+
+
+def ptr(t):
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def check(lib, err: int, what: str):

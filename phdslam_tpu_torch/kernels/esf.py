@@ -10,7 +10,10 @@ first on CUDA tensors and the second on CPU tensors. Both take
 ``log_lambda [P, M]`` and return ``esf [P, M + 1]`` and ``esfd [P, M, M]``,
 ``esfd[p, m, k]`` = e_k of the set without measurement m. Empty
 coefficients come back near -1e30 where ``esf_log`` has -inf: both are 0
-after ``exp``.
+after ``exp``. The kernel runs the full set once and starts each deleted
+set from the full set's coefficients before its deleted step (the same
+values bit for bit); ``tests/test_torch_kernel_models.py`` holds that
+schedule to ``esf_all_plain``.
 """
 
 from __future__ import annotations

@@ -86,8 +86,9 @@ def merge_plain(w, mx, my, c00, c01, c11, min_separation: float,
 
 def merge_cuda(w, mx, my, c00, c01, c11, min_separation: float,
                max_out: int, metric: int = 0):
-    """Launch ``csrc/merge.cu`` on PyTorch's current stream. The pool
-    lives in one CTA's shared memory: K up to 7744, a larger one raises."""
+    """Launch ``csrc/merge.cu`` on PyTorch's current stream. A pool lives
+    in one CTA's shared memory up to K = 7744; a wider one in device memory
+    that this wrapper allocates, where the same code runs."""
     global launches
     chans = (w, mx, my, c00, c01, c11)
     P, K = w.shape
@@ -103,10 +104,11 @@ def merge_cuda(w, mx, my, c00, c01, c11, min_separation: float,
     lib, _ = _build.library()
     outs = [torch.empty((P, max_out), dtype=torch.float32, device=dev)
             for _ in range(6)]
+    scratch = _build.scratch(lib.phd_merge_wide_floats(P, K), dev)
     err = lib.phd_merge_launch(
         *(c.data_ptr() for c in chans), *(o.data_ptr() for o in outs),
         P, K, max_out, float(min_separation), int(metric),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.ptr(scratch), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "merge kernel")
     launches += 1
     return tuple(outs)

@@ -15,9 +15,9 @@ agree to float32 rounding of the centred sums. The kernel runs the presorted
 design of all three merges (``csrc/merge_common.cuh``): it adds each slot's
 members in the greedy pick order (weight descending), the plain version in
 index order, which again moves only the rounding. Its neighbour test is the
-plain version's arithmetic (``mahalanobis3``), whole. The widest pool one
-launch takes is K = 5051 (46 B of shared memory per candidate); a wider one
-raises.
+plain version's arithmetic (``mahalanobis3``), whole. A pool lives in one
+CTA's shared memory up to K = 5051 (46 B per candidate); a wider one in
+device memory that the wrapper allocates, where the same code runs.
 """
 
 from __future__ import annotations
@@ -105,9 +105,10 @@ def merge3_cuda(w, m0, m1, m2, c00, c01, c02, c11, c12, c22,
     lib, _ = _build.library()
     outs = [torch.empty((P, max_out), dtype=torch.float32, device=dev)
             for _ in range(10)]
+    scratch = _build.scratch(lib.phd_merge3_wide_floats(P, K), dev)
     err = lib.phd_merge3_launch(
         *(c.data_ptr() for c in chans), *(o.data_ptr() for o in outs),
-        P, K, max_out, float(min_separation),
+        P, K, max_out, float(min_separation), _build.ptr(scratch),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "merge3 kernel")
     launches += 1

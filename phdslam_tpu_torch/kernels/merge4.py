@@ -85,8 +85,9 @@ def reject_scale(min_separation: float) -> float:
 
 
 def merge4_cuda(w, mean, cov, min_separation: float, max_out: int):
-    """Launch ``csrc/merge4.cu`` on PyTorch's current stream. The pool
-    lives in one CTA's shared memory: K up to 3520, a larger one raises."""
+    """Launch ``csrc/merge4.cu`` on PyTorch's current stream. A pool lives
+    in one CTA's shared memory up to K = 3520; a wider one in device memory
+    that this wrapper allocates, where the same code runs."""
     global launches
     P, K = w.shape
     dev = w.device
@@ -99,10 +100,11 @@ def merge4_cuda(w, mean, cov, min_separation: float, max_out: int):
     ow = torch.empty((P, max_out), dtype=torch.float32, device=dev)
     om = torch.empty((P, 4, max_out), dtype=torch.float32, device=dev)
     oc = torch.empty((P, 10, max_out), dtype=torch.float32, device=dev)
+    scratch = _build.scratch(lib.phd_merge4_wide_floats(P, K), dev)
     err = lib.phd_merge4_launch(
         w.data_ptr(), mean.data_ptr(), cov.data_ptr(), ow.data_ptr(),
         om.data_ptr(), oc.data_ptr(), P, K, max_out, float(min_separation),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.ptr(scratch), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "merge4 kernel")
     launches += 1
     return ow, om, oc

@@ -10,8 +10,9 @@ layouts the JAX wrappers return after their transposes: ``sum_exp [P, M]``,
 then seven ``[P, M, k1]`` channels (w, mx, my, u00, u01, u11, lpw) or, by
 index, ``w [P, M, k1]`` and ``idx [P, M, k1]`` int32 (0 where w = 0), and
 ``compat [P, M]`` bool. Columns at or past ``n_valid`` are zero. The kernels
-take up to ``MAX_F`` map slots (a row lives in registers); the plain version
-takes any.
+keep a row of up to 1024 map slots in registers; a wider one runs their
+wide-row path, the row in device-memory scratch that the wrapper allocates
+(``_build.scratch``), so any F runs on both devices.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from phdslam_tpu_torch.ops.linalg import safe_log
 LOG_2PI = 1.8378770664093453
 NEG_LARGE = -1e30
 N_LOOP = 7                       # channels the (p, m, f) loop reads
-MAX_F = 1024                     # the kernels keep a row in 32 registers
 
 #: launches of the payload kernel since the count was last set to 0
 launches = 0
@@ -73,9 +73,8 @@ def top_k1(wrem, k1: int):
 
 def check_shape(F: int, k1: int):
     """Raise unless the select kernels take F slots and k1 picks."""
-    if not 1 <= F <= MAX_F:
-        raise ValueError(f"the select kernels take 1 to {MAX_F} map slots, "
-                         f"got {F}")
+    if F < 1:
+        raise ValueError(f"the select kernels need a map slot, got {F}")
     if not 1 <= k1 <= 32:
         raise ValueError(f"k1 must be in [1, 32], got {k1}")
 
@@ -155,12 +154,14 @@ def select_cuda(chans, z, n_valid, *, k1: int, clutter_birth: float,
         payload = [f32(P, M, k1) for _ in range(6)]
         ptrs_in = [c.data_ptr() for c in chans[N_LOOP:]]
         ptrs_out = [o.data_ptr() for o in payload] + [None]
+    scratch = _build.scratch(lib.phd_select_wide_floats(P, F), dev)
     err = lib.phd_select_launch(
         *(c.data_ptr() for c in chans[:N_LOOP]), *ptrs_in, z.data_ptr(),
         n_valid.data_ptr(), sum_exp.data_ptr(), w_sel.data_ptr(), *ptrs_out,
         compat.data_ptr(), P, F, M, k1, clutter_birth, min_weight,
         gate_threshold, int(raw), int(with_compat), int(with_lpw),
-        int(by_index), torch.cuda.current_stream(dev).cuda_stream)
+        int(by_index), _build.ptr(scratch),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "select kernel")
     if by_index:
         launches_by_index += 1

@@ -93,10 +93,12 @@ def select4_cuda(loop, gain, mean, cov, z, *, k1: int,
         ptrs_in = [gain.data_ptr(), mean.data_ptr(), cov.data_ptr()]
         ptrs_out = [mean_sel.data_ptr(), cov_sel.data_ptr(), None]
     lib, _ = _build.library()
+    scratch = _build.scratch(lib.phd_select_wide_floats(P, F), dev)
     err = lib.phd_select4_launch(
         *(c.data_ptr() for c in loop), *ptrs_in, z.data_ptr(),
         sum_exp.data_ptr(), w_sel.data_ptr(), *ptrs_out, P, F, M, k1,
-        int(by_index), torch.cuda.current_stream(dev).cuda_stream)
+        int(by_index), _build.ptr(scratch),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "select4 kernel")
     if by_index:
         launches_by_index += 1

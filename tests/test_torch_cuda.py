@@ -8,8 +8,10 @@ no JAX, run them without the suite's JAX conftest:
         tests/test_torch_cuda.py
 
 The shapes are the awkward ones chip_smoke.py does not take: F and K not
-multiples of 32, odd P and cap, k1 from 1 to 8, n_valid < M, and pools
-large enough that a CTA needs more than 48 KB of dynamic shared memory.
+multiples of 32, odd P and cap, k1 from 1 to 8, n_valid < M, pools large
+enough that a CTA needs more than 48 KB of dynamic shared memory, and rows
+and pools past what a CTA holds (select F > 1024, merge K > 7744, merge4 K
+> 3520, merge3 K > 5051), which run the kernels' device-memory paths.
 Tolerance rtol 2e-4 / atol 1e-5, as in chip_smoke.py; at these sizes no
 particle may differ. Payload rows with w = 0 are don't-care (the merge
 skips them) and are compared only where w > 0; indices exactly.
@@ -269,22 +271,73 @@ def test_select_kernel_wraps_bearings_as_the_plain_version(dev):
 
 
 def test_select_kernels_occupancy_and_row_limit(dev):
-    """Every row size up to 1024 has a kernel that fits on an SM; F = 1025
-    is refused before a launch."""
+    """Every row size has a kernel that fits on an SM: the register rows up
+    to 1024 slots, the wide-row kernel above, which takes scratch rows and
+    agrees with the plain version at F = 1025 (no refusal)."""
     import ctypes
     from phdslam_tpu_torch.kernels import _build
     lib, _ = _build.library()
     regs = ctypes.c_int(0)
-    for F in (1, 32, 33, 128, 512, 513, 1024):
+    for F in (1, 32, 33, 128, 512, 513, 1024, 1025, 4096, 100000):
         assert lib.phd_select_ctas_per_sm(F, ctypes.byref(regs)) >= 1
         assert 0 < regs.value <= 255
         assert lib.phd_select4_ctas_per_sm(F, ctypes.byref(regs)) >= 1
-    assert lib.phd_select_ctas_per_sm(1025, ctypes.byref(regs)) == 0
+    assert lib.phd_select_wide_floats(2, 1024) == 0
+    assert lib.phd_select_wide_floats(2, 1025) > 0
     cfg, chans, z = _select_inputs(2, 1025, 4, 0, dev)
-    with pytest.raises(ValueError):
-        S.select_cuda(chans, z, torch.tensor([4], dtype=torch.int32,
-                                             device=dev), k1=8,
-                      clutter_birth=1.0, min_weight=1e-5, gate_threshold=9.0)
+    n4 = torch.tensor([4], dtype=torch.int32, device=dev)
+    kw = dict(k1=8, clutter_birth=1.0, min_weight=1e-5, gate_threshold=9.0)
+    kern = S.select_cuda(chans, z, n4, **kw)
+    _assert_select_equal(kern, S.select_plain(chans, z, n4, **kw))
+
+
+@pytest.mark.parametrize("P,F,M,k1,raw,nv,kind", [
+    (5, 1025, 8, 8, False, 8, None),      # one past the register rows
+    (5, 1025, 8, 32, True, 6, "dup"),
+    (3, 4096, 8, 8, False, 8, "dead"),
+    (3, 4096, 6, 8, True, 6, None),
+])
+def test_select_wide_rows_match_plain(dev, P, F, M, k1, raw, nv, kind):
+    """Rows wider than 1024 slots (the wide-row kernel, values in scratch)
+    in both modes of select and select4, against the plain versions:
+    values within tolerance, indices exactly, the by-index picks the
+    payload kernel's."""
+    cfg, chans, z = _select_inputs(P, F, M, P + F + 11, dev)
+    chans = _edit_select(chans, kind)
+    kw = dict(k1=k1, clutter_birth=float(cfg.clutterDensity
+                                         + cfg.birthWeight),
+              min_weight=float(cfg.minFeatureWeight),
+              gate_threshold=9.0, raw=raw, with_compat=True, with_lpw=True)
+    n_valid = torch.tensor([nv], dtype=torch.int32, device=dev)
+    before = (S.launches, S.launches_by_index)
+    kern = S.select_cuda(chans, z, n_valid, **kw)
+    kwb = dict(kw, by_index=True)
+    del kwb["with_lpw"]
+    idx_k = S.select_cuda(chans[:S.N_LOOP], z, n_valid, **kwb)
+    assert (S.launches, S.launches_by_index) == (before[0] + 1,
+                                                 before[1] + 1)
+    plain = S.select_plain(chans, z, n_valid, **kw)
+    idx_p = S.select_plain(chans[:S.N_LOOP], z, n_valid, **kwb)
+    torch.cuda.synchronize()
+    _assert_select_equal(kern, plain)
+    assert torch.equal(idx_k[2], idx_p[2]) and torch.equal(idx_k[1], kern[1])
+    assert not kern[1][:, nv:].any() and not kern[8][:, nv:].any()
+    if kind == "dead":
+        assert not kern[1][0].any()
+    loop, gain, mean, cov, z4 = _select4_inputs(P, F, M, P + F + 12, dev)
+    loop = _edit_select(loop, kind)
+    k4 = S4.select4_cuda(loop, gain, mean, cov, z4, k1=k1)
+    i4 = S4.select4_cuda(loop, None, None, None, z4, k1=k1, by_index=True)
+    p4 = S4.select4_plain(loop, gain, mean, cov, z4, k1=k1)
+    q4 = S4.select4_plain(loop, None, None, None, z4, k1=k1, by_index=True)
+    torch.cuda.synchronize()
+    live = p4[1] > 0
+    torch.testing.assert_close(k4[0], p4[0], **TOL)
+    torch.testing.assert_close(k4[1], p4[1], **TOL)
+    for k, q in zip(k4[2:], p4[2:]):
+        lv = live[:, None].expand_as(q)
+        torch.testing.assert_close(k[lv], q[lv], **TOL)
+    assert torch.equal(i4[2], q4[2]) and torch.equal(i4[1], k4[1])
 
 
 def _select4_inputs(P, F, M, seed, dev):
@@ -476,15 +529,65 @@ def test_merge4_reject_scale_is_the_kernels(dev):
 
 
 def test_merge_kernels_refuse_one_past_the_widest_pool(dev):
-    G.merge_cuda(*_pool(2, 7744, 0, dev), 5.0, 8)
-    with pytest.raises(RuntimeError):
-        G.merge_cuda(*_pool(2, 7745, 0, dev), 5.0, 8)
-    G4.merge4_cuda(*_pool4(2, 3520, 0, dev), 1.0, 8)
-    with pytest.raises(RuntimeError):
-        G4.merge4_cuda(*_pool4(2, 3521, 0, dev), 1.0, 8)
-    G3.merge3_cuda(*_pool3(2, 5051, 0, dev), 4.0, 8)
-    with pytest.raises(RuntimeError):
-        G3.merge3_cuda(*_pool3(2, 5052, 0, dev), 4.0, 8)
+    """The widest pools in shared memory take no scratch; one past each
+    takes a device-memory pool and runs, where the merges once refused."""
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    for fn, widest in ((lib.phd_merge_wide_floats, 7744),
+                       (lib.phd_merge4_wide_floats, 3520),
+                       (lib.phd_merge3_wide_floats, 5051)):
+        assert fn(2, widest) == 0 and fn(2, widest + 1) > 0
+    for k, p in zip(G.merge_cuda(*_pool(2, 7745, 0, dev), 5.0, 8),
+                    G.merge_plain(*_pool(2, 7745, 0, dev), 5.0, 8)):
+        torch.testing.assert_close(k, p, **TOL)
+    for k, p in zip(G4.merge4_cuda(*_pool4(2, 3521, 0, dev), 1.0, 8),
+                    G4.merge4_plain(*_pool4(2, 3521, 0, dev), 1.0, 8)):
+        torch.testing.assert_close(k, p, **TOL)
+    for k, p in zip(G3.merge3_cuda(*_pool3(2, 5052, 0, dev), 4.0, 8),
+                    G3.merge3_plain(*_pool3(2, 5052, 0, dev), 4.0, 8)):
+        torch.testing.assert_close(k, p, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("which,K,cap", [
+    ("merge", 7745, 300), ("merge", 16384, 300), ("merge metric 1", 7745,
+                                                 200),
+    ("merge4", 3521, 300), ("merge4", 8192, 200),
+    ("merge3", 5052, 200), ("merge3", 10240, 200),
+])
+def test_merge_wide_pools_match_plain(dev, which, K, cap):
+    """Pools too wide for a CTA's shared memory (the device-memory path,
+    the CTAs striding over 1030 particles, more than the 1024 CTAs the path
+    launches, of which only the first 6 and the last hold candidates), with
+    the edge weights (dead row, lone candidate, ties), against the plain
+    version; two launches give the same bits."""
+    P, live = 1030, [0, 1, 2, 3, 4, 5, 1029]
+    if which.startswith("merge4"):
+        pool = _pool4(P, K, K, dev)
+        run, plain_fn, tol = G4.merge4_cuda, G4.merge4_plain, TOL
+        args = (1.0, cap)
+    elif which.startswith("merge3"):
+        pool = _pool3(P, K, K, dev)
+        run, plain_fn, tol = G3.merge3_cuda, G3.merge3_plain, \
+            dict(rtol=2e-4, atol=1e-3)
+        args = (4.0, cap)
+    else:
+        pool = _pool(P, K, K, dev)
+        metric = 1 if which.endswith("1") else 0
+        run, plain_fn, tol = G.merge_cuda, G.merge_plain, TOL
+        args = (0.6 if metric else 5.0, cap, metric)
+    w = torch.zeros_like(pool[0])
+    w[live] = _edge_weights(pool[0][live])
+    pool[0] = w
+    kern, again = run(*pool, *args), run(*pool, *args)
+    sub = [t[live] for t in pool]
+    plain = plain_fn(*sub, *args)
+    torch.cuda.synchronize()
+    for k, a, q in zip(kern, again, plain):
+        assert torch.equal(k, a)
+        torch.testing.assert_close(k[live], q, **tol)
+    assert not kern[0][6:-1].any()
+    n_live = (kern[0][live] > 0).sum(1)
+    assert n_live[0] == 0 and n_live[1] == 1 and bool((n_live[2:] > 1).all())
 
 
 def _pool4(P, K, seed, dev):
@@ -605,15 +708,26 @@ def test_merge3_kernel_edge_pools(dev, P, K, cap, sep, degenerate):
 
 @pytest.mark.parametrize("P,M,n_pad", [
     (7, 1, 0), (5, 2, 1), (33, 13, 4), (3, 64, 0),
-    (2, 256, 17),                   # 67 KB of shared memory per CTA
+    (2, 256, 17),                   # 8 threads a lane, 32 slots each
+    (2, 300, 17),                   # the lanes updated in device memory
+    (40, 1, 0), (40, 2, 0), (40, 33, 0), (40, 65, 0), (40, 128, 0),
+    (70, 33, -1), (70, 65, -1),     # per-particle -inf: live counts differ
+    (700, 64, -1),                  # lanes that fill an H100: 4 threads each
+    (37, 64, -2), (37, 128, -2),    # all-sentinel rows beside live ones
 ])
 def test_esf_kernel_matches_plain(dev, P, M, n_pad):
-    """Finite entries within tolerance, the sentinel (below -1e29) in the
-    same places; no NaN anywhere."""
+    """Bit for bit (the kernel runs the plain version's operations on the
+    same operands, the sentinel, below -1e29, in the same places); no NaN
+    anywhere. n_pad > 0: trailing -inf slots; -1: a random 30 % of the
+    entries -inf, per particle; -2: every other particle all -inf."""
     rng = np.random.default_rng(P + M)
     ll = rng.uniform(-6.0, 3.0, (P, M)).astype(np.float32)
-    if n_pad:
+    if n_pad > 0:
         ll[:, M - n_pad:] = -np.inf
+    elif n_pad == -1:
+        ll[rng.uniform(size=(P, M)) < 0.3] = -np.inf
+    elif n_pad == -2:
+        ll[::2] = -np.inf
     ll = torch.as_tensor(ll, device=dev)
     before = E.launches
     kern = E.esf_all_cuda(ll)
@@ -625,6 +739,16 @@ def test_esf_kernel_matches_plain(dev, P, M, n_pad):
         live = p > -1e29
         assert torch.equal(k > -1e29, live)
         torch.testing.assert_close(k[live], p[live], **TOL)
+        assert torch.equal(k, p)
+
+
+def test_esf_log1p_is_the_librarys_on_every_nonnegative_float(dev):
+    """The esf kernels' branch-free log1p equals the library's log1pf in
+    every bit on every float in [0, inf): what keeps esf bit-identical to
+    its plain version."""
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    assert lib.phd_esf_log1p_mismatches() == 0
 
 
 def test_wrappers_refuse_bad_inputs(dev):
@@ -654,13 +778,13 @@ def test_wrappers_refuse_bad_inputs(dev):
         G4.merge4_cuda(w, mean4.transpose(1, 2), cov4, 1.0, 8)
     with pytest.raises(ValueError):
         G4.merge4_cuda(w, mean4, cov4.double(), 1.0, 8)
-    with pytest.raises(RuntimeError):     # 66 B x 4000: 264 KB
-        G4.merge4_cuda(*_pool4(2, 4000, 0, dev), 1.0, 8)
+    with pytest.raises(ValueError):
+        G4.merge4_cuda(w, mean4, cov4, 1.0, 0)         # max_out 0
     pool3 = _pool3(4, 40, 0, dev)
     with pytest.raises(ValueError):
         G3.merge3_cuda(*pool3[:9], pool3[9].double(), 4.0, 8)
-    with pytest.raises(RuntimeError):     # 10 x 6000 floats: 240 KB
-        G3.merge3_cuda(*_pool3(2, 6000, 0, dev), 4.0, 8)
+    with pytest.raises(ValueError):
+        G3.merge3_cuda(*pool3, 4.0, 0)
     with pytest.raises(ValueError):
         E.esf_all_cuda(torch.zeros((4, 6), device=dev).t())
 

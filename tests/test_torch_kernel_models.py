@@ -20,6 +20,11 @@ rule also to the JAX package's XLA select route:
 - a model of the presorted merge's batched pick loop (batches of G picks,
   cut where a batch pick is near an earlier one) gives every candidate the
   slot ``merge3_plain``'s sequential loop gives it.
+- a model of the esf kernel's schedule (the full set's lane run once, each
+  deleted lane started from its coefficients before the deleted step, each
+  lane updating only k <= n + 1, and a deleted lane k <= M - 1) gives
+  ``esf_all_plain``'s outputs bit for bit, with the update count the kernel
+  makes.
 
 Exact comparisons throughout: each is a statement about float32 values.
 """
@@ -38,6 +43,7 @@ from phdslam_tpu_torch.filter.state import (Gaussian2DMixture,
 from phdslam_tpu_torch.filter.update import gather_selected, kalman_preupdate
 from phdslam_tpu_torch.filter.update4 import (gather_selected4,
                                               kalman_preupdate4)
+from phdslam_tpu_torch.kernels import esf as E
 from phdslam_tpu_torch.kernels import merge3 as M3
 from phdslam_tpu_torch.kernels import select as S
 from phdslam_tpu_torch.kernels import select4 as S4
@@ -477,3 +483,71 @@ def test_batched_pick_loop_gives_merge3_plains_slots(G):
             torch.testing.assert_close(sw, plain[0][p], rtol=1e-6,
                                        atol=1e-6)
     assert (cuts > 0) == (G > 1)
+
+
+# ------------------------------------------------------ the esf schedule --
+
+def esf_schedule(log_lambda):
+    """csrc/esf.cu's schedule: lanes m > j (not yet at their deleted step)
+    are not computed but hold the full lane's coefficients; a lane updates
+    only k <= n + 1 (n: its steps applied), a deleted lane k <= M - 1, and
+    a step at the sentinel nothing. Each update is the plain version's
+    operation on the same operands at the same place of a tensor of
+    ``esf_all_plain``'s shape (so both run the same float32 code for it).
+    Returns (esf, esfd, updates per particle [P])."""
+    P, M = log_lambda.shape
+    ll = torch.clamp(log_lambda, min=E.SENTINEL)
+    lane = torch.arange(M + 1)
+    k = torch.arange(M + 1)
+    e = ll.new_full((P, M + 1, M + 1), E.SENTINEL)
+    e[:, :, 0] = 0.0
+    pad = ll.new_full((P, M + 1, 1), E.SENTINEL)
+    n = torch.zeros((P, M + 1), dtype=torch.int64)
+    k_max = torch.where(lane == M, M, M - 1)
+    updates = torch.zeros(P, dtype=torch.int64)
+    for j in range(M):
+        val = torch.where(lane == j, E.SENTINEL, ll[:, j, None])
+        shifted = torch.cat([pad, e[:, :, :-1]], dim=-1)
+        new = E.logaddexp_finite(e, val[:, :, None] + shifted)
+        live = val > E.SENTINEL
+        top = torch.minimum(n + 1, k_max)
+        upd = live[:, :, None] & (k >= 1) & (k <= top[:, :, None])
+        ahead = (lane > j) & (lane < M)             # copies, not computed
+        updates += (upd & ~ahead[:, None]).sum((1, 2))
+        e = torch.where(upd, new, e)
+        e = torch.where(ahead[:, None], e[:, M:M + 1], e)
+        n = n + live
+    return e[:, M], e[:, :M, :M], updates
+
+
+@pytest.mark.parametrize("P,M,kind", [
+    (3, 64, "live"), (4, 1, "live"), (4, 2, "live"), (5, 33, "holes"),
+    (3, 65, "holes"), (6, 20, "dead rows"), (5, 17, "padded")])
+def test_esf_schedule_is_esf_all_plain_bit_for_bit(P, M, kind):
+    """The kernel's schedule against esf_all_plain, exactly; with every
+    measurement live, 87,424 updates per particle at M = 64 against the
+    131,104 logaddexps of the first design (chip_smoke.esf_logaddexps)."""
+    rng = np.random.default_rng(P * 100 + M)
+    ll = rng.normal(-1.0, 2.0, (P, M)).astype(np.float32)
+    if kind == "holes":             # per-particle -inf: live counts differ
+        ll[rng.uniform(size=(P, M)) < 0.3] = -np.inf
+    elif kind == "dead rows":       # all-sentinel rows beside live ones
+        ll[::2] = -np.inf
+    elif kind == "padded":
+        ll[:, M - 5:] = -np.inf
+    ll = torch.as_tensor(ll)
+    esf, esfd, updates = esf_schedule(ll)
+    want_esf, want_esfd = E.esf_all_plain(ll)
+    assert torch.equal(esf, want_esf) and torch.equal(esfd, want_esfd)
+    nl = (ll > E.SENTINEL).sum(1)
+    # the full lane: sum_{i<n} (i + 1); a live deleted lane: it holds the
+    # full lane's first ones, then adds only k <= min(i + 1, M - 1)
+    full = nl * (nl + 1) // 2
+    assert bool((updates >= full).all())
+    if kind == "live":
+        want = M * (M + 1) // 2 + sum(
+            (M - 1) * M // 2 - m * (m + 1) // 2 for m in range(M))
+        assert bool((updates == want).all())
+        if M == 64:
+            assert want == 87424 and M * (M * (M - 1) // 2) + M * (M + 1) \
+                // 2 == 131104

@@ -23,6 +23,7 @@ from phdslam_tpu.filter.state import SlamState as JState
 from phdslam_tpu.simdata import generate_run, make_scenario
 from phdslam_tpu_torch.bridge import state_from_numpy, state_to_numpy
 from phdslam_tpu_torch.filter import step as TS
+from phdslam_tpu_torch.filter.predict import noise_dim
 from phdslam_tpu_torch.filter.state import Measurements as TMeas
 
 torch.set_num_threads(1)
@@ -52,11 +53,13 @@ def _z(meas_t, M):
 
 
 def _draws(key, cfg, n_pred):
-    """JAX's draws for slam_step(key): (normals [sub, P, 2], uniforms)."""
+    """JAX's draws for slam_step(key): (normals [sub, P, d], uniforms), d
+    = 2 for Ackerman motion and 3 for CV motion."""
     k_pred, _k_var, k_res = jax.random.split(key, 3)
     sub = max(int(cfg.subdividePredict), 1)
     keys = jax.random.split(k_pred, sub)
-    normals = np.stack([np.asarray(jax.random.normal(keys[i], (n_pred, 2),
+    d = noise_dim(cfg)
+    normals = np.stack([np.asarray(jax.random.normal(keys[i], (n_pred, d),
                                                      jnp.float32))
                         for i in range(sub)])
     u = np.asarray(jax.random.uniform(k_res, (cfg.n_particles,),
@@ -120,6 +123,35 @@ def test_three_steps_match_jax(tiny_cfg, run):
                 np.asarray(getattr(jaux, name)), err_msg=name, **TOL)
         assert bool(taux.resampled) == bool(jaux.resampled)
         assert int(taux.n_measure) == int(jaux.n_measure)
+    assert tstate.map_static.w.sum() > 0
+
+
+def test_three_cv_motion_steps_match_jax(tiny_cfg, run):
+    """motionType 0 (constant-velocity pose noise, three times the
+    configured acceleration sigmas, [P, 3] draws) through three whole
+    steps, at the Ackerman test's tolerances (rtol 1e-4 / atol 1e-5 on
+    poses, weights and the aux values, rtol 2e-4 / atol 1e-4 on the maps,
+    resample indices exactly)."""
+    controls, meas = run
+    cfg = tiny_cfg.replace(birthWeight=0.02, motionType=0)
+    jstate = JState.create(cfg)
+    tstate = state_from_numpy(jax.device_get(jstate))
+    key = jax.random.PRNGKey(7)
+    for t in range(3):
+        key, sk = jax.random.split(key)
+        ctrl = controls[t - 1] if t > 0 else np.zeros(2, np.float32)
+        zj, zt = _z(meas[t], cfg.maxMeasurements)
+        pose0 = tstate.pose.clone()
+        jstate, jaux, tstate, taux = _step_both(jstate, tstate, sk, ctrl,
+                                                zj, zt, t, cfg)
+        _compare(tstate, jstate, f"CV step {t}")
+        for name in ("expected_pose", "neff", "log_lik"):
+            np.testing.assert_allclose(
+                getattr(taux, name).numpy(),
+                np.asarray(getattr(jaux, name)), err_msg=name, **TOL)
+        assert bool(taux.resampled) == bool(jaux.resampled)
+        if t > 0:                       # the CV noise moved the particles
+            assert not torch.equal(tstate.pose, pose0)
     assert tstate.map_static.w.sum() > 0
 
 
