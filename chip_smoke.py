@@ -44,6 +44,11 @@ code is not 0:
        bit against the plain version; registers and CTAs per SM; the
        kernels' log1p against the library's log1pf on every float in [0,
        inf), bit for bit
+     - auction (FastSLAM's joint association): [8192, 64, 576], [256, 64,
+       192], [1001, 64, 192], every other particle with no live pair, and
+       NaN entries (2000-round budget), each timed beside its plain version
+       and its bound (counted on the rounds each launch ran); owners and
+       rounds bit for bit; the rounds per particle and budget hits
      - past the old limits, each against plain and timed: select and
        select4 (both modes) at 64 x 4096 x 64 (the wide-row kernels), merge
        [64, 7745] -> 256, merge4 [64, 3521] -> 256, merge3 [64, 5052] -> 128
@@ -86,6 +91,21 @@ code is not 0:
      phase 6 at --seed 0 .. 4 (the filter's seed; the data stay): each
      seed's mean error, then their mean and standard deviation; every seed
      below 1.5 m
+  6c. FastSLAM main path - scripts/fastslam_evidence.py's low-clutter cell
+     (cfg/fastslam_synth.cfg at clutter 2, std_range 0.25, start pose 0;
+     256 particles x 128 slots x 64 measurements, 150 steps of
+     make_scenario(rng(7), 80 landmarks) and generate_run(rng(8))) through
+     slam_step on the card: the auction launched once per update step and
+     against plain on its last launch, bit for bit; filter seeds 0 .. 4,
+     each seed's mean pose error below 1.5 m and their mean below 1.0 m;
+     gated ML (fastslam_assoc 0) at seed 0, logged, the auction never
+     launched
+  6d. FastSLAM runner - cfg/fastslam_synth.cfg as shipped (clutter 20, not
+     gated on tracking) through the runner on phase 3's 330-step run with
+     --truth and --predict-time: the log contract, the ospa column,
+     predicttime.log, state100.pkl and its `profile` replay; then 12 steps
+     with map_estimate 3 and --mat-export (particlesXXXXX.mat with the
+     MAP and EAP maps, the logs holding the EAP map)
   7. dense step - 8192 x 512 x 64 (the static cfg at bench.py's dense
      shape and stress stream): 3 warm-up steps, 16 timed with CUDA events,
      split into pre-update and glue, select and merge; then both kernels
@@ -100,15 +120,20 @@ code is not 0:
      8192 particles x 128 slots x 64 points x 48 measurements (clouds
      805 MB) on the shipped measurement stream, split into glue and merge3;
      the kernels against plain on the last step's inputs
+  9b. dense FastSLAM step - cfg/fastslam_synth.cfg at 8192 x 512 x 64 on
+     the stress stream from empty maps: 8 warm-up steps, 16 timed, split
+     into glue and the auction; live slots, rounds per particle and the
+     peak device memory
  10. the card's name and power limit, the kernels' JSON line, then
      {"ok": true, "device": {...}} last
 
     python3 chip_smoke.py --profile
 
 adds, before the JSON lines, a torch.profiler pass over the static step at
-the dense and the shipped shape, the dense CPHD step and the dense
-disparity step: host wall time, the device's busy share and the ops with
-the most device time (the breakdown in PERF.md).
+the dense and the shipped shape, the dense CPHD step, the dense disparity
+step and the FastSLAM step at the dense and the shipped shape: host wall
+time, the device's busy share and the ops with the most device time (the
+breakdown in PERF.md).
 """
 
 from __future__ import annotations
@@ -190,6 +215,28 @@ DENSE_CPHD = dict(P=1024, F=128, M=64)
 DENSE_DISP = dict(P=8192, F=128, M=48)
 DISP_WARMUP = 8                     # fills the dense disparity map first
 WARMUP, TIMED = 3, 16
+AUCTION_CASES = [                   # (P, M, F, kind): C = F + M columns
+    (8192, 64, 512, ""),            # the dense FastSLAM shape
+    (256, 64, 128, ""),             # cfg/fastslam_synth.cfg's shape
+    (1001, 64, 128, ""),            # odd P
+    (256, 64, 128, "gated"),        # every other particle: no pair live
+    (256, 64, 128, "nan"),          # NaN entries, AUCTION_NAN_BUDGET rounds
+]
+AUCTION_NAN_BUDGET = 2000
+# float32 operations per (round, row, column) of the auction: the value
+# (benefit - price), the compares for the best and the second best, the
+# NaN test; counted for every row of every round run (the kernel scans
+# only the unassigned rows, so this overstates the work after round 1)
+AUCTION_OPS = 4
+# scripts/fastslam_evidence.py's low-clutter cell: 256 particles, 150
+# steps, scenario seed 7 (80 landmarks), run seed 8, clutter 2, std_range
+# 0.25
+FS_STEPS, FS_LANDMARKS, FS_PARTICLES = 150, 80, 256
+FS_SEEDS = range(5)
+FS_SEED_BAR_M, FS_MEAN_BAR_M = 1.5, 1.0
+FS_SHORT_STEPS = 12                 # the runner run with .mat files
+DENSE_FS = dict(P=8192, F=512, M=64)
+FS_WARMUP = 8                       # the dense step's maps start empty
 PROFILE_WARMUP, PROFILED, PROFILE_ROWS = 8, 4, 12
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
@@ -228,6 +275,9 @@ KERNELS = (                         # name, source, the TPU kernel replaced
      "phdslam_tpu/kernels/merge_pallas.py:685"),
     ("esf", "phdslam_tpu_torch/csrc/esf.cu",
      "phdslam_tpu/kernels/esf_pallas.py:85"),
+    ("auction", "phdslam_tpu_torch/csrc/auction.cu",
+     "phdslam_tpu/filter/fastslam.py:98 (_auction_rows, lax.while_loop; "
+     "not a Pallas kernel)"),
 )
 
 
@@ -266,13 +316,18 @@ def _mods():
     return select, select4, merge, merge4, merge3, esf
 
 
+def _auction():
+    from phdslam_tpu_torch.kernels import auction
+    return auction
+
+
 def launch_counts():
     """Every kernel's launch count, by the names of the JSON line."""
     S, S4, G, G4, G3, E = _mods()
     return dict(select=S.launches, select_by_index=S.launches_by_index,
                 select4=S4.launches, select4_by_index=S4.launches_by_index,
                 merge=G.launches, merge4=G4.launches, merge3=G3.launches,
-                esf=E.launches)
+                esf=E.launches, auction=_auction().launches)
 
 
 def zero_launch_counts():
@@ -280,6 +335,7 @@ def zero_launch_counts():
     S.launches = S.launches_by_index = 0
     S4.launches = S4.launches_by_index = 0
     G.launches = G4.launches = G3.launches = E.launches = 0
+    _auction().launches = 0
 
 
 def bound(stats, name, n_bytes, n_ops):
@@ -1035,6 +1091,108 @@ def phase_esf(dev, stats):
     log(f"phase esf: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+# ----------------------------------------------------- phase 2: auction --
+
+def random_auction_inputs(P, M, F, seed, dev, kind=""):
+    """FastSLAM's full benefit on seeded values (F feature columns, 60 %
+    of the pairs gated out at _NEG, then M private no-match columns),
+    clamped as the filter clamps it; kind "gated": every other particle
+    has no live pair; "nan": NaN entries in 5 particles. Returns (clamped
+    [P, M, F + M], eps [P], budget)."""
+    import torch
+    from phdslam_tpu_torch.filter import fastslam as FS
+    rng = np.random.default_rng(seed)
+    ben = rng.normal(-3.0, 3.0, (P, M, F)).astype(np.float32)
+    ben[rng.uniform(size=(P, M, F)) < 0.6] = FS._NEG
+    if kind == "gated":
+        ben[::2] = FS._NEG
+    dummy = np.full((P, M, M), FS._NEG, np.float32)
+    idx = np.arange(M)
+    dummy[:, idx, idx] = rng.normal(-4.0, 1.0, (P, M))
+    full = torch.as_tensor(np.concatenate([ben, dummy], 2), device=dev)
+    clamped, eps, _ = FS.clamp_benefit(full)
+    budget = FS._BIDS_PER_ROW * (F + M)
+    if kind == "nan":
+        clamped[1, 3, 7] = float("nan")
+        clamped[4] = float("nan")
+        clamped[5, :, 50] = float("nan")
+        clamped[9, 0, :] = float("nan")
+        clamped[100, 63, F + 63] = float("nan")
+        budget = AUCTION_NAN_BUDGET
+    return clamped.contiguous(), eps.contiguous(), budget
+
+
+def auction_exact(kern, plain, rows, what):
+    """The auction kernel's (owner, iters) equal the plain version's bit
+    for bit, every owner one of the particle's rows or -1. Returns
+    (particles that differ, max abs error): (0, 0.0)."""
+    bad, _ = differing_rows(kern, plain)
+    if int(bad.sum()) or int(kern[0].min()) < -1 \
+            or int(kern[0].max()) >= rows:
+        raise RuntimeError(f"auction ({what}): {int(bad.sum())} particles "
+                           "differ from the plain version, or an owner is "
+                           "out of range")
+    return 0, 0.0
+
+
+def auction_rounds(iters, budget):
+    """(mean, max, particles at the budget) of a launch's rounds."""
+    return (float(iters.float().mean()), int(iters.max()),
+            int((iters >= budget).sum()))
+
+
+def auction_bound(stats, name, P, M, C, iters):
+    """The benefit read once and the owners written, over the memory rate;
+    AUCTION_OPS per (round, row, column) of the rounds run, over the
+    float32 rate."""
+    bound(stats, name, 4 * P * (M * C + C + 2),
+          int(iters.long().sum()) * M * C * AUCTION_OPS)
+
+
+def phase_auction(dev, stats):
+    from phdslam_tpu_torch.kernels import _build
+    A = _auction()
+    t0 = time.perf_counter()
+    _new_stats(stats, "auction")
+    lib, _ = _build.library()
+    for M_, C_ in ((64, 192), (64, 576)):
+        occupancy(functools.partial(lib.phd_auction_ctas_per_sm, M_), C_,
+                  f"auction at M = {M_}, C = {C_} (path "
+                  f"{lib.phd_auction_path(M_, C_)}: 2 the benefit in shared "
+                  "memory)")
+    for i, (P, M, F, kind) in enumerate(AUCTION_CASES):
+        clamped, eps, budget = random_auction_inputs(P, M, F, 80 + i, dev,
+                                                     kind)
+        C = F + M
+        kern = A.auction_rows_cuda(clamped, eps, budget)
+        auction_exact(kern, A.auction_rows_plain(clamped, eps, budget), M,
+                      f"[{P}, {M}, {C}] {kind}")
+        bit_identical(lambda: A.auction_rows_cuda(clamped, eps, budget),
+                      f"auction [{P}, {M}, {C}]")
+        case = dict(ms=cuda_ms(lambda: A.auction_rows_cuda(clamped, eps,
+                                                           budget), 10),
+                    plain_ms=cuda_ms(lambda: A.auction_rows_plain(
+                        clamped, eps, budget), 1),
+                    library_ms=None)
+        one = {"auction": case}
+        auction_bound(one, "auction", P, M, C, kern[1])
+        mean_it, max_it, at_budget = auction_rounds(kern[1], budget)
+        log(f"auction [{P}, {M}, {C}] {kind or 'random'}: bit-identical to "
+            f"plain; rounds per particle mean {mean_it:.2f} max {max_it}, "
+            f"{at_budget} at the budget {budget}; {case['ms']:.4f} ms "
+            f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.4f}"
+            f" ms by {case['bound_by']})")
+        if kind == "nan" and at_budget < 2:
+            raise RuntimeError("auction: the NaN rows did not run to the "
+                               "budget")
+        if kind == "gated" and int(kern[1][::2].max()) != 1:
+            raise RuntimeError("auction: all-gated particles took more "
+                               "than one round")
+        if i == 0:                  # the dense shape goes to the JSON
+            stats["auction"].update(case)
+    log(f"phase auction: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ------------------------------------------- phase 2: past the old limits --
 
 def phase_wide(dev, stats):
@@ -1131,7 +1289,7 @@ class _KernelTimer:
         self.module, self.name = module, name
         self.orig = getattr(module, name)
         self.pairs = []
-        self.last_args = None
+        self.last_args = self.last_out = None
         self.kept = None            # a list: keep every launch's (a, kw, out)
 
     def __enter__(self):
@@ -1145,6 +1303,7 @@ class _KernelTimer:
             e.record()
             self.pairs.append((s, e))
             self.last_args = (a, kw)
+            self.last_out = out
             if self.kept is not None:
                 clone = lambda x: x.clone() if torch.is_tensor(x) else x
                 self.kept.append((tuple(map(clone, a)), kw,
@@ -1163,14 +1322,15 @@ class _KernelTimer:
 
 def timers():
     """One _KernelTimer per kernel wrapper: select (both modes), select4
-    (both modes), merge, merge4, merge3, esf."""
+    (both modes), merge, merge4, merge3, esf, auction."""
     S, S4, G, G4, G3, E = _mods()
     return dict(select=_KernelTimer(S, "select_cuda"),
                 select4=_KernelTimer(S4, "select4_cuda"),
                 merge=_KernelTimer(G, "merge_cuda"),
                 merge4=_KernelTimer(G4, "merge4_cuda"),
                 merge3=_KernelTimer(G3, "merge3_cuda"),
-                esf=_KernelTimer(E, "esf_all_cuda"))
+                esf=_KernelTimer(E, "esf_all_cuda"),
+                auction=_KernelTimer(_auction(), "auction_rows_cuda"))
 
 
 def agree_on_last_args(tm, stats, what):
@@ -1179,7 +1339,8 @@ def agree_on_last_args(tm, stats, what):
     S, S4, G, G4, G3, E = _mods()
     plain_of = dict(select=S.select_plain, select4=S4.select4_plain,
                     merge=G.merge_plain, merge4=G4.merge4_plain,
-                    merge3=G3.merge3_plain, esf=E.esf_all_plain)
+                    merge3=G3.merge3_plain, esf=E.esf_all_plain,
+                    auction=_auction().auction_rows_plain)
     parts = []
     for name, t in tm.items():
         if t.last_args is None:
@@ -1196,6 +1357,9 @@ def agree_on_last_args(tm, stats, what):
         elif name == "esf":
             n_bad, err = esf_agree(kern, plain)
             esf_exact(kern, plain, f"{what} inputs")
+        elif name == "auction":
+            n_bad, err = auction_exact(kern, plain, a[0].shape[1],
+                                       f"{what} inputs")
         else:
             n_bad, err = compare_rows(kern, plain)
         P = kern[0].shape[0]
@@ -1264,16 +1428,16 @@ def run_cli(args, tm):
     return launch_counts(), time.perf_counter() - t_run
 
 
-def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0):
-    """The synth runner in loop mode on the run files in d; returns (launch
-    counts, run seconds, out dir)."""
+def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0, extra=()):
+    """The synth runner in loop mode on the run files in d, with the extra
+    arguments; returns (launch counts, run seconds, out dir)."""
     Path(d, "run.cfg").write_text(cfg_text + steps_cfg)
     out = Path(d, f"out{len(list(Path(d).glob('out*')))}")
     args = [str(Path(d, "run.cfg")), "synth", "--measurements",
             str(Path(d, "measurements.txt")), "--controls",
             str(Path(d, "controls.txt")), "--data-dir", str(d),
             "--out-dir", str(out), "--mode", "loop", "--device", dev.type,
-            "--seed", str(seed)]
+            "--seed", str(seed), *extra]
     launches, run_s = run_cli(args, tm)
     return launches, run_s, out
 
@@ -1336,7 +1500,7 @@ def phase_main_path(dev, stats):
     check_launches(launches, dict(select=n_update, merge=n_update,
                                   select_by_index=0, select4=0,
                                   select4_by_index=0, merge4=0, merge3=0,
-                                  esf=0),
+                                  esf=0, auction=0),
                    "static main path")
     if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
         raise RuntimeError(f"mean pose error {errs.mean():.3f} m is not "
@@ -1427,7 +1591,8 @@ def phase_mixed_main_path(dev, stats):
         check_launches(launches, dict(select=n_steps, select4=n_steps,
                                       merge=n_steps, merge4=n_steps,
                                       select_by_index=0,
-                                      select4_by_index=0, merge3=0, esf=0),
+                                      select4_by_index=0, merge3=0, esf=0,
+                                      auction=0),
                        "mixed main path")
         if not np.isfinite(errs).all() or errs.mean() >= MIXED_POSE_BAR_M:
             raise RuntimeError(f"mixed: mean pose error {errs.mean():.3f} "
@@ -1503,7 +1668,8 @@ def phase_disparity_main_path(dev, stats):
         raise RuntimeError("disparity log contract incomplete")
     check_launches(launches, dict(merge3=n_update, select=0, merge=0,
                                   select_by_index=0, select4=0,
-                                  select4_by_index=0, merge4=0, esf=0),
+                                  select4_by_index=0, merge4=0, esf=0,
+                                  auction=0),
                    "disparity main path")
     if not np.isfinite(errs).all() or errs.mean() >= DISP_POSE_BAR_M:
         raise RuntimeError(f"disparity: mean camera error {errs.mean():.3f}"
@@ -1552,7 +1718,7 @@ def phase_cphd_main_path(dev, stats):
     check_launches(launches, dict(esf=n_steps, select=n_steps,
                                   merge=n_steps, select_by_index=0,
                                   select4=0, select4_by_index=0, merge4=0,
-                                  merge3=0), "CPHD main path")
+                                  merge3=0, auction=0), "CPHD main path")
     if not tm["select"].last_args[1].get("raw"):
         raise RuntimeError("CPHD: the select kernel ran outside raw mode")
     if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
@@ -1602,6 +1768,187 @@ def phase_seed_envelopes(dev, stats):
             raise RuntimeError(f"seed envelope: a {name} error is not below "
                                f"{bar} m")
     log(f"phase seed envelopes: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------- phase 6c: FastSLAM main path --
+
+def fastslam_cell(dev):
+    """scripts/fastslam_evidence.py's low-clutter cell on the port's
+    simdata copy: (cfg, scenario, controls, per-step Measurements on dev).
+    The steps are driven directly, not through the loaders (which would
+    drop a step without measurements and shift the rest)."""
+    from phdslam_tpu_torch import load_config, simdata
+    from phdslam_tpu_torch.filter.state import Measurements
+    from phdslam_tpu_torch.io.loaders import (MeasurementSet,
+                                              pad_measurement_sets)
+    cfg = load_config(str(ROOT / "cfg/fastslam_synth.cfg")).replace(
+        clutterRate=2.0, stdRange=0.25, nSteps=FS_STEPS,
+        n_particles=FS_PARTICLES, x0=0.0, y0=0.0, yaw0=0.0)
+    sc = simdata.make_scenario(np.random.default_rng(7),
+                               n_landmarks=FS_LANDMARKS, n_steps=FS_STEPS,
+                               clutter_rate=2.0)
+    sc = sc.__class__(**{**sc.__dict__, "std_range": 0.25})
+    controls, meas = simdata.generate_run(np.random.default_rng(8), sc,
+                                          control_noise=(0.2, 0.01))
+    sets = [MeasurementSet(z[:, 0], z[:, 1], np.zeros(len(z), np.int32))
+            for z in meas[:FS_STEPS]]
+    rb, labels, valid = pad_measurement_sets(sets, cfg.maxMeasurements)
+    zs = [Measurements.from_numpy(rb[t], labels[t], valid[t], dev)
+          for t in range(FS_STEPS)]
+    return cfg, sc, controls, zs
+
+
+def run_fastslam_cell(cell, seed, assoc, dev, tm):
+    """The cell's FastSLAM run at filter seed `seed` and fastslamAssoc
+    `assoc`, the launch counts set to 0 just before and read just after:
+    (pose errors [T], launch counts, ms/step)."""
+    import torch
+    from contextlib import ExitStack
+
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import slam_step
+    cfg, sc, controls, zs = cell
+    cfg = cfg.replace(fastslamAssoc=assoc)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = SlamState.create(cfg, dev)
+    poses = []
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with ExitStack() as stack:
+        for t in tm.values():
+            stack.enter_context(t)
+        for t, z in enumerate(zs):
+            u = ((float(controls[t - 1, 0]), float(controls[t - 1, 1]))
+                 if t > 0 else (0.0, 0.0))
+            state, aux = slam_step(state, u, z, float(cfg.dt), t > 0, cfg,
+                                   generator=gen)
+            poses.append(aux.expected_pose[:2])
+        poses = torch.stack(poses).cpu().numpy()    # waits for the device
+    ms = (time.perf_counter() - t0) * 1e3 / len(zs)
+    launches = launch_counts()
+    return (np.linalg.norm(poses - sc.traj[:len(zs), :2], axis=1), launches,
+            ms)
+
+
+def phase_fastslam_main_path(dev, stats):
+    """The FastSLAM main path: the low-clutter cell at filter seed 0 with
+    the auction (fastslamAssoc 1), its kernel against plain on the last
+    launch; then the envelope over FS_SEEDS and gated ML (mode 0) at seed
+    0."""
+    t0 = time.perf_counter()
+    cell = fastslam_cell(dev)
+    n_update = sum(z.count > 0 for z in cell[3])
+    none = dict(select=0, select_by_index=0, select4=0, select4_by_index=0,
+                merge=0, merge4=0, merge3=0, esf=0)
+    tm = {"auction": timers()["auction"]}
+    errs, launches, ms = run_fastslam_cell(cell, 0, 1, dev, tm)
+    check_launches(launches, dict(none, auction=n_update),
+                   "FastSLAM main path")
+    agree_on_last_args(tm, stats, "FastSLAM main path")
+    mean_it, max_it, at_budget = auction_rounds(
+        tm["auction"].last_out[1], tm["auction"].last_args[0][2])
+    log(f"FastSLAM main path (seed 0, auction): {FS_STEPS} steps, launches "
+        f"{launches} (update steps {n_update}), pose error mean "
+        f"{errs.mean():.4f} m max {errs.max():.4f} m, {ms:.3f} ms/step "
+        f"(auction {tm['auction'].ms() / FS_STEPS:.4f} ms/step, CUDA "
+        f"events); last launch's rounds per particle mean {mean_it:.2f} max "
+        f"{max_it}, {at_budget} at the budget")
+    stats["auction"]["launches"] = launches["auction"]
+    stats["fastslam_ms_per_step"] = ms
+    env = [float(errs.mean())]
+    for seed in FS_SEEDS:
+        if seed == 0:
+            continue
+        e, _, _ = run_fastslam_cell(cell, seed, 1, dev, {})
+        env.append(float(e.mean()))
+    e0, launches0, ms0 = run_fastslam_cell(cell, 0, 0, dev, {})
+    check_launches(launches0, dict(none, auction=0), "FastSLAM gated ML")
+    a = np.array(env)
+    log(f"FastSLAM envelope (auction), pose error (m), seeds "
+        f"{list(FS_SEEDS)}: " + ", ".join(f"{x:.4f}" for x in a)
+        + f"; mean {a.mean():.4f}, std {a.std(ddof=1):.4f}")
+    log(f"FastSLAM gated ML (fastslam_assoc 0), seed 0: pose error mean "
+        f"{e0.mean():.4f} m max {e0.max():.4f} m, {ms0:.3f} ms/step, "
+        f"auction launched {launches0['auction']} times")
+    # gated ML is logged, not gated: the JAX package's record (the
+    # robustness grid) holds the auction only
+    if not (np.isfinite(a).all() and (a < FS_SEED_BAR_M).all()
+            and a.mean() < FS_MEAN_BAR_M and np.isfinite(e0).all()):
+        raise RuntimeError(f"FastSLAM: a seed's mean pose error is not "
+                           f"below {FS_SEED_BAR_M} m, or their mean not "
+                           f"below {FS_MEAN_BAR_M} m")
+    log(f"phase FastSLAM main path: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------- phase 6d: FastSLAM runner --
+
+def phase_fastslam_runner(dev, stats):
+    """cfg/fastslam_synth.cfg as shipped (clutter 20, std_range 1.0)
+    through the runner on the static phase's 330-step run, with --truth
+    and --predict-time; the step-100 fixture replayed by `profile`; a
+    short run with map_estimate 3 and --mat-export. Tracking is logged,
+    not gated (FastSLAM diverges in this regime in the JAX package too)."""
+    from phdslam_tpu_torch import runner
+    from phdslam_tpu_torch.io.matdump import read_particles_mat
+    t0 = time.perf_counter()
+    cfg_text = (ROOT / "cfg/fastslam_synth.cfg").read_text()
+    tm = timers()
+    with tempfile.TemporaryDirectory() as d:
+        sc, n_steps, start = static_run_files(d)
+        truth = Path(d, "truth.txt")
+        np.savetxt(truth, sc.landmarks)
+        launches, run_s, out = run_runner(
+            d, cfg_text, start, dev, tm,
+            extra=("--truth", str(truth), "--predict-time"))
+        loop_ms = np.loadtxt(out / "loopTime.log")
+        pred_ms = np.loadtxt(out / "predicttime.log")
+        metrics = [json.loads(x) for x in
+                   (out / "metrics.jsonl").read_text().splitlines()]
+        logs, errs = pose_errors(out, sc.traj, n_steps, 2)
+        w = np.concatenate([lg["static"][:, 0] for lg in logs])
+        ospa = np.array([m["ospa"][0] for m in metrics])
+        log(f"FastSLAM runner (shipped cfg, clutter 20): {n_steps} steps, "
+            f"launches {launches}, pose error mean {errs.mean():.3f} m max "
+            f"{errs.max():.3f} m (not gated), OSPA first {ospa[0]:.3f} last "
+            f"{ospa[-1]:.3f} mean {ospa.mean():.3f}, {loop_ms.mean():.3f} "
+            f"ms/step (median {np.median(loop_ms):.3f}), prediction alone "
+            f"{pred_ms.mean():.3f} ms, run {run_s:.1f} s")
+        if len(logs) != n_steps or len(loop_ms) != n_steps \
+                or len(metrics) != n_steps or len(pred_ms) != n_steps - 1 \
+                or not (w == np.round(w)).all() \
+                or not np.isfinite(ospa).all() \
+                or not (out / "state100.pkl").exists():
+            raise RuntimeError("FastSLAM runner: log contract incomplete")
+        check_launches(launches, dict(
+            auction=n_steps, select=0, select_by_index=0, select4=0,
+            select4_by_index=0, merge=0, merge4=0, merge3=0, esf=0),
+            "FastSLAM runner")
+        agree_on_last_args(tm, stats, "FastSLAM runner")
+        res = runner.main([str(Path(d, "run.cfg")), "synth", "profile",
+                           "--out-dir", str(out), "--device", dev.type])
+        log(f"FastSLAM profile replay of state100.pkl: "
+            + ", ".join(f"{x:.3f}" for x in res["ms"]) + " ms")
+        stats["fastslam_runner_ms_per_step"] = float(loop_ms.mean())
+
+        launches, run_s, out = run_runner(
+            d, cfg_text, start + f"n_steps = {FS_SHORT_STEPS}\n"
+            "map_estimate = 3\n", dev, {}, extra=("--mat-export",))
+        mats = sorted(out.glob("particles0*.mat"))
+        m = read_particles_mat(str(mats[-1]))
+        n_exp = len(m["exp_map_static"]["weights"][0])
+        n_max = len(m["max_map_static"]["weights"][0])
+        logs, _ = pose_errors(out, sc.traj, FS_SHORT_STEPS, 2)
+        log(f"FastSLAM runner, map_estimate 3 with --mat-export: "
+            f"{len(mats)} .mat files, the last with {m['states'].shape[1]} "
+            f"particles, an EAP map of {n_exp} and a MAP map of {n_max} "
+            f"components; the last log's map {len(logs[-1]['static'])} "
+            f"components, run {run_s:.1f} s")
+        if len(mats) != FS_SHORT_STEPS or n_exp == 0 or n_max == 0 \
+                or len(logs[-1]["static"]) != n_exp:
+            raise RuntimeError("FastSLAM runner: .mat export or EAP map "
+                               "incomplete")
+    log(f"phase FastSLAM runner: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------------ phases 7-9: dense steps --
@@ -1655,7 +2002,7 @@ def stress_stepper(shape, n_steps, dev, dense=True,
     return cfg, SlamState.create(cfg, dev), step
 
 
-def timed_steps(stats, state, step, warmup, what, shape):
+def timed_steps(stats, state, step, warmup, what, shape, tm=None):
     """warmup steps, then TIMED steps with CUDA events around the whole
     and around every kernel launch (glue is the remainder); logs the split
     and checks every kernel against its plain version on the last timed
@@ -1666,7 +2013,7 @@ def timed_steps(stats, state, step, warmup, what, shape):
     for t in range(warmup):
         state, aux = step(state, t)
     torch.cuda.synchronize()
-    tm = timers()
+    tm = timers() if tm is None else tm
     with ExitStack() as stack:
         for tmr in tm.values():
             stack.enter_context(tmr)
@@ -1787,12 +2134,40 @@ def phase_dense_cphd_disparity(dev, stats, gpu):
     log(f"phase dense disparity: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+def phase_dense_fastslam(dev, stats, gpu):
+    """The FastSLAM step at 8192 x 512 x 64 on the stress stream, from
+    empty maps: FS_WARMUP steps fill them with counters the filter made,
+    then TIMED steps split into glue and the auction."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, state, step = stress_stepper(DENSE_FS, FS_WARMUP + TIMED, dev,
+                                    cfg_file="cfg/fastslam_synth.cfg")
+    tm = timers()
+    state, ms = timed_steps(stats, state, step, FS_WARMUP,
+                            "dense FastSLAM step",
+                            "x".join(str(DENSE_FS[k]) for k in "PFM"), tm)
+    a, _ = tm["auction"].last_args
+    mean_it, max_it, at_budget = auction_rounds(tm["auction"].last_out[1],
+                                                a[2])
+    live = (state.map_static.w > 0).sum(1).float()
+    log(f"dense FastSLAM step: live slots per particle mean "
+        f"{float(live.mean()):.1f} max {int(live.max())}; the last "
+        f"launch's rounds per particle mean {mean_it:.2f} max {max_it}, "
+        f"{at_budget} at the budget {a[2]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    stats["dense_fastslam_ms_per_step"] = ms
+    log(f"dense timing on {gpu}: FastSLAM step {ms:.3f} ms")
+    log(f"phase dense FastSLAM: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ---------------------------------------------------- optional: --profile --
 
 def phase_profile(dev):
     """torch.profiler over PROFILED steps, after PROFILE_WARMUP steps, of
     the static step at the dense and the shipped shape (stress stream), the
-    dense CPHD step and the dense disparity step (phase 9's shapes).
+    dense CPHD step and the dense disparity step (phase 9's shapes), and
+    the FastSLAM step at the dense and the shipped shape.
     Prints the host wall time per step (without the profiler), the device's
     busy share of the profiled window (the union of its kernel and copy
     intervals) and the ops and kernels with the most device time."""
@@ -1810,7 +2185,11 @@ def phase_profile(dev):
             DENSE_CPHD, n, dev, filterType=1, maxCardinality=127,
             gateBirths=True, gateThreshold=9.0)[1:]),
         ("dense disparity", DENSE_DISP,
-         lambda: disparity_stepper(DENSE_DISP, n, dev)))
+         lambda: disparity_stepper(DENSE_DISP, n, dev)),
+        ("dense FastSLAM", DENSE_FS, lambda: stress_stepper(
+            DENSE_FS, n, dev, cfg_file="cfg/fastslam_synth.cfg")[1:]),
+        ("shipped FastSLAM", SHIPPED, lambda: stress_stepper(
+            SHIPPED, n, dev, False, cfg_file="cfg/fastslam_synth.cfg")[1:]))
     for name, shape, make in cases:
         state, step = make()
         for t in range(PROFILE_WARMUP):
@@ -1864,9 +2243,9 @@ def main(argv=None):
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the static step (dense and shipped "
-                    "shape) and the dense CPHD and disparity steps with "
-                    "torch.profiler")
+                    help="also profile the static and FastSLAM steps "
+                    "(dense and shipped shape) and the dense CPHD and "
+                    "disparity steps with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1901,14 +2280,18 @@ def main(argv=None):
     phase_merge4(dev, stats)
     phase_merge3(dev, stats)
     phase_esf(dev, stats)
+    phase_auction(dev, stats)
     phase_wide(dev, stats)
     phase_main_path(dev, stats)
     phase_mixed_main_path(dev, stats)
     phase_disparity_main_path(dev, stats)
     phase_cphd_main_path(dev, stats)
     phase_seed_envelopes(dev, stats)
+    phase_fastslam_main_path(dev, stats)
+    phase_fastslam_runner(dev, stats)
     phase_dense(dev, stats, gpu)
     phase_dense_cphd_disparity(dev, stats, gpu)
+    phase_dense_fastslam(dev, stats, gpu)
     if args.profile:
         phase_profile(dev)
 

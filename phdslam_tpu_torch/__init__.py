@@ -1,18 +1,21 @@
-"""phdslam_tpu_torch — the static and the mixed static+dynamic GM-PHD SLAM
-step in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+"""phdslam_tpu_torch — GM-PHD SLAM (static and mixed static+dynamic maps),
+CPHD, FastSLAM and the monocular disparity SC-PHD pipeline in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of ``phdslam_tpu`` (JAX + Pallas on a TPU), which stays beside it
-as the reference. Module names mirror the JAX package. The Pallas kernels on
-these paths become ``kernels/select.py`` (``csrc/select.cu``, with its
-by-index mode), ``kernels/select4.py`` (``csrc/select4.cu``, with its
-by-index mode), ``kernels/merge.py`` (``csrc/merge.cu``) and
-``kernels/merge4.py`` (``csrc/merge4.cu``). Each kernel wrapper launches its
-CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a CPU
-tensor.
+as the reference. Module names mirror the JAX package. The Pallas kernels
+become ``kernels/select.py`` (``csrc/select.cu``, with its by-index mode),
+``kernels/select4.py`` (``csrc/select4.cu``, with its by-index mode),
+``kernels/merge.py``, ``merge4.py``, ``merge3.py`` (``csrc/merge*.cu``) and
+``kernels/esf.py`` (``csrc/esf.cu``); FastSLAM's association loop, which
+JAX leaves to XLA, becomes ``kernels/auction.py`` (``csrc/auction.cu``).
+Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs its
+plain PyTorch version on a CPU tensor.
 
 This package never imports JAX, flax or ``phdslam_tpu``: the host-only
-modules it needs (``config.py``, ``simdata.py``, ``io/loaders.py``,
-``io/logs.py``) are its own copies of the JAX package's.
+modules it needs (``config.py``, ``simdata.py``, ``io/``, ``ops/jcbb.py``,
+``eval/player.py``, the NumPy EAP and OSPA functions) are its own copies of
+the JAX package's.
 """
 
 import torch as _torch

@@ -9,12 +9,15 @@ for the disparity pipeline's ``DisparityState``.
 
 On the static path ``map_dynamic`` has width 0 and ``cardinality`` /
 ``cn_birth`` are None; both round-trip as they are. Under CPHD both are
-[P, N+1] log-pmfs.
+[P, N+1] log-pmfs. ``host_view`` gives the numpy copies the host-side
+writers read (the ``.mat`` export, the EAP map) with the JAX state's
+attribute names, the maps' mean and covariance views included.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -69,6 +72,41 @@ def state_to_numpy(s: SlamState) -> dict:
         cardinality=host(s.cardinality),
         cn_birth=host(s.cn_birth),
     )
+
+
+def unpack_cov_channels(ch):
+    """[..., 10, F] channels in the S4 order -> [..., F, 4, 4]."""
+    cov = np.zeros(ch.shape[:-2] + (ch.shape[-1], 4, 4), ch.dtype)
+    k = 0
+    for i in range(4):
+        for j in range(i, 4):
+            cov[..., i, j] = cov[..., j, i] = ch[..., k, :]
+            k += 1
+    return cov
+
+
+def host_view(s: SlamState) -> SimpleNamespace:
+    """Numpy copies of a state with the attributes of the JAX package's
+    ``SlamState`` on the host: pose, log_weights, variances, resample_idx,
+    cardinality, and both maps with w, mean ([P, F, 2] and [P, F, 4]), cov
+    ([P, F, 2, 2] and [P, F, 4, 4]) and max_features. What the ``.mat``
+    writer and the EAP map read."""
+    d = state_to_numpy(s)
+    ms, md = d["map_static"], d["map_dynamic"]
+    c01 = ms["c01"]
+    static = SimpleNamespace(
+        w=ms["w"], mean=np.stack([ms["mx"], ms["my"]], axis=-1),
+        cov=np.stack([np.stack([ms["c00"], c01], axis=-1),
+                      np.stack([c01, ms["c11"]], axis=-1)], axis=-2),
+        max_features=ms["w"].shape[-1])
+    dynamic = SimpleNamespace(
+        w=md["w"], mean=np.moveaxis(md["mean_channels"], -2, -1),
+        cov=unpack_cov_channels(md["cov_channels"]),
+        max_features=md["w"].shape[-1])
+    return SimpleNamespace(
+        pose=d["pose"], log_weights=d["log_weights"],
+        variances=d["variances"], resample_idx=d["resample_idx"],
+        cardinality=d["cardinality"], map_static=static, map_dynamic=dynamic)
 
 
 def disparity_state_from_numpy(d, device=None) -> DisparityState:

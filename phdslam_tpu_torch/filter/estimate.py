@@ -1,12 +1,16 @@
 """State estimates (``phdslam_tpu/filter/estimate.py``): expected pose, the
-MAP particle's map and its expected landmark count. The EAP map (host-side
-greedy reduction of every particle's map) is not ported yet."""
+MAP particle's map and its expected landmark count, on the device; the EAP
+map (every particle's mixture scaled by its weight, then greedily reduced)
+on the host, in NumPy, since its length depends on the data and it only
+feeds the logs."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from phdslam_tpu_torch.filter.state import Gaussian2DMixture, SlamState
+from phdslam_tpu_torch.ops.gm import reduce_mixture_np
 
 
 def expected_pose(state: SlamState):
@@ -24,3 +28,16 @@ def map_map_static(state: SlamState) -> Gaussian2DMixture:
 def expected_cardinality(state: SlamState):
     """Expected landmark count of the MAP particle's map."""
     return map_map_static(state).w.sum()
+
+
+def eap_map_np(weights_log, gm_w, gm_mean, gm_cov, min_separation):
+    """Expected (EAP) map from host arrays: log weights [P], mixture w
+    [P, F], mean [P, F, d], cov [P, F, d, d]. Returns (w, mean, cov)."""
+    wl = np.asarray(weights_log)
+    w = np.asarray(gm_w) * np.exp(wl)[:, None]
+    valid = w > 0
+    if not valid.any():
+        d = np.asarray(gm_mean).shape[-1]
+        return np.zeros((0,)), np.zeros((0, d)), np.zeros((0, d, d))
+    return reduce_mixture_np(w[valid], np.asarray(gm_mean)[valid],
+                             np.asarray(gm_cov)[valid], min_separation)

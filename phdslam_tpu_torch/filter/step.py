@@ -1,8 +1,9 @@
-"""One SLAM step of the GM-PHD and CPHD filters, and a whole-run loop.
+"""One SLAM step of the GM-PHD, CPHD and FastSLAM filters, and a whole-run
+loop.
 
 Port of ``phdslam_tpu/filter/step.py``: the PHD filter on the static map or
-the dynamic / mixed static + dynamic maps, and the CPHD filter
-(filter_type = 1) on the static map:
+the dynamic / mixed static + dynamic maps, the CPHD filter (filter_type =
+1) and FastSLAM (filter_type = 2) on the static map:
 
     predict -> [CPHD births] -> update -> weight normalize -> nEff ->
     resample
@@ -28,6 +29,7 @@ from phdslam_tpu_torch.config import (CPHD_TYPE, DYNAMIC_MODEL,
                                       STATIC_MODEL)
 from phdslam_tpu_torch.filter import cphd
 from phdslam_tpu_torch.filter.estimate import expected_pose
+from phdslam_tpu_torch.filter.fastslam import fastslam_update
 from phdslam_tpu_torch.filter.predict import (noise_dim, predict,
                                               shotgun_expand)
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
@@ -66,11 +68,8 @@ class LogAux(NamedTuple):
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError for a configuration the port does not
-    cover yet, naming the ROADMAP item that ports it."""
-    if cfg.filterType == FASTSLAM_TYPE:
-        raise NotImplementedError(
-            "filter_type = 2 (FastSLAM) is ROADMAP Queue 1 item 11")
+    """Raise ValueError for a feature model or merge metric the filter
+    does not have."""
     if cfg.featureModel not in (STATIC_MODEL, DYNAMIC_MODEL, MIXED_MODEL):
         raise ValueError(f"feature_model must be 0, 1 or 2, got "
                          f"{cfg.featureModel}")
@@ -89,6 +88,26 @@ def draw_noise(cfg, n_predicted: int, device, generator=None,
     uniforms = torch.rand((cfg.n_particles,), generator=generator,
                           device=device, dtype=dtype)
     return normals, uniforms
+
+
+def predicted_state(state: SlamState, control, dt: float, do_predict: bool,
+                    cfg, noise) -> SlamState:
+    """The post-prediction state exactly as ``slam_step`` computes it from
+    the same ``noise`` (``draw_noise``'s pair; the pose normals [sub, P *
+    nPredictParticles, d] are used): shotgun expansion, then under
+    do_predict the sub-stepped pose and dynamic-map prediction and the
+    CPHD cardinality convolution. What save_prediction writes and what the
+    update consumes."""
+    state = shotgun_expand(state, max(int(cfg.nPredictParticles), 1))
+    if do_predict:
+        sub = max(int(cfg.subdividePredict), 1)
+        for i in range(sub):
+            state = predict(state, control, noise[0][i], cfg, dt / sub)
+        if cfg.filterType == CPHD_TYPE and not cfg.cnPoissonPredict:
+            # the carried prior convolved with the birth cardinality
+            state = state.replace(cardinality=cphd.cardinality_predict(
+                state.cardinality, state.cn_birth))
+    return state
 
 
 def gather_particles(state: SlamState, idx, new_log_w) -> SlamState:
@@ -116,14 +135,13 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     is_cphd = cfg.filterType == CPHD_TYPE
     n_target = cfg.n_particles
     n_copies = max(int(cfg.nPredictParticles), 1)
-    sub = max(int(cfg.subdividePredict), 1)
     dtype = state.log_weights.dtype
     dev = state.device
     mixed = cfg.featureModel in (DYNAMIC_MODEL, MIXED_MODEL)
     if noise is None:
         noise = draw_noise(cfg, state.n_particles * n_copies, dev, generator,
                            dtype)
-    normals, uniforms = noise
+    uniforms = noise[1]
 
     # ---- informed 4-D birth anchors: the previous measurements in the
     # world frame at the poses before this step's prediction ----
@@ -135,14 +153,7 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
 
     # ---- prediction (shotgun expansion, then sub-stepped pose and
     # dynamic map) ----
-    state = shotgun_expand(state, n_copies)
-    if do_predict:
-        for i in range(sub):
-            state = predict(state, control, normals[i], cfg, dt / sub)
-        if is_cphd and not cfg.cnPoissonPredict:
-            # the carried prior convolved with the birth cardinality
-            state = state.replace(cardinality=cphd.cardinality_predict(
-                state.cardinality, state.cn_birth))
+    state = predicted_state(state, control, dt, do_predict, cfg, noise)
 
     # ---- CPHD births from the previous measurements ----
     if is_cphd:
@@ -155,7 +166,13 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
 
     # ---- measurement update ----
     n_measure = z.valid.sum()
-    if z.count > 0 and is_cphd:
+    if z.count > 0 and cfg.filterType == FASTSLAM_TYPE:
+        gm_out, dw = fastslam_update(state.pose, state.map_static, z.rb,
+                                     z.valid, cfg)
+        lw = state.log_weights + dw
+        log_lik = torch.logsumexp(lw, 0)
+        state = state.replace(map_static=gm_out, log_weights=lw - log_lik)
+    elif z.count > 0 and is_cphd:
         map_out, cn_update, dw = cphd.cphd_update(
             state.pose, state.map_static, state.cardinality, z.rb, z.label,
             z.valid, cfg, consts)

@@ -1,9 +1,11 @@
 """Gaussian-mixture operations of ``phdslam_tpu/ops/gm.py``: the 2-D and
-3-D greedy merge entry points, the fast-mode prune, and the top-k of
-mixture weights with ``jax.lax.top_k``'s order."""
+3-D greedy merge entry points, the fast-mode prune, the top-k of mixture
+weights with ``jax.lax.top_k``'s order, and the host-side greedy reduction
+of the EAP map (NumPy, ``reduce_mixture_np``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from phdslam_tpu_torch.kernels import _build, merge, merge3
@@ -51,3 +53,64 @@ def greedy_merge_channels3(w, m0, m1, m2, c00, c01, c02, c11, c12, c22,
     return run(*(c.contiguous() for c in (w, m0, m1, m2, c00, c01, c02, c11,
                                           c12, c22)),
                float(min_separation), max_out)
+
+
+def _mahalanobis_sq(mean_h, cov_h, mean, cov):
+    """The reduction's distance of the head (mean_h, cov_h) to each
+    candidate: with L the Cholesky factor of the averaged covariance,
+    |L^-1 (mean_h - mean)|^2, inf where the average is not positive
+    definite. The LAPACK calls are those of one pair at a time, batched."""
+    sigma = 0.5 * (cov_h[None] + cov)
+    diff = mean_h[None] - mean
+    try:
+        x = np.linalg.solve(np.linalg.cholesky(sigma), diff[..., None])
+        return np.einsum("ni,ni->n", x[..., 0], x[..., 0])
+    except np.linalg.LinAlgError:      # some average is not PD: pair by pair
+        out = np.empty(len(mean))
+        for k in range(len(mean)):
+            try:
+                xk = np.linalg.solve(np.linalg.cholesky(sigma[k]), diff[k])
+                out[k] = float(np.dot(xk, xk))
+            except np.linalg.LinAlgError:
+                out[k] = np.inf
+        return out
+
+
+def reduce_mixture_np(w, mean, cov, min_separation):
+    """NumPy greedy reduction with the reference CPU reducer's semantics
+    (``phdslam_tpu/ops/gm.py::reduce_mixture_np``): sort by weight once
+    (stable), take the first unused component as the head, merge every
+    unused component within the Mahalanobis distance of the averaged
+    covariance (Cholesky L-solve form) into it, repeat. Each head's
+    distances are computed for all unused components at once. Used for
+    the EAP map on the host.
+
+    Returns (w_out, mean_out, cov_out) as numpy arrays (dynamic length,
+    host-side only).
+    """
+    w = np.asarray(w, np.float64)
+    mean = np.asarray(mean, np.float64)
+    cov = np.asarray(cov, np.float64)
+    order = np.argsort(-w, kind="stable")
+    left = order[w[order] > 0]              # unused, in weight order
+    out_w, out_m, out_c = [], [], []
+    while len(left):
+        head, rest = left[0], left[1:]
+        near = _mahalanobis_sq(mean[head], cov[head], mean[rest],
+                               cov[rest]) < min_separation
+        members = np.concatenate([[head], rest[near]])
+        left = rest[~near]
+        mw = w[members]
+        wsum = mw.sum()
+        mu = (mw[:, None] * mean[members]).sum(0) / wsum
+        diffs = mu[None] - mean[members]
+        sig = (mw[:, None, None]
+               * (cov[members] + diffs[:, :, None] * diffs[:, None, :])
+               ).sum(0) / wsum
+        out_w.append(wsum)
+        out_m.append(mu)
+        out_c.append(sig)
+    if not out_w:
+        d = mean.shape[-1]
+        return (np.zeros((0,)), np.zeros((0, d)), np.zeros((0, d, d)))
+    return np.array(out_w), np.array(out_m), np.array(out_c)

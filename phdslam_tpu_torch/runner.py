@@ -1,8 +1,9 @@
 """Command-line entry point of the GM-PHD SLAM port.
 
-    python -m phdslam_tpu_torch.runner <config.cfg> synth \\
+    python -m phdslam_tpu_torch.runner <config.cfg> synth [profile] \\
         --measurements M.txt --controls C.txt --out-dir OUT \\
-        [--mode loop|scan] [--device cuda|cpu] [--seed N]
+        [--mode loop|scan] [--device cuda|cpu] [--seed N] [--truth T] \\
+        [--mat-export] [--predict-time] [--player]
     python -m phdslam_tpu_torch.runner <config.cfg> disparity \\
         [--data-dir D] --out-dir OUT [--mode loop|scan] [--device cuda|cpu]
 
@@ -16,30 +17,49 @@ and the same ``state_estimateXXXXX.log``, ``loopTime.log`` and
 ``metrics.jsonl`` files, written by ``io/logs.py`` (the JAX package's log
 format). Under the dynamic and mixed feature models line 3 of each log holds
 the dynamic map; under the CPHD filter (filter_type = 1) the last line holds
-the MAP particle's cardinality log-pmf. The ``disparity`` run type runs the
-monocular SC-PHD pipeline (``filter/disparity.py::run_disparity``).
+the MAP particle's cardinality log-pmf; under FastSLAM (filter_type = 2) the
+map's weights are the MAP particle's landmark counters. The ``disparity``
+run type runs the monocular SC-PHD pipeline
+(``filter/disparity.py::run_disparity``).
 
 ``--mode loop`` steps in a Python loop and writes the logs after every step;
 ``--mode scan`` queues the whole run on the device, then writes the logs
 from the stacked per-step outputs. The maps in the log are the MAP
-particle's.
+particle's, or in loop mode under ``map_estimate & 2`` the EAP map (every
+particle's map on the host each step, greedily reduced).
+
+Loop mode also writes, as the JAX runner does: ``particlesXXXXX.mat`` with
+``--mat-export`` or ``save_all_maps``, ``particles_predictXXXXX.mat`` (the
+predicted particles the update consumes) under ``save_prediction``,
+``predicttime.log`` with ``--predict-time``, and ``state100.pkl`` before
+step 100 (a dict of numpy arrays: ``state`` as ``bridge.state_to_numpy``
+writes it and ``z`` with ``rb``, ``label`` and ``valid``), which ``synth
+profile`` replays. ``--truth`` adds an ``ospa`` column to ``metrics.jsonl``
+in both modes; ``--player`` writes ``player.html`` after the run.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import pickle
 import time
 
 import numpy as np
 import torch
 
+from phdslam_tpu_torch.bridge import (host_view, state_from_numpy,
+                                      state_to_numpy, unpack_cov_channels)
 from phdslam_tpu_torch.config import CPHD_TYPE, load_config
 from phdslam_tpu_torch.filter.disparity import run_disparity
+from phdslam_tpu_torch.filter.estimate import eap_map_np
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
-from phdslam_tpu_torch.filter.step import (check_supported, log_aux,
+from phdslam_tpu_torch.filter.step import (check_supported, draw_noise,
+                                           log_aux, predicted_state,
                                            run_scan, slam_step)
 from phdslam_tpu_torch.io import loaders, logs
+from phdslam_tpu_torch.io.matdump import write_particles_mat
+from phdslam_tpu_torch.ops.ospa import ospa_np
 
 
 def schedule_inputs(n_steps, meas_times, ctrl_times):
@@ -82,22 +102,48 @@ def check_run_supported(cfg, args):
     """Raise NotImplementedError for what the port's runner does not do
     yet, naming the ROADMAP item."""
     check_supported(cfg)
-    later = "ROADMAP Queue 1 item 8"
-    if cfg.mapEstimate & 2:
-        raise NotImplementedError(f"EAP map estimate (map_estimate & 2) is "
-                                  f"{later}")
-    if cfg.saveAllMaps or args.mat_export:
-        raise NotImplementedError(f".mat export is {later}")
-    if cfg.savePrediction:
-        raise NotImplementedError(f"save_prediction (.mat) is {later}")
-    if args.truth:
-        raise NotImplementedError(f"--truth (in-loop OSPA) is {later}")
     if args.islands:
         raise NotImplementedError(
             "--islands is ROADMAP Queue 1 item 14 (sharding)")
     if args.resume or args.checkpoint_every:
         raise NotImplementedError(
             "checkpoint / resume is ROADMAP Queue 1 item 13")
+
+
+def load_truth_maps(path):
+    """Ground-truth landmarks for the in-loop OSPA: a simData .mat (per-step
+    visited landmarks, sim.groundTruth[t].loc [2, L_t]) or a text file of
+    'x y' lines (one map for every step). Returns t -> [L, 2]."""
+    if path.endswith(".mat"):
+        from scipy.io import loadmat
+        sim = loadmat(path)["sim"][0, 0]
+        gt = sim["groundTruth"]
+        maps = [np.asarray(gt[0, t][0, 0]["loc"], np.float64).T
+                for t in range(gt.shape[1])]
+        return lambda t: maps[min(t, len(maps) - 1)]
+    pts = np.loadtxt(path, ndmin=2)[:, :2]
+    return lambda t: pts
+
+
+def _ospa_from_map(w, mx, my, truth_maps, t, p=1.0, c=5.0):
+    """OSPA of one map against the truth at step t, the map cut to its top
+    round(sum w) components; [ospa, loc, card]."""
+    n_est = int(round(float(w.sum())))
+    order = np.argsort(w)[::-1][:max(n_est, 0)]
+    est = np.stack([mx[order], my[order]], axis=-1)
+    o, loc, card = ospa_np(est, truth_maps(t), p=p, c=c)
+    return [float(o), float(loc), float(card)]
+
+
+def _map_for_log(view, mixture, cfg, eap):
+    """The MAP (highest-weight particle's) or EAP map of one mixture of a
+    host view, as (w, mean, cov) without empty slots."""
+    if eap:
+        return eap_map_np(view.log_weights, mixture.w, mixture.mean,
+                          mixture.cov, cfg.minSeparation)
+    idx = int(np.argmax(view.log_weights))
+    sel = mixture.w[idx] > 0
+    return mixture.w[idx][sel], mixture.mean[idx][sel], mixture.cov[idx][sel]
 
 
 def _step_inputs(sched, controls, rb, labels, valid, cfg, device):
@@ -118,38 +164,32 @@ def _step_inputs(sched, controls, rb, labels, valid, cfg, device):
     return out
 
 
-def unpack_cov_channels(ch):
-    """[10, F] channels in the S4 order -> [F, 4, 4] symmetric."""
-    cov = np.zeros((ch.shape[-1], 4, 4), ch.dtype)
-    k = 0
-    for i in range(4):
-        for j in range(i, 4):
-            cov[:, i, j] = cov[:, j, i] = ch[k]
-            k += 1
-    return cov
-
-
-def _write_log(out_dir, t, exp_pose, la, repeat, cfg):
+def _write_log(out_dir, t, exp_pose, la, repeat, cfg, est=None):
     """One state_estimate log from host copies of a LogAux: the MAP
     particle's static map on line 2 and, under the dynamic and mixed
-    feature models, its dynamic map on line 3."""
-    w = la["map_w"]
-    sel = w > 0
-    mean = np.stack([la["map_mx"][sel], la["map_my"][sel]], axis=-1)
-    cov = np.zeros((int(sel.sum()), 2, 2), np.float32)
-    cov[:, 0, 0] = la["map_c00"][sel]
-    cov[:, 0, 1] = cov[:, 1, 0] = la["map_c01"][sel]
-    cov[:, 1, 1] = la["map_c11"][sel]
-    dyn_w = dyn_mean = dyn_cov = None
-    if cfg.featureModel != 0 and la["dyn_w"].shape[-1] > 0:
-        dsel = la["dyn_w"] > 0
-        dyn_w = la["dyn_w"][dsel]
-        dyn_mean = la["dyn_mean"].T[dsel]
-        dyn_cov = unpack_cov_channels(la["dyn_cov"])[dsel]
+    feature models, its dynamic map on line 3; under map_estimate & 2 the
+    EAP maps of est (``_estimates``) instead."""
+    has_dyn = cfg.featureModel != 0 and la["dyn_w"].shape[-1] > 0
+    dyn = (None, None, None)
+    if cfg.mapEstimate & 2 and est is not None:
+        static = est["exp_map_static"]
+        dyn = est.get("exp_map_dynamic", dyn)
+    else:
+        sel = la["map_w"] > 0
+        cov = np.zeros((int(sel.sum()), 2, 2), np.float32)
+        cov[:, 0, 0] = la["map_c00"][sel]
+        cov[:, 0, 1] = cov[:, 1, 0] = la["map_c01"][sel]
+        cov[:, 1, 1] = la["map_c11"][sel]
+        static = (la["map_w"][sel], np.stack(
+            [la["map_mx"][sel], la["map_my"][sel]], axis=-1), cov)
+        if has_dyn:
+            dsel = la["dyn_w"] > 0
+            dyn = (la["dyn_w"][dsel], la["dyn_mean"].T[dsel],
+                   unpack_cov_channels(la["dyn_cov"])[dsel])
     is_cphd = cfg.filterType == CPHD_TYPE
     logs.write_state_estimate_log(
-        out_dir, t, exp_pose, w[sel], mean, cov, dynamic_w=dyn_w,
-        dynamic_mean=dyn_mean, dynamic_cov=dyn_cov,
+        out_dir, t, exp_pose, *static, dynamic_w=dyn[0],
+        dynamic_mean=dyn[1], dynamic_cov=dyn[2],
         particle_log_weights=la["log_weights"],
         particle_poses=la["poses"], resample_idx=la["resample_idx"],
         cardinality=la["cardinality"] if is_cphd else None,
@@ -158,6 +198,27 @@ def _write_log(out_dir, t, exp_pose, la, repeat, cfg):
 
 def _host(la) -> dict:
     return {k: v.cpu().numpy() for k, v in la._asdict().items()}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _estimates(view, cfg):
+    """The map estimates of a host view: the MAP maps under map_estimate &
+    1 and the EAP maps under & 2, dynamic ones where there is a dynamic
+    map, keyed as ``write_particles_mat`` takes them."""
+    has_dyn = cfg.featureModel != 0 and view.map_dynamic.max_features > 0
+    est = {}
+    for bit, name, eap in ((1, "max", False), (2, "exp", True)):
+        if cfg.mapEstimate & bit:
+            est[f"{name}_map_static"] = _map_for_log(view, view.map_static,
+                                                     cfg, eap)
+            if has_dyn:
+                est[f"{name}_map_dynamic"] = _map_for_log(
+                    view, view.map_dynamic, cfg, eap)
+    return est
 
 
 def run_synth(cfg, args) -> dict:
@@ -192,6 +253,7 @@ def run_synth(cfg, args) -> dict:
                                                      cfg.maxMeasurements)
     out_dir = args.out_dir
     os.makedirs(out_dir, exist_ok=True)
+    truth_maps = load_truth_maps(args.truth) if args.truth else None
     generator = torch.Generator(device=device).manual_seed(args.seed)
     state = SlamState.create(cfg, device)
     sched = schedule_inputs(n_steps, meas_times, ctrl_times)
@@ -202,8 +264,7 @@ def run_synth(cfg, args) -> dict:
         if traj is not None:
             raise NotImplementedError(
                 "follow_trajectory runs in loop mode only")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
         t0 = time.perf_counter()
         final, (auxs, las) = run_scan(
             state, [s[0] for s in steps], [s[1] for s in steps],
@@ -228,40 +289,79 @@ def run_synth(cfg, args) -> dict:
             la_t = {k: v[t] for k, v in la_h.items()}
             _write_log(out_dir, t, poses[t], la_t,
                        repeat0 if t == 0 else 1, cfg)
-            logs.append_metrics_jsonl(out_dir, dict(
+            metrics = dict(
                 t=t, ms=ms, neff=float(aux_h["neff"][t]),
                 n_measure=int(aux_h["n_measure"][t]),
                 resampled=bool(aux_h["resampled"][t]),
                 log_lik=float(aux_h["log_lik"][t]),
-                card=float(la_t["map_w"].sum())))
+                card=float(la_t["map_w"].sum()))
+            if truth_maps is not None:
+                metrics["ospa"] = _ospa_from_map(
+                    la_t["map_w"], la_t["map_mx"], la_t["map_my"],
+                    truth_maps, t)
+            logs.append_metrics_jsonl(out_dir, metrics)
         print(f"scan: {t_len} steps in {elapsed:.3f}s ({ms:.2f} ms/step)")
         return dict(state=final, poses=poses, aux=auxs, ms_per_step=ms,
                     nan_step=t_valid if t_valid < t_len else None)
 
     poses_out = []
     z_prev = None
+    n_predicted = cfg.n_particles * max(int(cfg.nPredictParticles), 1)
     for t, (ctrl, z, dt, do_predict) in enumerate(steps):
-        t0 = time.perf_counter()
         if traj is not None and t < len(traj):
             state = state.replace(pose=torch.as_tensor(
                 traj[t], device=device).expand_as(state.pose).clone())
             do_predict = False
+        # the step's draws, made here once: the prediction written or timed
+        # below is the one the step consumes, and the generator advances as
+        # in a run without those outputs
+        noise = draw_noise(cfg, n_predicted, device, generator,
+                           state.log_weights.dtype)
+        if cfg.savePrediction:
+            pred = predicted_state(state, ctrl, dt, do_predict, cfg, noise)
+            write_particles_mat(out_dir, t, host_view(pred),
+                                prefix="particles_predict")
+        if t == 100 and args.checkpoint:
+            with open(os.path.join(out_dir, "state100.pkl"), "wb") as f:
+                pickle.dump(dict(state=state_to_numpy(state), z=dict(
+                    rb=z.rb.cpu().numpy(), label=z.label.cpu().numpy(),
+                    valid=z.valid.cpu().numpy())), f)
+        if args.predict_time and do_predict:
+            _sync(device)
+            t_pred = time.perf_counter()
+            predicted_state(state, ctrl, dt, True, cfg, noise)
+            _sync(device)
+            logs.append_predict_time(
+                out_dir, (time.perf_counter() - t_pred) * 1000)
+        t0 = time.perf_counter()
         state, aux = slam_step(state, ctrl, z, dt, do_predict, cfg,
-                               generator=generator,
-                               with_variance=args.variance, z_prev=z_prev)
+                               noise=noise, with_variance=args.variance,
+                               z_prev=z_prev)
         z_prev = z
         neff_val = float(aux.neff)                   # waits for the device
         elapsed_ms = (time.perf_counter() - t0) * 1000
         logs.append_loop_time(out_dir, elapsed_ms)
         exp_pose = aux.expected_pose.cpu().numpy()
         la = _host(log_aux(state))
+        mat = args.mat_export or cfg.saveAllMaps
+        view = est = None
+        if mat or cfg.mapEstimate & 2 and not args.no_logs:
+            # every particle's map on the host, its estimates once a step
+            view = host_view(state)
+            est = _estimates(view, cfg)
         if not args.no_logs:
             _write_log(out_dir, t, exp_pose, la, repeat0 if t == 0 else 1,
-                       cfg)
-        logs.append_metrics_jsonl(out_dir, dict(
+                       cfg, est)
+        metrics = dict(
             t=t, ms=elapsed_ms, neff=neff_val, n_measure=z.count,
             resampled=bool(aux.resampled), log_lik=float(aux.log_lik),
-            card=float(la["map_w"].sum())))
+            card=float(la["map_w"].sum()))
+        if truth_maps is not None:
+            metrics["ospa"] = _ospa_from_map(la["map_w"], la["map_mx"],
+                                            la["map_my"], truth_maps, t)
+        logs.append_metrics_jsonl(out_dir, metrics)
+        if mat:
+            write_particles_mat(out_dir, t, view, **est)
         poses_out.append(exp_pose)
         if np.isnan(neff_val):
             print("nan weights detected! exiting...")
@@ -272,6 +372,29 @@ def run_synth(cfg, args) -> dict:
     return dict(state=state, poses=np.asarray(poses_out))
 
 
+def run_profile(cfg, args):
+    """Replay the step-100 fixture (out-dir/state100.pkl) through two
+    steps, printing each one's milliseconds (the first includes the
+    kernels' build and load)."""
+    with open(os.path.join(args.out_dir, "state100.pkl"), "rb") as f:
+        d = pickle.load(f)
+    device = torch.device(args.device)
+    state = state_from_numpy(d["state"], device)
+    z = Measurements.from_numpy(d["z"]["rb"], d["z"]["label"],
+                                d["z"]["valid"], device)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    times = []
+    for what in ("first", "second"):
+        _sync(device)
+        t0 = time.perf_counter()
+        out, _ = slam_step(state, (0.0, 0.0), z, float(cfg.dt), True, cfg,
+                           generator=generator)
+        out.log_weights.cpu()
+        times.append((time.perf_counter() - t0) * 1000)
+        print(f"profile step: {times[-1]:.2f} ms ({what})")
+    return dict(ms=times)
+
+
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -279,8 +402,8 @@ def build_parser():
     ap.add_argument("run_type", nargs="?", default="synth",
                     choices=["synth", "disparity"])
     ap.add_argument("profile", nargs="?", default="",
-                    help="'profile' replays the step-100 fixture (not "
-                         "ported yet)")
+                    help="'profile' replays the step-100 fixture "
+                         "(out-dir/state100.pkl)")
     ap.add_argument("--mode", default="loop", choices=["loop", "scan"])
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (the default) or cpu")
@@ -290,16 +413,28 @@ def build_parser():
     ap.add_argument("--controls", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-logs", action="store_true")
+    ap.add_argument("--checkpoint", action="store_true", default=True,
+                    help="write the step-100 fixture state100.pkl (always "
+                         "on, as in the JAX runner)")
+    ap.add_argument("--mat-export", action="store_true",
+                    help="write particlesXXXXX.mat each step (loop mode; "
+                         "save_all_maps does the same)")
+    ap.add_argument("--predict-time", action="store_true",
+                    help="also time the prediction alone each step -> "
+                         "predicttime.log (loop mode)")
     ap.add_argument("--variance", action="store_true",
                     help="compute the per-particle cardinality variance")
+    ap.add_argument("--truth", default=None,
+                    help="ground-truth landmarks (simData .mat or 'x y' "
+                         "text) -> per-step OSPA column in metrics.jsonl")
+    ap.add_argument("--player", action="store_true",
+                    help="after the run, bundle the out-dir's logs into "
+                         "out-dir/player.html (eval/player.py)")
     ap.add_argument("--verbose", action="store_true")
     # surfaces of phdslam_tpu.runner the port does not have yet
-    ap.add_argument("--truth", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--islands", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--mat-export", action="store_true",
                     help=argparse.SUPPRESS)
     return ap
 
@@ -311,14 +446,23 @@ def main(argv=None):
         raise RuntimeError(
             f"--device {args.device}: CUDA is not available; pass --device "
             "cpu to run the kernels' plain versions on the CPU")
-    if args.profile == "profile":
-        raise NotImplementedError(
-            "profile replay needs the step-100 checkpoint, ROADMAP Queue 1 "
-            "item 13")
     cfg = load_config(args.config)
     if args.run_type == "disparity":
-        return run_disparity(cfg, args)
-    return run_synth(cfg, args)
+        res = run_disparity(cfg, args)
+    elif args.profile == "profile":
+        res = run_profile(cfg, args)
+    else:
+        res = run_synth(cfg, args)
+    if args.player and not args.no_logs:
+        from phdslam_tpu_torch.eval.player import build_player
+        truth = args.truth if args.truth else (
+            (args.data_dir or cfg.dataDirectory)
+            if args.run_type == "disparity" else None)
+        try:
+            print(f"player: {build_player(args.out_dir, truth_mat=truth)}")
+        except FileNotFoundError as e:
+            print(f"player skipped: {e}")
+    return res
 
 
 if __name__ == "__main__":

@@ -918,3 +918,150 @@ def test_disparity_step_cuda_matches_cpu(dev):
         torch.testing.assert_close(getattr(gpu, name), getattr(cpu, name),
                                    rtol=2e-4, atol=1e-3)
     assert float(cpu.w.sum()) > 0
+
+
+# ------------------------------------------------------------ auction --
+
+def _auction_inputs(P, M, F, seed, dev, gated=0.6, all_gated=()):
+    """FastSLAM's full benefit (F feature columns, a random share gated
+    out at _NEG, then M private no-match columns), clamped as the filter
+    clamps it: (clamped [P, M, F + M], eps [P], budget)."""
+    from phdslam_tpu_torch.filter import fastslam as FS
+    rng = np.random.default_rng(seed)
+    ben = rng.normal(-3.0, 3.0, (P, M, F))
+    ben[rng.uniform(size=(P, M, F)) < gated] = FS._NEG
+    ben[list(all_gated)] = FS._NEG
+    dummy = np.full((P, M, M), FS._NEG)
+    idx = np.arange(M)
+    dummy[:, idx, idx] = rng.normal(-4.0, 1.0, (P, M))
+    full = torch.as_tensor(np.concatenate([ben, dummy], 2),
+                           dtype=torch.float32, device=dev)
+    clamped, eps, _ = FS.clamp_benefit(full)
+    return clamped.contiguous(), eps.contiguous(), FS._BIDS_PER_ROW * (F + M)
+
+
+def _assert_auction_equal(clamped, eps, budget):
+    from phdslam_tpu_torch.kernels import auction as A
+    owner, iters = A.auction_rows_cuda(clamped, eps, budget)
+    owner_p, iters_p = A.auction_rows_plain(clamped, eps, budget)
+    assert torch.equal(owner, owner_p)
+    assert torch.equal(iters, iters_p)
+    M = clamped.shape[1]
+    assert int(owner.min()) >= -1 and int(owner.max()) < M
+    return owner, iters
+
+
+@pytest.mark.parametrize("P,M,F", [
+    (256, 64, 128),        # the shipped FastSLAM cfg
+    (1001, 64, 128),       # odd P
+    (8192, 64, 512),       # the dense shape
+    (3, 5, 17), (2, 1, 1), (5, 40, 0), (7, 33, 95),
+])
+def test_auction_kernel_matches_plain(dev, P, M, F):
+    """Owners and rounds bit for bit; a second launch gives the same."""
+    from phdslam_tpu_torch.kernels import auction as A
+    clamped, eps, budget = _auction_inputs(P, M, F, P + M + F, dev)
+    owner, iters = _assert_auction_equal(clamped, eps, budget)
+    assert torch.equal(A.auction_rows_cuda(clamped, eps, budget)[0], owner)
+    assert int(iters.min()) >= 1 and int(iters.max()) < budget
+
+
+def test_auction_kernel_all_gated_particles(dev):
+    """Particles whose rows have only their private columns live: one
+    round, each row on its own column."""
+    clamped, eps, budget = _auction_inputs(16, 12, 30, 3, dev,
+                                           all_gated=range(0, 16, 2))
+    owner, iters = _assert_auction_equal(clamped, eps, budget)
+    assert (iters[::2] == 1).all()
+    expect = torch.full((30 + 12,), -1, dtype=torch.int32, device=dev)
+    expect[30:] = torch.arange(12, dtype=torch.int32, device=dev)
+    assert (owner[::2] == expect).all()
+
+
+def test_auction_kernel_each_side_of_the_shared_memory_edges(dev):
+    """Both places a launch may keep its data: the benefit staged in
+    shared memory or read from device memory (C at the largest staged
+    width and one past it, M = 64), and the state in shared memory or in
+    device-memory scratch (C at the widest shared state and one past it,
+    M = 8)."""
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+
+    def edge(M, path):
+        lo, hi = 1, 1 << 20              # path(M, lo) >= path, at hi below
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if lib.phd_auction_path(M, mid) >= path \
+                else (lo, mid)
+        return lo
+
+    for M, path, P in ((64, 2, 6), (8, 1, 3)):
+        C = edge(M, path)
+        for c in (C, C + 1):
+            assert lib.phd_auction_path(M, c) == (path if c == C
+                                                  else path - 1)
+            assert (lib.phd_auction_wide_floats(P, M, c) > 0) == (
+                c > C and path == 1)
+            _assert_auction_equal(*_auction_inputs(P, M, c - M, c, dev))
+
+
+def test_auction_kernel_nan_benefit_stays_in_range(dev):
+    """A NaN in the benefit (a NaN pose upstream) is the largest value of
+    its row, whose bid is NaN and never wins: the rounds end at the budget,
+    every owner is a row of the particle or -1, as in the plain version."""
+    clamped, eps, _ = _auction_inputs(8, 16, 40, 9, dev)
+    clamped[1, 3, 7] = float("nan")
+    clamped[4] = float("nan")
+    clamped[5, :, 50] = float("nan")
+    owner, iters = _assert_auction_equal(clamped, eps, 300)
+    assert int(iters[1]) == 300 and int(iters[4]) == 300
+    assert int(iters[0]) < 300
+
+
+def test_auction_kernel_budget(dev):
+    """A budget below what the rows need stops every particle there, as in
+    the plain version; a budget of 0 runs no round."""
+    clamped, eps, _ = _auction_inputs(64, 32, 64, 11, dev, gated=0.2)
+    _, iters = _assert_auction_equal(clamped, eps, 2)
+    assert int(iters.max()) == 2
+    owner, iters = _assert_auction_equal(clamped, eps, 0)
+    assert int(iters.max()) == 0 and int(owner.max()) == -1
+
+
+@pytest.mark.parametrize("assoc", [0, 1])
+def test_fastslam_slam_step_cuda_matches_cpu(dev, assoc):
+    """Three FastSLAM steps on the card and on the CPU, from the same state
+    with the same draws: counters and slot order exact."""
+    cfg = load_config("cfg/fastslam_synth.cfg").replace(
+        n_particles=32, maxFeatures=32, maxMeasurements=16, y0=0.0,
+        stdRange=0.25, clutterRate=2.0, fastslamAssoc=assoc)
+    rng = np.random.default_rng(6)
+    lm = np.stack([rng.uniform(1, 9, 10), rng.uniform(-6, 6, 10)], 1)
+    states = {d: SlamState.create(cfg, d) for d in ("cpu", dev)}
+    for t in range(3):
+        d = lm - [0.5 * t, 0.0]
+        r = np.hypot(d[:, 0], d[:, 1]) + rng.normal(0, 0.1, 10)
+        b = np.arctan2(d[:, 1], d[:, 0]) + rng.normal(0, 0.01, 10)
+        rb = np.zeros((16, 2), np.float32)
+        rb[:10] = np.stack([r, b], 1)
+        rb[10:13] = np.stack([rng.uniform(1, 9, 3),
+                              rng.uniform(-1.4, 1.4, 3)], 1)
+        valid = np.arange(16) < 13
+        normals = torch.as_tensor(rng.normal(size=(1, 32, 2)),
+                                  dtype=torch.float32)
+        u = torch.as_tensor(rng.uniform(size=32), dtype=torch.float32)
+        for dv in states:
+            z = Measurements.from_numpy(rb, np.zeros(16, np.int32), valid, dv)
+            states[dv], _ = slam_step(states[dv], (0.5, 0.0), z, 1.0, t > 0,
+                                      cfg, noise=(normals.to(dv), u.to(dv)))
+    cpu, gpu = states["cpu"], states[dev].to("cpu")
+    torch.testing.assert_close(gpu.pose, cpu.pose, **TOL)
+    torch.testing.assert_close(gpu.log_weights, cpu.log_weights,
+                               rtol=2e-4, atol=1e-4)
+    assert torch.equal(gpu.resample_idx, cpu.resample_idx)
+    assert torch.equal(gpu.map_static.w, cpu.map_static.w)
+    for name in ("mx", "my", "c00", "c01", "c11"):
+        torch.testing.assert_close(getattr(gpu.map_static, name),
+                                   getattr(cpu.map_static, name),
+                                   rtol=2e-4, atol=1e-4)
+    assert float(cpu.map_static.w.max()) >= 3.0

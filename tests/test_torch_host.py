@@ -1,7 +1,13 @@
 """The port's own copies of the JAX package's host modules (``config.py``,
-``simdata.py``, ``io/loaders.py``, ``io/logs.py``) against the originals:
-the same cfg fields, the same arrays from one seed, the same parsed files,
-the same log bytes. Exact comparisons: the copies run the same numpy code."""
+``simdata.py``, ``io/loaders.py``, ``io/logs.py``, ``ops/jcbb.py``,
+``io/matdump.py``, ``ops/gm.py::reduce_mixture_np``,
+``filter/estimate.py::eap_map_np``, ``ops/ospa.py::ospa_np``,
+``eval/player.py::build_player``) against the originals: the same cfg
+fields, the same arrays from one seed, the same parsed files, the same log
+bytes, the same associations, maps, metrics, .mat fields and HTML. Exact
+comparisons where the copies run the same numpy code; the EAP map to rtol
+1e-6 and OSPA to 1e-9, where the JAX package may run its optional native
+reducer and assignment solver instead."""
 
 import dataclasses
 import glob
@@ -9,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from phdslam_tpu import config as JC
 from phdslam_tpu import simdata as JSD
@@ -18,6 +25,8 @@ from phdslam_tpu_torch import config as TC
 from phdslam_tpu_torch import simdata as TSD
 from phdslam_tpu_torch.io import loaders as TL
 from phdslam_tpu_torch.io import logs as TLG
+
+torch.set_num_threads(1)
 
 CFGS = sorted(glob.glob("cfg/*.cfg"))
 
@@ -129,3 +138,191 @@ def test_write_state_estimate_log_same_bytes(tmp_path):
     log = TLG.read_state_estimate_log(str(tmp_path / "port"
                                           / "state_estimate00003.log"))
     assert log["dynamic"].shape == (2, 21)
+
+
+# ---- the host copies of the FastSLAM and runner surfaces ----
+
+def _jcbb_case():
+    """test_fastslam.py's case: two landmarks 0.12 rad apart at range 10, a
+    0.1 rad yaw error that makes nearest-neighbour association mispair."""
+    landmarks = np.array([[10.0, 0.0],
+                          [10.0 * np.cos(0.12), 10.0 * np.sin(0.12)]])
+    landmark_covs = np.tile(np.diag([0.01, 0.01]), (2, 1, 1))
+    z = np.array([[10.0, 0.12 - 0.1], [10.0, 0.0 - 0.1]])
+    return z, landmarks, landmark_covs, np.zeros(3), np.diag(
+        [1e-4, 1e-4, 0.06 ** 2])
+
+
+def _random_jcbb_case(seed):
+    rng = np.random.default_rng(seed)
+    f = 6
+    lm = np.stack([rng.uniform(3, 12, f), rng.uniform(-6, 6, f)], 1)
+    covs = np.stack([np.diag(rng.uniform(0.01, 0.2, 2)) for _ in range(f)])
+    pose = np.array([0.1, -0.2, 0.05])
+    idx = rng.permutation(f)[:4]
+    d = lm[idx] - pose[:2]
+    z = np.stack([np.hypot(d[:, 0], d[:, 1]) + rng.normal(0, 0.1, 4),
+                  np.arctan2(d[:, 1], d[:, 0]) - pose[2]
+                  + rng.normal(0, 0.02, 4) + 0.04], 1)
+    z = np.vstack([z, [rng.uniform(2, 10), rng.uniform(-1, 1)]])
+    return z, lm, covs, pose, np.diag([0.01, 0.01, 0.03 ** 2])
+
+
+@pytest.mark.parametrize("case", ["two_landmarks", "clutter", 0, 1, 2])
+def test_jcbb_and_nn_match_jax(case):
+    from phdslam_tpu.ops import jcbb as JJ
+    from phdslam_tpu_torch.ops import jcbb as TJ
+    if case == "two_landmarks":
+        args = _jcbb_case()
+    elif case == "clutter":
+        z, *rest = _jcbb_case()
+        args = (np.vstack([z, [10.0, 1.5]]), *rest)
+    else:
+        args = _random_jcbb_case(case)
+    for name in ("jcbb", "nn_associate"):
+        np.testing.assert_array_equal(getattr(TJ, name)(*args, 0.1, 0.01),
+                                      getattr(JJ, name)(*args, 0.1, 0.01))
+    if case == "two_landmarks":
+        np.testing.assert_array_equal(TJ.jcbb(*args, 0.1, 0.01), [1, 0])
+
+
+def _mixtures(seed, P=5, F=12, d=2, clustered=False):
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.0, 1.0, (P, F)) * (rng.uniform(size=(P, F)) < 0.7)
+    mean = rng.normal(0, 3.0, (P, F, d))
+    if clustered:               # every particle's map of the same 9 points
+        mean = rng.normal(0, 6.0, (9, d))[rng.integers(0, 9, (P, F))] \
+            + rng.normal(0, 0.3, (P, F, d))
+    a = rng.normal(0, 0.5, (P, F, d, d))
+    cov = a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(d)
+    lw = rng.normal(0, 1.0, P)
+    return lw - np.log(np.exp(lw).sum()), w, mean, cov
+
+
+@pytest.mark.parametrize("d,P,clustered", [(2, 5, False), (4, 5, False),
+                                         (2, 40, True), (4, 24, True)])
+def test_reduce_mixture_and_eap_map_match_jax(d, P, clustered):
+    """reduce_mixture_np (its distances batched per head) exactly against
+    JAX's NumPy one (a pair at a time); eap_map_np against JAX's (which
+    runs the optional native reducer where it is built) to rtol 1e-6.
+    Random maps, and many particles' maps of the same points (most
+    components merge)."""
+    from phdslam_tpu.filter import estimate as JE
+    from phdslam_tpu.ops import gm as JGM
+    from phdslam_tpu_torch.filter import estimate as TE
+    from phdslam_tpu_torch.ops import gm as TGM
+    lw, w, mean, cov = _mixtures(d, P=P, d=d, clustered=clustered)
+    sel = w > 0
+    for a, b in zip(TGM.reduce_mixture_np(w[sel], mean[sel], cov[sel], 2.0),
+                    JGM.reduce_mixture_np(w[sel], mean[sel], cov[sel], 2.0)):
+        np.testing.assert_array_equal(a, b)
+    got = TE.eap_map_np(lw, w, mean, cov, 2.0)
+    ref = JE.eap_map_np(lw, w, mean, cov, 2.0)
+    assert 0 < len(got[0]) < sel.sum()
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-12)
+    empty = TE.eap_map_np(lw, np.zeros_like(w), mean, cov, 2.0)
+    assert [x.shape for x in empty] == [(0,), (0, d), (0, d, d)]
+
+
+@pytest.mark.parametrize("m,n", [(0, 0), (0, 3), (4, 0), (5, 9), (9, 5),
+                                 (7, 7)])
+def test_ospa_np_matches_jax(m, n):
+    from phdslam_tpu.ops.ospa import ospa_np as j_ospa
+    from phdslam_tpu_torch.ops.ospa import ospa_np as t_ospa
+    rng = np.random.default_rng(m * 10 + n)
+    x = rng.uniform(-10, 10, (m, 2))
+    y = rng.uniform(-10, 10, (n, 2))
+    for p, c in ((1.0, 5.0), (2.0, 10.0)):
+        np.testing.assert_allclose(t_ospa(x, y, p=p, c=c),
+                                   j_ospa(x, y, p=p, c=c), rtol=0, atol=1e-9)
+
+
+def test_write_particles_mat_matches_jax(tmp_path):
+    """One state (static and dynamic maps, CPHD-free) through both writers
+    with MAP and EAP maps: the two files read back with scipy.io.loadmat
+    hold the same fields."""
+    import jax
+    import jax.numpy as jnp
+    from scipy.io import loadmat
+
+    from phdslam_tpu.filter.state import Gaussian2DMixture as JG2
+    from phdslam_tpu.filter.state import Gaussian4DMixture as JG4
+    from phdslam_tpu.filter.state import SlamState as JState
+    from phdslam_tpu.io import matdump as JM
+    from phdslam_tpu_torch import bridge
+    from phdslam_tpu_torch.filter.state import SlamState as TState
+    from phdslam_tpu_torch.io import matdump as TM
+
+    cfg = TC.load_config("cfg/mixed_synth.cfg").replace(
+        n_particles=4, maxFeatures=6)
+    rng = np.random.default_rng(1)
+    t = TState.create(cfg)
+    rnd = lambda x: torch.as_tensor(rng.normal(size=tuple(x.shape)),
+                                    dtype=torch.float32)
+    t = t.map(rnd).replace(resample_idx=torch.tensor([0, 0, 2, 3],
+                                                     dtype=torch.int32))
+    t.map_static.w[:, ::2] = 0.0
+    t.map_dynamic.w[:, 1::3] = 0.0
+    t.map_static.w.abs_()
+    t.map_dynamic.w.abs_()
+    h = bridge.state_to_numpy(t)
+    jstate = jax.device_get(JState(
+        pose=jnp.asarray(h["pose"]), log_weights=jnp.asarray(
+            h["log_weights"]),
+        map_static=JG2(**{k: jnp.asarray(v)
+                          for k, v in h["map_static"].items()}),
+        map_dynamic=JG4(**{k: jnp.asarray(v)
+                           for k, v in h["map_dynamic"].items()}),
+        resample_idx=jnp.asarray(h["resample_idx"]),
+        variances=jnp.asarray(h["variances"])))
+    view = bridge.host_view(t)
+    np.testing.assert_array_equal(view.map_dynamic.cov,
+                                  np.asarray(jstate.map_dynamic.cov))
+    np.testing.assert_array_equal(view.map_static.cov,
+                                  np.asarray(jstate.map_static.cov))
+    est = dict(max_map_static=(np.ones(2), np.ones((2, 2)),
+                               np.tile(np.eye(2), (2, 1, 1))),
+               exp_map_dynamic=(np.ones(1), np.ones((1, 4)),
+                                np.eye(4)[None]))
+    paths = []
+    for tag, mod, s in (("jax", JM, jstate), ("port", TM, view)):
+        (tmp_path / tag).mkdir()
+        paths.append(mod.write_particles_mat(str(tmp_path / tag), 7, s,
+                                             **est))
+    a, b = (loadmat(p)["particles"][0, 0] for p in paths)
+    assert a.dtype.names == b.dtype.names
+    for name in a.dtype.names:
+        fa, fb = a[name], b[name]
+        if fa.dtype.names:
+            for e, g in zip(fa.ravel(), fb.ravel()):
+                for k in fa.dtype.names:
+                    np.testing.assert_array_equal(g[k], e[k])
+        else:
+            np.testing.assert_array_equal(fb, fa)
+    back = TM.read_particles_mat(paths[1])
+    assert len(back["maps_dynamic"]["weights"]) == 4
+
+
+def test_build_player_matches_jax(tmp_path):
+    """Both players on the same log directory write the same HTML."""
+    from phdslam_tpu.eval.player import build_player as j_player
+    from phdslam_tpu_torch.eval.player import build_player as t_player
+    rng = np.random.default_rng(2)
+    d = tmp_path / "logs"
+    d.mkdir()
+    for t in range(4):
+        f = 5
+        TLG.write_state_estimate_log(
+            str(d), t, rng.normal(size=6).astype(np.float32),
+            rng.uniform(0, 1, f), rng.normal(size=(f, 2)),
+            np.tile(np.eye(2) * 0.3, (f, 1, 1)),
+            particle_log_weights=np.full(6, -np.log(6), np.float32),
+            particle_poses=rng.normal(size=(6, 6)).astype(np.float32),
+            resample_idx=np.arange(6), max_cardinality=7)
+    out = [fn(str(d), str(tmp_path / f"{tag}.html"), stride=s)
+           for s in (1, 2)
+           for tag, fn in ((f"jax{s}", j_player), (f"port{s}", t_player))]
+    pages = [open(p).read() for p in out]
+    assert pages[0] == pages[1] and pages[2] == pages[3]
+    assert pages[0] != pages[2]

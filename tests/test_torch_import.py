@@ -57,7 +57,8 @@ def test_import_without_jax():
         "models.motion", "models.camera", "kernels.select",
         "kernels.select4", "kernels.merge", "kernels.merge4",
         "kernels.merge3", "kernels.esf", "kernels._build",
-        "kernels.sweep")}
+        "kernels.sweep", "kernels.auction", "filter.fastslam", "ops.jcbb",
+        "ops.ospa", "io.matdump", "eval.player")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert out["tf32"] == [False, False]

@@ -82,19 +82,20 @@ def test_runner_log_contract_and_tracking(dataset, tmp_path, mode):
 
 @pytest.mark.parametrize("extra_cfg,extra_args,match", [
     ("filter_type = 1", ("--checkpoint-every", "5"), "item 13"),
-    ("filter_type = 2", (), "item 11"),
-    ("save_prediction = 1", (), "item 8"),
-    ("", ("--mat-export",), "item 8"),
-    ("map_estimate = 3", (), "item 8"),
-    ("", ("--truth", "truth.txt"), "item 8"),
+    ("filter_type = 2", ("--checkpoint-every", "3"), "item 13"),
+    ("save_prediction = 1", ("--resume",), "item 13"),
+    ("", ("--mat-export", "--islands", "2"), "item 14"),
+    ("map_estimate = 3", ("--islands", "4"), "item 14"),
+    ("", ("--truth", "truth.txt", "--resume"), "item 13"),
     ("", ("--islands", "4"), "item 14"),
     ("", ("--resume",), "item 13"),
 ])
 def test_uncovered_branches_raise(dataset, tmp_path, extra_cfg, extra_args,
                                   match):
     """A branch the port does not cover yet raises NotImplementedError
-    naming the ROADMAP item that ports it; nothing else runs in its
-    place."""
+    naming the ROADMAP item that ports it, whatever else the run asks for
+    (FastSLAM, the .mat outputs, the EAP map, --truth); nothing else runs
+    in its place."""
     _, d = dataset
     cfg = tmp_path / "x.cfg"
     cfg.write_text((d / "tiny.cfg").read_text() + "\n" + extra_cfg + "\n")
@@ -103,6 +104,183 @@ def test_uncovered_branches_raise(dataset, tmp_path, extra_cfg, extra_args,
     with pytest.raises(NotImplementedError, match=match):
         runner.main(args)
     assert not (tmp_path / "out" / "loopTime.log").exists()
+
+
+def _logs(out, n):
+    return [read_state_estimate_log(str(out / f"state_estimate{t:05d}.log"))
+            for t in range(n)]
+
+
+def _files(out, prefix):
+    return {p: (out / p).read_bytes() for p in sorted(os.listdir(out))
+            if p.startswith(prefix)}
+
+
+def test_fastslam_runner_loop_and_scan(dataset, tmp_path):
+    """cfg/fastslam_synth.cfg at small widths through both modes: the full
+    log contract, the map line holding the MAP particle's integer
+    counters, and the two modes writing the same logs (the same draws from
+    the same generator)."""
+    sc, d = dataset
+    fs = tmp_path / "fs.cfg"
+    fs.write_text(open("cfg/fastslam_synth.cfg").read() + TINY
+                  + "std_range = 0.25\nclutter_rate = 2.0\n")
+    outs = {}
+    for mode in ("loop", "scan"):
+        out = outs[mode] = tmp_path / mode
+        args = _args(d, out, "--mode", mode, "--seed", "4", "--data-dir",
+                     str(d))
+        args[0] = str(fs)
+        runner.main(args)
+        with open(out / "metrics.jsonl") as f:
+            metrics = [json.loads(line) for line in f]
+        assert [m["t"] for m in metrics] == list(range(T))
+        assert len((out / "loopTime.log").read_text().split()) == T
+        logs = _logs(out, T)
+        w = np.concatenate([lg["static"][:, 0] for lg in logs])
+        assert len(w) and (w == np.round(w)).all() and w.min() >= 1
+        assert max(m["card"] for m in metrics) >= 5
+        errs = np.array([np.linalg.norm(lg["pose"][:2] - sc.traj[t, :2])
+                         for t, lg in enumerate(logs)])
+        assert np.isfinite(errs).all()
+    assert _files(outs["loop"], "state_estimate") == \
+        _files(outs["scan"], "state_estimate")
+
+
+def test_runner_truth_ospa_column(dataset, tmp_path):
+    """--truth adds [ospa, loc, card] to every metrics line, in loop and
+    scan mode alike; each is JAX's _ospa_from_map of that step's logged
+    MAP map (to the log's six digits); the port's _ospa_from_map equals
+    JAX's on the same maps."""
+    from phdslam_tpu import runner as JR
+    sc, d = dataset
+    truth = tmp_path / "truth.txt"
+    np.savetxt(truth, sc.landmarks)
+    rows = {}
+    for mode in ("loop", "scan"):
+        out = tmp_path / mode
+        runner.main(_args(d, out, "--mode", mode, "--seed", "3", "--truth",
+                          str(truth), "--data-dir", str(d)))
+        with open(out / "metrics.jsonl") as f:
+            rows[mode] = [json.loads(line)["ospa"] for line in f]
+    assert rows["loop"] == rows["scan"]
+    tm = JR.load_truth_maps(str(truth))
+    tm_port = runner.load_truth_maps(str(truth))
+    np.testing.assert_array_equal(tm(3), tm_port(3))
+    for t, lg in enumerate(_logs(tmp_path / "loop", T)):
+        w, mx, my = lg["static"][:, 0], lg["static"][:, 1], lg["static"][:, 2]
+        np.testing.assert_allclose(rows["loop"][t],
+                                   JR._ospa_from_map(w, mx, my, tm, t),
+                                   rtol=0, atol=2e-4)
+        np.testing.assert_allclose(runner._ospa_from_map(w, mx, my, tm, t),
+                                   JR._ospa_from_map(w, mx, my, tm, t),
+                                   rtol=0, atol=1e-9)
+    assert rows["loop"][-1][0] < rows["loop"][0][0]
+
+
+def test_runner_eap_map_and_mat_export(dataset, tmp_path):
+    """map_estimate = 3 with --mat-export: every log's map is the EAP map,
+    each particlesXXXXX.mat holds every particle's map with the MAP and EAP
+    estimates, and JAX's eap_map_np of the written particles gives the
+    written EAP map."""
+    from phdslam_tpu.filter.estimate import eap_map_np as j_eap
+
+    from phdslam_tpu_torch.io.matdump import read_particles_mat
+    _, d = dataset
+    cfg = tmp_path / "eap.cfg"
+    cfg.write_text((d / "tiny.cfg").read_text() + "\nmap_estimate = 3\n"
+                   "n_steps = 12\n")
+    out = tmp_path / "out"
+    args = _args(d, out, "--mat-export", "--data-dir", str(d))
+    args[0] = str(cfg)
+    runner.main(args)
+    for t, lg in enumerate(_logs(out, 12)):
+        m = read_particles_mat(str(out / f"particles{t:05d}.mat"))
+        assert m["states"].shape == (6, 8) and m["weights"].shape == (8,)
+        exp = m["exp_map_static"]
+        w_exp = exp["weights"][0]
+        np.testing.assert_allclose(lg["static"][:, 0], w_exp, rtol=1e-5)
+        np.testing.assert_allclose(lg["static"][:, 1:3], exp["means"][0].T,
+                                   rtol=1e-5, atol=1e-5)
+        P = m["states"].shape[1]
+        F = max(len(x) for x in m["maps_static"]["weights"])
+        w = np.zeros((P, F))
+        mean = np.zeros((P, F, 2))
+        cov = np.tile(np.eye(2), (P, F, 1, 1))
+        for p in range(P):
+            n = len(m["maps_static"]["weights"][p])
+            w[p, :n] = m["maps_static"]["weights"][p]
+            mean[p, :n] = m["maps_static"]["means"][p].T
+            cov[p, :n] = np.moveaxis(m["maps_static"]["covs"][p], -1, 0)
+        ref = j_eap(m["weights"], w, mean, cov, 5.0)
+        np.testing.assert_allclose(w_exp, ref[0], rtol=1e-6)
+        np.testing.assert_allclose(exp["means"][0].T, ref[1], rtol=1e-6,
+                                   atol=1e-9)
+        mx = m["max_map_static"]["weights"][0]
+        assert len(mx) == (m["maps_static"]["weights"][
+            int(np.argmax(m["weights"]))] > 0).sum()
+    assert len(w_exp) > 0
+
+
+def test_runner_prediction_outputs_leave_the_run_unchanged(dataset,
+                                                          tmp_path):
+    """save_prediction writes particles_predictXXXXX.mat and --predict-time
+    writes predicttime.log; the run's logs stay byte for byte those of a
+    run without them, and each predicted particle set is the one the step
+    updated (the step's particles are the predicted ones gathered at its
+    resample indices)."""
+    from phdslam_tpu_torch.io.matdump import read_particles_mat
+    _, d = dataset
+    base = (d / "tiny.cfg").read_text() + "\nn_steps = 10\n"
+    (tmp_path / "a.cfg").write_text(base)
+    (tmp_path / "b.cfg").write_text(base + "save_prediction = 1\n")
+    outs = []
+    for name, extra in (("a", ()), ("b", ("--predict-time",))):
+        out = tmp_path / f"out_{name}"
+        args = _args(d, out, "--data-dir", str(d), "--seed", "5", *extra)
+        args[0] = str(tmp_path / f"{name}.cfg")
+        runner.main(args)
+        outs.append(out)
+    assert _files(outs[0], "state_estimate") == \
+        _files(outs[1], "state_estimate")
+    assert len((outs[1] / "predicttime.log").read_text().split()) == 9
+    assert not (outs[0] / "predicttime.log").exists()
+    for t, lg in enumerate(_logs(outs[1], 10)):
+        pred = read_particles_mat(str(outs[1] /
+                                      f"particles_predict{t:05d}.mat"))
+        np.testing.assert_allclose(
+            pred["states"].T[lg["resample_idx"]], lg["poses"], rtol=1e-5,
+            atol=1e-5)
+
+
+def test_runner_step100_fixture_profile_and_player(tmp_path):
+    """A 102-step run writes state100.pkl (numpy: the state before step
+    100 and its measurements); `synth profile` replays it through two
+    steps; --player writes player.html."""
+    import pickle
+    sc = simdata.make_scenario(np.random.default_rng(11), n_landmarks=40,
+                               n_steps=102, clutter_rate=4.0)
+    controls, meas = simdata.generate_run(np.random.default_rng(24), sc,
+                                          control_noise=(0.05, 0.005))
+    assert all(len(z) for z in meas)
+    simdata.write_run_files(str(tmp_path), controls, meas)
+    cfg = tmp_path / "p.cfg"
+    cfg.write_text(open("cfg/ackerman_synth.cfg").read()
+                   + TINY.replace("n_particles = 8", "n_particles = 4"))
+    out = tmp_path / "out"
+    args = [str(cfg), "synth", "--data-dir", str(tmp_path), "--out-dir",
+            str(out), "--device", "cpu", "--player"]
+    runner.main(args)
+    assert (out / "player.html").read_text().startswith("<!DOCTYPE html>")
+    with open(out / "state100.pkl", "rb") as f:
+        d = pickle.load(f)
+    assert d["state"]["pose"].shape == (4, 6)
+    assert d["state"]["map_static"]["w"].shape == (4, 16)
+    assert d["z"]["rb"].shape == (8, 2) and d["z"]["valid"].dtype == bool
+    assert isinstance(d["state"]["log_weights"], np.ndarray)
+    res = runner.main([str(cfg), "synth", "profile", "--out-dir", str(out),
+                       "--device", "cpu"])
+    assert len(res["ms"]) == 2 and min(res["ms"]) > 0
 
 
 def test_schedule_lockstep_and_interleave():
