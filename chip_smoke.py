@@ -49,6 +49,15 @@ code is not 0:
        NaN entries (2000-round budget), each timed beside its plain version
        and its bound (counted on the rounds each launch ran); owners and
        rounds bit for bit; the rounds per particle and budget hits
+     - OSPA auction (the in-loop OSPA's square eps-scaled auction): the
+       padded costs of scripts/ospa_latency.py's 8 random set pairs at n =
+       16, 64 and 256 (p = 1, c = 5; n = 256 reads the cost from device
+       memory), one launch a size, and at n = 64 with 2 rounds a phase
+       (the clean-up): owners and rounds per phase bit for bit against the
+       plain version, timed beside it and its bound (counted on the bids
+       made); then ospa_torch, the entry point, on every pair with its
+       launches counted from 0, within 2e-2 of ospa_np (card term 1e-4),
+       and its time a call
      - past the old limits, each against plain and timed: select and
        select4 (both modes) at 64 x 4096 x 64 (the wide-row kernels), merge
        [64, 7745] -> 256, merge4 [64, 3521] -> 256, merge3 [64, 5052] -> 128
@@ -62,6 +71,11 @@ code is not 0:
      select and merge launched once per update step, mean pose error below
      1.5 m, both kernels against their plain versions on the run's last
      launch, and select's early exits and live slots on that launch
+  3b. resume - the static runner over the first 120 steps of that run with
+     --checkpoint-every 50, then a fresh out-dir holding only
+     ckpt_000050.npz run with --resume (launch counts from 0): steps
+     51-119 byte-identical to the straight run's, select and merge
+     launched once per resumed step
   4. mixed main path - the runner (loop mode, --device cuda) at
      cfg/mixed_synth.cfg's full width (256 particles x 128 static + 128
      dynamic slots x 64 measurements) over the 150-step scenario of
@@ -91,6 +105,15 @@ code is not 0:
      phase 6 at --seed 0 .. 4 (the filter's seed; the data stay): each
      seed's mean error, then their mean and standard deviation; every seed
      below 1.5 m
+  6e. Monte-Carlo envelope - eval/batch.py::run_batch on
+     scripts/round3_evidence.py::phase_variants' setup (cfg/ackerman_synth.cfg
+     at 256 particles, make_scenario(rng(42), 80 landmarks, 200 steps), 20
+     runs at control noise (0.2, 0.01), the map scored every 4 steps) for
+     the PHD arm and the CPHD arm (filter_type 1, max_cardinality 127),
+     launch counts from 0 before each: select, merge and (CPHD) esf once
+     per update step; the late-half mean OSPA within the JAX record's
+     ospa_late_std of its ospa_late_mean (results/round3_evidence.json),
+     the late-half pose error below 1.5 m; run_batch's ms per step
   6c. FastSLAM main path - scripts/fastslam_evidence.py's low-clutter cell
      (cfg/fastslam_synth.cfg at clutter 2, std_range 0.25, start pose 0;
      256 particles x 128 slots x 64 measurements, 150 steps of
@@ -144,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -238,6 +262,24 @@ FS_SHORT_STEPS = 12                 # the runner run with .mat files
 DENSE_FS = dict(P=8192, F=512, M=64)
 FS_WARMUP = 8                       # the dense step's maps start empty
 PROFILE_WARMUP, PROFILED, PROFILE_ROWS = 8, 4, 12
+# the in-loop OSPA: scripts/ospa_latency.py's cases (set sizes, 8 seeds
+# each, p = 1, c = 5), ospa_np within OSPA_TOL (tests/test_ospa.py's
+# large-set bar), and a case of OSPA_BUDGET rounds a phase at n = 64
+OSPA_SIZES, OSPA_SEEDS, OSPA_P, OSPA_C = (16, 64, 256), 8, 1.0, 5.0
+OSPA_TOL, OSPA_CARD_TOL = 2e-2, 1e-4
+OSPA_BUDGET_N, OSPA_BUDGET = 64, 2
+# checkpoint / resume: the static runner over RESUME_STEPS steps of phase
+# 3's run with --checkpoint-every RESUME_EVERY, then --resume from the
+# checkpoint after step RESUME_FROM alone
+RESUME_STEPS, RESUME_EVERY, RESUME_FROM = 120, 50, 50
+# the Monte-Carlo envelope: scripts/round3_evidence.py::phase_variants
+# (cfg/ackerman_synth.cfg at 256 particles, make_scenario(rng(42), 80
+# landmarks, 200 steps), 20 runs at control noise (0.2, 0.01), the map
+# scored every 4 steps) and the JAX package's record of it
+MC_RUNS, MC_STEPS, MC_LANDMARKS, MC_SCENARIO_SEED = 20, 200, 80, 42
+MC_CONTROL_NOISE, MC_EVERY, MC_POSE_BAR_M = (0.2, 0.01), 4, 1.5
+MC_ARMS = (("PHD", {}), ("CPHD", dict(filterType=1, maxCardinality=127)))
+MC_RECORD = "results/round3_evidence.json"
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -278,6 +320,9 @@ KERNELS = (                         # name, source, the TPU kernel replaced
     ("auction", "phdslam_tpu_torch/csrc/auction.cu",
      "phdslam_tpu/filter/fastslam.py:98 (_auction_rows, lax.while_loop; "
      "not a Pallas kernel)"),
+    ("ospa_auction", "phdslam_tpu_torch/csrc/auction.cu",
+     "phdslam_tpu/ops/ospa.py:74 (_auction_assign, lax.while_loop in a "
+     "lax.scan over eps phases; not a Pallas kernel)"),
 )
 
 
@@ -327,7 +372,8 @@ def launch_counts():
     return dict(select=S.launches, select_by_index=S.launches_by_index,
                 select4=S4.launches, select4_by_index=S4.launches_by_index,
                 merge=G.launches, merge4=G4.launches, merge3=G3.launches,
-                esf=E.launches, auction=_auction().launches)
+                esf=E.launches, auction=_auction().launches,
+                ospa_auction=_auction().launches_square)
 
 
 def zero_launch_counts():
@@ -335,7 +381,7 @@ def zero_launch_counts():
     S.launches = S.launches_by_index = 0
     S4.launches = S4.launches_by_index = 0
     G.launches = G4.launches = G3.launches = E.launches = 0
-    _auction().launches = 0
+    _auction().launches = _auction().launches_square = 0
 
 
 def bound(stats, name, n_bytes, n_ops):
@@ -1193,6 +1239,126 @@ def phase_auction(dev, stats):
     log(f"phase auction: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+# ------------------------------------------------ phase 2: OSPA auction --
+
+def ospa_sets(n, seed, dev):
+    """scripts/ospa_latency.py's random set pair at size n: each set half
+    to fully real, points N(0, 8). Returns (numpy x, y, m_x, m_y, and the
+    padded tensors x, x_valid, y, y_valid on dev)."""
+    import torch
+    r = np.random.default_rng(seed)
+    m_x = int(r.integers(n // 2, n + 1))
+    m_y = int(r.integers(n // 2, n + 1))
+    x = r.normal(0, 8, (n, 2)).astype(np.float32)
+    y = r.normal(0, 8, (n, 2)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return x, y, m_x, m_y, (t(x), t(np.arange(n) < m_x), t(y),
+                            t(np.arange(n) < m_y))
+
+
+def square_exact(kern, plain, what):
+    """The square auction kernel's (owner, iters) equal the plain
+    version's bit for bit, every column owned by exactly one row."""
+    import torch
+    n = kern[0].shape[1]
+    perm = (kern[0].sort(1).values
+            == torch.arange(n, device=kern[0].device)).all()
+    if not (torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
+            and bool(perm)):
+        raise RuntimeError(f"square auction ({what}): the kernel's owners or "
+                           "rounds differ from the plain version's, or the "
+                           "owners are not a permutation")
+
+
+def phase_ospa(dev, stats):
+    """The square OSPA auction against its plain version, bit for bit, at
+    each OSPA size on 8 set pairs (one launch, a CTA each) and with
+    OSPA_BUDGET rounds a phase, timed beside its bound; then the entry
+    point ospa_torch on every pair, its launches counted, against
+    ospa_np."""
+    import torch
+    from phdslam_tpu_torch.kernels import _build
+    from phdslam_tpu_torch.ops import ospa as O
+    from phdslam_tpu_torch.ops.ospa import ospa_np
+    A = _auction()
+    t0 = time.perf_counter()
+    _new_stats(stats, "ospa_auction")
+    lib, _ = _build.library()
+    eps = O.eps_schedule(dev)
+    K = eps.shape[0]
+    pairs = {n: [ospa_sets(n, s, dev) for s in range(OSPA_SEEDS)]
+             for n in OSPA_SIZES}
+    for n in OSPA_SIZES:
+        cost = torch.stack([O.padded_cost(*pr[4], OSPA_P, OSPA_C)[1]
+                            for pr in pairs[n]]).contiguous()
+        budget = O._BIDS_PER_N * n
+        kern = A.auction_square_cuda(cost, eps, budget)
+        owner_p, iters_p, bids = A.square_plain_with_bids(cost, eps, budget)
+        square_exact(kern, (owner_p, iters_p), f"n = {n}")
+        bit_identical(lambda: A.auction_square_cuda(cost, eps, budget),
+                      f"square auction [{OSPA_SEEDS}, {n}, {n}]")
+        case = dict(ms=cuda_ms(lambda: A.auction_square_cuda(cost, eps,
+                                                              budget), 10),
+                    plain_ms=cuda_ms(lambda: A.auction_square_plain(
+                        cost, eps, budget), 1),
+                    library_ms=None)
+        one = {"ospa_auction": case}
+        B = cost.shape[0]
+        # the cost read once, the owners and rounds written; AUCTION_OPS
+        # per column scanned by each bid the rows made
+        bound(one, "ospa_auction", 4 * (B * n * n + K + B * n + B * K),
+              int(bids.sum()) * n * AUCTION_OPS)
+        it = kern[1].float()
+        log(f"square auction [{B}, {n}, {n}] (path "
+            f"{lib.phd_auction_square_path(n)}: 2 the cost in shared memory)"
+            f": bit-identical to plain; rounds per phase mean "
+            + ", ".join(f"{v:.1f}" for v in it.mean(0).tolist())
+            + f", max {int(kern[1].max())} (budget {budget}); bids "
+            f"{int(bids.sum()) / B:.0f} a problem; {case['ms']:.4f} ms "
+            f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.3e}"
+            f" ms by {case['bound_by']})")
+        if n == max(OSPA_SIZES):    # the largest size goes to the JSON
+            stats["ospa_auction"].update(case)
+    n = OSPA_BUDGET_N
+    cost = torch.stack([
+        O.padded_cost(*ospa_sets(n, s, dev)[4], OSPA_P, OSPA_C)[1]
+        for s in range(OSPA_SEEDS)]).contiguous()
+    kern = A.auction_square_cuda(cost, eps, OSPA_BUDGET)
+    square_exact(kern, A.auction_square_plain(cost, eps, OSPA_BUDGET),
+                 f"n = {n}, {OSPA_BUDGET} rounds a phase")
+    if int(kern[1][:, -1].min()) != OSPA_BUDGET:
+        raise RuntimeError("square auction: the budget case did not stop at "
+                           "the budget")
+    log(f"square auction [{OSPA_SEEDS}, {n}, {n}] at {OSPA_BUDGET} rounds a "
+        "phase: bit-identical to plain (the clean-up pairs the rows left)")
+
+    # the entry point, counts from 0: one launch per ospa_torch call
+    zero_launch_counts()
+    out = {n: [O.ospa_torch(*pr[4], p=OSPA_P, c=OSPA_C) for pr in pairs[n]]
+           for n in OSPA_SIZES}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches(launches, dict(
+        ospa_auction=len(OSPA_SIZES) * OSPA_SEEDS, auction=0, select=0,
+        merge=0), "ospa_torch")
+    stats["ospa_auction"]["launches"] = launches["ospa_auction"]
+    for n in OSPA_SIZES:
+        gaps, card_gaps = [], []
+        for pr, got in zip(pairs[n], out[n]):
+            x, y, m_x, m_y, _ = pr
+            ne, _, nc = ospa_np(x[:m_x], y[:m_y], p=OSPA_P, c=OSPA_C)
+            gaps.append(abs(float(got[0]) - ne))
+            card_gaps.append(abs(float(got[2]) - nc))
+        args = pairs[n][0][4]
+        ms = cuda_ms(lambda: O.ospa_torch(*args, p=OSPA_P, c=OSPA_C), 10)
+        log(f"ospa_torch n = {n}: |ospa - ospa_np| max {max(gaps):.2e} "
+            f"(bar {OSPA_TOL}), card max {max(card_gaps):.2e}; {ms:.4f} ms "
+            f"a call (CUDA events, seed 0)")
+        if max(gaps) >= OSPA_TOL or max(card_gaps) >= OSPA_CARD_TOL:
+            raise RuntimeError(f"ospa_torch n = {n}: off ospa_np")
+    log(f"phase ospa: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ------------------------------------------- phase 2: past the old limits --
 
 def phase_wide(dev, stats):
@@ -1428,11 +1594,12 @@ def run_cli(args, tm):
     return launch_counts(), time.perf_counter() - t_run
 
 
-def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0, extra=()):
+def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0, extra=(), out=None):
     """The synth runner in loop mode on the run files in d, with the extra
-    arguments; returns (launch counts, run seconds, out dir)."""
+    arguments, into out (default: a new out<N> in d); returns (launch
+    counts, run seconds, out dir)."""
     Path(d, "run.cfg").write_text(cfg_text + steps_cfg)
-    out = Path(d, f"out{len(list(Path(d).glob('out*')))}")
+    out = out or Path(d, f"out{len(list(Path(d).glob('out*')))}")
     args = [str(Path(d, "run.cfg")), "synth", "--measurements",
             str(Path(d, "measurements.txt")), "--controls",
             str(Path(d, "controls.txt")), "--data-dir", str(d),
@@ -1520,6 +1687,57 @@ def phase_main_path(dev, stats):
         stats[k]["launches"] = launches[k]
     stats["shipped_ms_per_step"] = float(loop_ms.mean())
     log(f"phase main path: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------------ phase 3b: resume --
+
+def phase_resume(dev, stats):
+    """The static runner over RESUME_STEPS steps of phase 3's run with
+    --checkpoint-every RESUME_EVERY, then, counts from 0, a fresh out-dir
+    holding only the checkpoint after step RESUME_FROM run with --resume:
+    every later step's log byte-identical to the straight run's, select
+    and merge launched once per resumed update step."""
+    t0 = time.perf_counter()
+    cfg_text = (ROOT / "cfg/ackerman_synth.cfg").read_text()
+    with tempfile.TemporaryDirectory() as d:
+        sc, _, start = static_run_files(d)
+        steps_cfg = start + f"n_steps = {RESUME_STEPS}\n"
+        _, run_s, straight = run_runner(
+            d, cfg_text, steps_cfg, dev, {},
+            extra=("--checkpoint-every", str(RESUME_EVERY)))
+        ckpts = sorted(p.name for p in (straight / "checkpoints").iterdir())
+        expect = [f"ckpt_{t:06d}.npz"
+                  for t in range(RESUME_EVERY, RESUME_STEPS, RESUME_EVERY)]
+        if ckpts != expect[-3:]:
+            raise RuntimeError(f"resume: checkpoints {ckpts}, expected "
+                               f"{expect[-3:]}")
+        out = Path(d, "resumed")
+        (out / "checkpoints").mkdir(parents=True)
+        name = f"ckpt_{RESUME_FROM:06d}.npz"
+        (out / "checkpoints" / name).write_bytes(
+            (straight / "checkpoints" / name).read_bytes())
+        launches, res_s, _ = run_runner(d, cfg_text, steps_cfg, dev, {},
+                                        extra=("--resume",), out=out)
+        steps = range(RESUME_FROM + 1, RESUME_STEPS)
+        differ = [t for t in steps
+                  if (out / f"state_estimate{t:05d}.log").read_bytes()
+                  != (straight / f"state_estimate{t:05d}.log").read_bytes()]
+        n_logs = len(list(out.glob("state_estimate*.log")))
+        size = (straight / "checkpoints" / ckpts[-1]).stat().st_size
+    log(f"resume: straight run {RESUME_STEPS} steps ({run_s:.1f} s), "
+        f"checkpoints {ckpts} (the last {size} bytes); resumed "
+        f"from {name}: {n_logs} logs, launches {launches} ({res_s:.1f} s); "
+        f"steps {steps[0]}-{steps[-1]} differing from the straight run: "
+        f"{differ[:5]}{' ...' if len(differ) > 5 else ''} "
+        f"({len(differ)} of {len(steps)})")
+    if differ or n_logs != len(steps):
+        raise RuntimeError("resume: the resumed run's logs are not the "
+                           "straight run's")
+    # every step of this run has measurements, so every step updates
+    check_launches(launches, dict(select=len(steps), merge=len(steps),
+                                  esf=0, auction=0, ospa_auction=0),
+                   "resumed static run")
+    log(f"phase resume: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------- phase 4: mixed main path --
@@ -1768,6 +1986,72 @@ def phase_seed_envelopes(dev, stats):
             raise RuntimeError(f"seed envelope: a {name} error is not below "
                                f"{bar} m")
     log(f"phase seed envelopes: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------- phase 6e: Monte-Carlo envelope --
+
+def phase_mc_envelope(dev, stats):
+    """run_batch, the Monte-Carlo harness, on scripts/round3_evidence.py's
+    variant setup for the PHD and the CPHD arm, counts from 0 before each:
+    select, merge and (CPHD) esf launched once per update step of the
+    runs; each arm's late-half mean OSPA within the JAX record's
+    ospa_late_std of its ospa_late_mean, its late-half mean pose error
+    below MC_POSE_BAR_M."""
+    from phdslam_tpu_torch import load_config, simdata
+    from phdslam_tpu_torch.eval import batch as B
+    t0 = time.perf_counter()
+    record = json.loads((ROOT / MC_RECORD).read_text())["variants"]
+    base = load_config(str(ROOT / "cfg/ackerman_synth.cfg")).replace(
+        n_particles=256)
+    sc = simdata.make_scenario(np.random.default_rng(MC_SCENARIO_SEED),
+                               n_landmarks=MC_LANDMARKS, n_steps=MC_STEPS)
+    t_len = sc.traj.shape[0]
+    half = t_len // 2
+    # the update steps: those with a measurement, over every run
+    n_update = sum(int(B._prepare_run(base, sc, r, 0, MC_CONTROL_NOISE,
+                                      t_len)[3].any(1).sum())
+                   for r in range(MC_RUNS))
+    for arm, over in MC_ARMS:
+        cfg = base.replace(**over)
+        zero_launch_counts()
+        t_run = time.perf_counter()
+        res = B.run_batch(cfg, sc, MC_RUNS, control_noise=MC_CONTROL_NOISE,
+                          collect_maps_every=MC_EVERY, device=dev)
+        launches = launch_counts()
+        run_s = time.perf_counter() - t_run
+        with warnings.catch_warnings():     # steps no run scored: NaN
+            warnings.simplefilter("ignore", RuntimeWarning)
+            agg = B.aggregate(res)
+        ospa_late = float(np.nanmean(agg["ospa_mean"][half:]))
+        ospa_late_std = float(np.nanmean(agg["ospa_std"][half:]))
+        pose_late = float(agg["pose_err_mean"][half:].mean())
+        ms = np.array([r.ms_per_step for r in res])
+        ref = record[arm]
+        log(f"Monte-Carlo {arm}: {MC_RUNS} runs x {t_len} steps, launches "
+            f"{launches} (update steps {n_update}); late-half OSPA "
+            f"{ospa_late:.4f} (std over runs {ospa_late_std:.4f}; JAX record "
+            f"{ref['ospa_late_mean']:.4f} +- {ref['ospa_late_std']:.4f}), "
+            f"late-half pose error {pose_late:.4f} m (JAX "
+            f"{ref['pose_late_mean']:.4f}), card error late "
+            f"{float(agg['card_err_mean'][half:].mean()):.3f} (JAX "
+            f"{ref['card_err_late_mean']:.3f}); run_batch {ms.mean():.3f} "
+            f"ms/step (runs {ms.min():.3f}-{ms.max():.3f}), {run_s:.1f} s")
+        check_launches(launches, dict(
+            select=n_update, merge=n_update,
+            esf=n_update if over.get("filterType") == 1 else 0,
+            select_by_index=0, select4=0, select4_by_index=0, merge4=0,
+            merge3=0, auction=0, ospa_auction=0), f"Monte-Carlo {arm}")
+        if not abs(ospa_late - ref["ospa_late_mean"]) <= ref["ospa_late_std"]:
+            raise RuntimeError(
+                f"Monte-Carlo {arm}: late-half OSPA {ospa_late:.4f} is not "
+                f"within {ref['ospa_late_std']:.4f} of JAX's "
+                f"{ref['ospa_late_mean']:.4f}")
+        if not pose_late < MC_POSE_BAR_M:
+            raise RuntimeError(f"Monte-Carlo {arm}: late-half pose error "
+                               f"{pose_late:.4f} m is not below "
+                               f"{MC_POSE_BAR_M} m")
+        stats[f"mc_{arm.lower()}_ms_per_step"] = float(ms.mean())
+    log(f"phase Monte-Carlo envelope: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------- phase 6c: FastSLAM main path --
@@ -2281,12 +2565,15 @@ def main(argv=None):
     phase_merge3(dev, stats)
     phase_esf(dev, stats)
     phase_auction(dev, stats)
+    phase_ospa(dev, stats)
     phase_wide(dev, stats)
     phase_main_path(dev, stats)
+    phase_resume(dev, stats)
     phase_mixed_main_path(dev, stats)
     phase_disparity_main_path(dev, stats)
     phase_cphd_main_path(dev, stats)
     phase_seed_envelopes(dev, stats)
+    phase_mc_envelope(dev, stats)
     phase_fastslam_main_path(dev, stats)
     phase_fastslam_runner(dev, stats)
     phase_dense(dev, stats, gpu)

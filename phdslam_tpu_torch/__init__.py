@@ -7,15 +7,16 @@ as the reference. Module names mirror the JAX package. The Pallas kernels
 become ``kernels/select.py`` (``csrc/select.cu``, with its by-index mode),
 ``kernels/select4.py`` (``csrc/select4.cu``, with its by-index mode),
 ``kernels/merge.py``, ``merge4.py``, ``merge3.py`` (``csrc/merge*.cu``) and
-``kernels/esf.py`` (``csrc/esf.cu``); FastSLAM's association loop, which
-JAX leaves to XLA, becomes ``kernels/auction.py`` (``csrc/auction.cu``).
-Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs its
-plain PyTorch version on a CPU tensor.
+``kernels/esf.py`` (``csrc/esf.cu``); FastSLAM's association loop and the
+in-loop OSPA's eps-scaled auction, which JAX leaves to XLA, become
+``kernels/auction.py`` (``csrc/auction.cu``). Each kernel wrapper launches
+its CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a
+CPU tensor.
 
 This package never imports JAX, flax or ``phdslam_tpu``: the host-only
 modules it needs (``config.py``, ``simdata.py``, ``io/``, ``ops/jcbb.py``,
-``eval/player.py``, the NumPy EAP and OSPA functions) are its own copies of
-the JAX package's.
+``eval/player.py``, ``eval/plots.py``, the batch harness's analysis, the
+NumPy EAP and OSPA functions) are its own copies of the JAX package's.
 """
 
 import torch as _torch

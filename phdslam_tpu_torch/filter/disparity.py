@@ -377,12 +377,13 @@ def run_disparity(cfg, args) -> dict:
     """The disparity runner: per step the expected camera pose and a
     state_estimate log (pose line the 12-DOF camera state, map line the MAP
     particle's world-frame Gaussians, stride 13), loopTime.log and
-    metrics.jsonl; a NaN neff stops the run."""
+    metrics.jsonl; a NaN neff stops the run. In loop mode
+    ``--checkpoint-every`` and ``--resume`` work as in the synth runner:
+    the generator is restored after the initial jitter draw, so a resumed
+    run draws what the straight run drew."""
+    from phdslam_tpu_torch import checkpoint
     from phdslam_tpu_torch.io import loaders, logs
 
-    if args.resume or args.checkpoint_every:
-        raise NotImplementedError(
-            "checkpoint / resume is ROADMAP Queue 1 item 13")
     device = torch.device(args.device)
     data_dir = args.data_dir or cfg.dataDirectory
     meas_path = args.measurements or os.path.join(data_dir,
@@ -444,7 +445,12 @@ def run_disparity(cfg, args) -> dict:
         return dict(state=final, poses=poses[:t_valid], ms_per_step=ms_step)
 
     poses_out = []
-    for t in range(n_steps):
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    start_t = 0
+    if args.resume:
+        state, start_t = checkpoint.resume(ckpt_dir, device, generator,
+                                           state)
+    for t in range(start_t, n_steps):
         t0 = time.perf_counter()
         state, aux = disparity_step(state, zs[t], dt, t > 0, cfg,
                                     generator=generator)
@@ -464,6 +470,8 @@ def run_disparity(cfg, args) -> dict:
         logs.append_metrics_jsonl(out_dir, dict(
             t=t, ms=elapsed_ms, neff=neff_val, n_measure=zs[t].count,
             card=float(mw.sum())))
+        if args.checkpoint_every and t > 0 and t % args.checkpoint_every == 0:
+            checkpoint.save_checkpoint(ckpt_dir, t, state, generator)
         if np.isnan(neff_val):
             print("nan weights detected! exiting...")
             break

@@ -66,6 +66,9 @@ SIGNATURES = {
     "phd_auction_wide_floats": [_I, _I, _I],
     "phd_auction_path": [_I, _I],
     "phd_auction_ctas_per_sm": [_I, _I, _P],
+    "phd_auction_square_launch": [_P] * 4 + [_I] * 4 + [_P, _P],
+    "phd_auction_square_wide_floats": [_I, _I],
+    "phd_auction_square_path": [_I],
     "phd_error_string": [_I],
 }
 # every other function returns an int
@@ -75,6 +78,7 @@ RESTYPES = {"phd_error_string": ctypes.c_char_p,
             "phd_merge4_wide_floats": ctypes.c_longlong,
             "phd_merge3_wide_floats": ctypes.c_longlong,
             "phd_auction_wide_floats": ctypes.c_longlong,
+            "phd_auction_square_wide_floats": ctypes.c_longlong,
             "phd_esf_log1p_mismatches": ctypes.c_longlong}
 
 

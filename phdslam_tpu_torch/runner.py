@@ -3,9 +3,11 @@
     python -m phdslam_tpu_torch.runner <config.cfg> synth [profile] \\
         --measurements M.txt --controls C.txt --out-dir OUT \\
         [--mode loop|scan] [--device cuda|cpu] [--seed N] [--truth T] \\
-        [--mat-export] [--predict-time] [--player]
+        [--mat-export] [--predict-time] [--player] \\
+        [--checkpoint-every K] [--resume]
     python -m phdslam_tpu_torch.runner <config.cfg> disparity \\
-        [--data-dir D] --out-dir OUT [--mode loop|scan] [--device cuda|cpu]
+        [--data-dir D] --out-dir OUT [--mode loop|scan] [--device cuda|cpu] \\
+        [--checkpoint-every K] [--resume]
 
 It runs on the GPU (``--device cuda``, the default) and raises when CUDA is
 missing; ``--device cpu`` runs the kernels' plain versions on the CPU.
@@ -36,6 +38,16 @@ step 100 (a dict of numpy arrays: ``state`` as ``bridge.state_to_numpy``
 writes it and ``z`` with ``rb``, ``label`` and ``valid``), which ``synth
 profile`` replays. ``--truth`` adds an ``ospa`` column to ``metrics.jsonl``
 in both modes; ``--player`` writes ``player.html`` after the run.
+
+Checkpoints (loop mode, as in the JAX runner; scan mode ignores both
+flags): ``--checkpoint-every K`` writes ``OUT/checkpoints/ckpt_<t>.npz``
+after step t when t > 0 and t % K == 0 (the state and the generator's
+state, ``checkpoint.py``; the last three kept). ``--resume`` restores the
+latest one and runs from the step after it with the restored generator, so
+the resumed steps draw what a straight run draws; their logs are appended
+to those in OUT. As in JAX, the first resumed step has no previous
+measurements (``z_prev`` is not restored): a CPHD run skips that step's
+births and an informed mixed run its birth velocities.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from phdslam_tpu_torch import checkpoint
 from phdslam_tpu_torch.bridge import (host_view, state_from_numpy,
                                       state_to_numpy, unpack_cov_channels)
 from phdslam_tpu_torch.config import CPHD_TYPE, load_config
@@ -105,9 +118,6 @@ def check_run_supported(cfg, args):
     if args.islands:
         raise NotImplementedError(
             "--islands is ROADMAP Queue 1 item 14 (sharding)")
-    if args.resume or args.checkpoint_every:
-        raise NotImplementedError(
-            "checkpoint / resume is ROADMAP Queue 1 item 13")
 
 
 def load_truth_maps(path):
@@ -307,7 +317,14 @@ def run_synth(cfg, args) -> dict:
     poses_out = []
     z_prev = None
     n_predicted = cfg.n_particles * max(int(cfg.nPredictParticles), 1)
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    start_t = 0
+    if args.resume:
+        state, start_t = checkpoint.resume(ckpt_dir, device, generator,
+                                           state)
     for t, (ctrl, z, dt, do_predict) in enumerate(steps):
+        if t < start_t:
+            continue
         if traj is not None and t < len(traj):
             state = state.replace(pose=torch.as_tensor(
                 traj[t], device=device).expand_as(state.pose).clone())
@@ -363,6 +380,8 @@ def run_synth(cfg, args) -> dict:
         if mat:
             write_particles_mat(out_dir, t, view, **est)
         poses_out.append(exp_pose)
+        if args.checkpoint_every and t > 0 and t % args.checkpoint_every == 0:
+            checkpoint.save_checkpoint(ckpt_dir, t, state, generator)
         if np.isnan(neff_val):
             print("nan weights detected! exiting...")
             break
@@ -430,12 +449,15 @@ def build_parser():
     ap.add_argument("--player", action="store_true",
                     help="after the run, bundle the out-dir's logs into "
                          "out-dir/player.html (eval/player.py)")
-    ap.add_argument("--verbose", action="store_true")
-    # surfaces of phdslam_tpu.runner the port does not have yet
-    ap.add_argument("--islands", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help=argparse.SUPPRESS)
+                    help="write out-dir/checkpoints/ckpt_<t>.npz after every "
+                         "step t > 0 with t %% K == 0 (loop mode)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in "
+                         "out-dir/checkpoints (loop mode)")
+    ap.add_argument("--verbose", action="store_true")
+    # a surface of phdslam_tpu.runner the port does not have yet
+    ap.add_argument("--islands", type=int, default=0, help=argparse.SUPPRESS)
     return ap
 
 

@@ -1065,3 +1065,94 @@ def test_fastslam_slam_step_cuda_matches_cpu(dev, assoc):
                                    getattr(cpu.map_static, name),
                                    rtol=2e-4, atol=1e-4)
     assert float(cpu.map_static.w.max()) >= 3.0
+
+
+# ----------------------------------------------------- square auction --
+
+def _square_costs(B, n, seed, dev):
+    """OSPA's padded costs for B random set pairs (scripts/ospa_latency.py's
+    draws: each set half to fully real, points N(0, 8), p = 1, c = 5),
+    built as ospa_torch builds them, on the card: [B, n, n]."""
+    from phdslam_tpu_torch.ops import ospa as O
+    costs = []
+    for b in range(B):
+        r = np.random.default_rng(seed + b)
+        m_x = int(r.integers(n // 2, n + 1))
+        m_y = int(r.integers(n // 2, n + 1))
+        x = torch.as_tensor(r.normal(0, 8, (n, 2)), dtype=torch.float32,
+                            device=dev)
+        y = torch.as_tensor(r.normal(0, 8, (n, 2)), dtype=torch.float32,
+                            device=dev)
+        ar = torch.arange(n, device=dev)
+        costs.append(O.padded_cost(x, ar < m_x, y, ar < m_y, 1.0, 5.0)[1])
+    return torch.stack(costs).contiguous()
+
+
+def _assert_square_equal(cost, budget):
+    from phdslam_tpu_torch.kernels import auction as A
+    from phdslam_tpu_torch.ops import ospa as O
+    eps = O.eps_schedule(cost.device)
+    owner, iters = A.auction_square_cuda(cost, eps, budget)
+    owner_p, iters_p = A.auction_square_plain(cost, eps, budget)
+    assert torch.equal(owner, owner_p)
+    assert torch.equal(iters, iters_p)
+    n = cost.shape[1]
+    assert (owner.sort(1).values == torch.arange(n, device=cost.device)).all()
+    return owner, iters
+
+
+@pytest.mark.parametrize("B,n", [(8, 16), (8, 64), (8, 256), (3, 1),
+                                 (5, 2), (4, 37), (2, 230)])
+def test_square_auction_kernel_matches_plain(dev, B, n):
+    """Owners and the rounds of each phase bit for bit, at the default
+    budget of 16 n a phase; n = 256 takes the device-memory path (the cost
+    is 256 KiB, past a CTA's shared memory)."""
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    assert lib.phd_auction_square_path(n) == (1 if n == 256 else 2)
+    owner, iters = _assert_square_equal(_square_costs(B, n, 7 * n, dev),
+                                        16 * n)
+    assert int(iters.min()) >= 1 and int(iters.max()) < 16 * n
+
+
+def test_square_auction_kernel_budget(dev):
+    """Two rounds a phase: the phases stop at the budget and the clean-up
+    pairs the rows left with the free columns in index order, as in the
+    plain version."""
+    _, iters = _assert_square_equal(_square_costs(8, 64, 3, dev), 2)
+    assert int(iters[:, -1].min()) == 2
+
+
+def test_square_auction_kernel_each_side_of_the_shared_memory_edge(dev):
+    """The cost staged in shared memory at the largest n that fits, read
+    from device memory one past it."""
+    from phdslam_tpu_torch.kernels import _build
+    lib, _ = _build.library()
+    n = 1
+    while lib.phd_auction_square_path(n + 1) == 2:
+        n += 1
+    assert lib.phd_auction_square_path(n + 1) == 1
+    for m in (n, n + 1):
+        _assert_square_equal(_square_costs(2, m, m, dev), 16 * m)
+
+
+def test_ospa_torch_cuda_matches_cpu(dev):
+    """ospa_torch on the card: 0-d tensors on the card, within
+    tests/test_ospa.py's large-set tolerance of the same call on the CPU
+    (the two may round a distance apart, and then stop at another
+    eps-optimal assignment; the cardinality term to 1e-4), and the launch
+    counted once a call."""
+    from phdslam_tpu_torch.kernels import auction as A
+    from phdslam_tpu_torch.ops import ospa as O
+    r = np.random.default_rng(12)
+    x = r.normal(0, 8, (64, 2)).astype(np.float32)
+    y = r.normal(0, 8, (64, 2)).astype(np.float32)
+    xv, yv = np.arange(64) < 50, np.arange(64) < 61
+    args = lambda d: [torch.as_tensor(a, device=d) for a in (x, xv, y, yv)]
+    before = A.launches_square
+    got = O.ospa_torch(*args(dev), p=1.0, c=5.0)
+    assert A.launches_square == before + 1
+    ref = O.ospa_torch(*args("cpu"), p=1.0, c=5.0)
+    for g, e, tol in zip(got, ref, (2e-2, 2e-2, 1e-4)):
+        assert g.device.type == "cuda" and g.shape == ()
+        assert abs(float(g) - float(e)) < tol

@@ -19,6 +19,9 @@ d ~ 100-300, and the merge moments round differently: one pass centred on
 the pick against JAX's mean first); resample indices exactly.
 """
 
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,11 +231,40 @@ def test_runner_loop_and_scan_agree(dataset, tmp_path):
     assert log["static"].shape[0] > 0
 
 
-@pytest.mark.parametrize("extra", [("--resume",), ("--checkpoint-every",
-                                                   "5")])
-def test_runner_refuses_checkpoints(dataset, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="item 13"):
+@pytest.mark.parametrize("case", ["fresh_dir", "own_dir"])
+def test_runner_checkpoint_resume(dataset, tmp_path, case):
+    """--checkpoint-every 3 writes checkpoints after steps 3, 6 and 9 (all
+    three kept). --resume continues from the latest checkpoint of the
+    out-dir with the generator as it stood after that step (restored after
+    the initial jitter draw): in a fresh out-dir holding only the step-6
+    checkpoint it writes steps 7-11 byte for byte as the straight run did;
+    in the straight run's own out-dir it picks the step-9 checkpoint and
+    writes steps 10-11 again, the same bytes, appending their metrics."""
+    def run(out, *extra):
         runner.main([str(dataset / "tiny.cfg"), "disparity", "--data-dir",
-                     str(dataset), "--out-dir", str(tmp_path / "out"),
-                     "--device", "cpu", *extra])
-    assert not (tmp_path / "out" / "loopTime.log").exists()
+                     str(dataset), "--out-dir", str(out), "--device", "cpu",
+                     "--seed", "2", *extra])
+
+    straight = tmp_path / "straight"
+    run(straight, "--checkpoint-every", "3")
+    assert sorted(os.listdir(straight / "checkpoints")) == [
+        f"ckpt_{t:06d}.npz" for t in (3, 6, 9)]
+    logs = {t: (straight / f"state_estimate{t:05d}.log").read_bytes()
+            for t in range(T_RUN)}
+    if case == "fresh_dir":
+        out = tmp_path / "resumed"
+        (out / "checkpoints").mkdir(parents=True)
+        (out / "checkpoints" / "ckpt_000006.npz").write_bytes(
+            (straight / "checkpoints" / "ckpt_000006.npz").read_bytes())
+        first = 7
+    else:
+        out, first = straight, 10
+    run(out, "--resume")
+    for t in range(first, T_RUN):
+        assert (out / f"state_estimate{t:05d}.log").read_bytes() == logs[t]
+    rows = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    before = T_RUN if case == "own_dir" else 0
+    assert [r["t"] for r in rows[before:]] == list(range(first, T_RUN))
+    if case == "fresh_dir":
+        assert not (out / "state_estimate00006.log").exists()

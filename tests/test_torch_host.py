@@ -2,7 +2,7 @@
 ``simdata.py``, ``io/loaders.py``, ``io/logs.py``, ``ops/jcbb.py``,
 ``io/matdump.py``, ``ops/gm.py::reduce_mixture_np``,
 ``filter/estimate.py::eap_map_np``, ``ops/ospa.py::ospa_np``,
-``eval/player.py::build_player``) against the originals: the same cfg
+``eval/player.py::build_player``, ``eval/plots.py``) against the originals: the same cfg
 fields, the same arrays from one seed, the same parsed files, the same log
 bytes, the same associations, maps, metrics, .mat fields and HTML. Exact
 comparisons where the copies run the same numpy code; the EAP map to rtol
@@ -326,3 +326,21 @@ def test_build_player_matches_jax(tmp_path):
     pages = [open(p).read() for p in out]
     assert pages[0] == pages[1] and pages[2] == pages[3]
     assert pages[0] != pages[2]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_plots_ellipse_points_match_jax(seed):
+    """eval/plots.py's copy: the same 3-sigma ellipse polylines (the
+    drawing functions import matplotlib, which the GPU machine lacks; the
+    geometry under them is plain numpy)."""
+    from phdslam_tpu.eval import plots as JP
+    from phdslam_tpu_torch.eval import plots as TP
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(2, 2))
+    cov = a @ a.T + (0 if seed == 2 else 0.1) * np.eye(2)   # 2: singular-ish
+    mean = rng.normal(0, 5, 2)
+    for kw in ({}, dict(n_sigma=2.0, n_pts=7)):
+        ref = JP._ellipse_points(mean, cov, **kw)
+        got = TP._ellipse_points(mean, cov, **kw)
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(g, r)

@@ -58,7 +58,8 @@ def test_import_without_jax():
         "kernels.select4", "kernels.merge", "kernels.merge4",
         "kernels.merge3", "kernels.esf", "kernels._build",
         "kernels.sweep", "kernels.auction", "filter.fastslam", "ops.jcbb",
-        "ops.ospa", "io.matdump", "eval.player")}
+        "ops.ospa", "io.matdump", "eval.player", "checkpoint", "eval.batch",
+        "eval.plots")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert out["tf32"] == [False, False]

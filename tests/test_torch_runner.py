@@ -81,21 +81,15 @@ def test_runner_log_contract_and_tracking(dataset, tmp_path, mode):
 
 
 @pytest.mark.parametrize("extra_cfg,extra_args,match", [
-    ("filter_type = 1", ("--checkpoint-every", "5"), "item 13"),
-    ("filter_type = 2", ("--checkpoint-every", "3"), "item 13"),
-    ("save_prediction = 1", ("--resume",), "item 13"),
     ("", ("--mat-export", "--islands", "2"), "item 14"),
     ("map_estimate = 3", ("--islands", "4"), "item 14"),
-    ("", ("--truth", "truth.txt", "--resume"), "item 13"),
     ("", ("--islands", "4"), "item 14"),
-    ("", ("--resume",), "item 13"),
 ])
 def test_uncovered_branches_raise(dataset, tmp_path, extra_cfg, extra_args,
                                   match):
     """A branch the port does not cover yet raises NotImplementedError
     naming the ROADMAP item that ports it, whatever else the run asks for
-    (FastSLAM, the .mat outputs, the EAP map, --truth); nothing else runs
-    in its place."""
+    (the .mat outputs, the EAP map); nothing else runs in its place."""
     _, d = dataset
     cfg = tmp_path / "x.cfg"
     cfg.write_text((d / "tiny.cfg").read_text() + "\n" + extra_cfg + "\n")
@@ -104,6 +98,100 @@ def test_uncovered_branches_raise(dataset, tmp_path, extra_cfg, extra_args,
     with pytest.raises(NotImplementedError, match=match):
         runner.main(args)
     assert not (tmp_path / "out" / "loopTime.log").exists()
+
+
+RESUME_T, RESUME_EVERY, RESUME_FROM = 20, 5, 10
+
+
+@pytest.mark.parametrize("base,extra_cfg,extra_args", [
+    pytest.param("cfg/ackerman_synth.cfg", "", (), id="static"),
+    pytest.param("cfg/fastslam_synth.cfg",
+                 "std_range = 0.25\nclutter_rate = 2.0", (), id="fastslam"),
+    pytest.param("cfg/ackerman_synth.cfg", "save_prediction = 1", (),
+                 id="save_prediction"),
+    pytest.param("cfg/ackerman_synth.cfg", "", ("--truth", "truth.txt"),
+                 id="truth"),
+    pytest.param("cfg/ackerman_synth.cfg", "filter_type = 1", (),
+                 id="cphd_z_prev"),
+])
+def test_checkpoint_resume(dataset, tmp_path, monkeypatch, base, extra_cfg,
+                           extra_args):
+    """--checkpoint-every K writes checkpoints/ckpt_<t>.npz after the steps
+    t > 0 with t % K == 0 (the last three kept); a fresh out-dir holding
+    only the step-10 checkpoint, run with --resume, writes the steps after
+    it: the same state_estimate logs, byte for byte, as the straight run,
+    and the same .mat prediction files and ospa columns. JAX's runner does
+    not restore the previous step's measurements, and neither does the
+    port: the first resumed step runs with z_prev None, which under CPHD
+    skips that step's births (so only the static-map cases are compared
+    byte for byte)."""
+    from phdslam_tpu_torch.io.matdump import read_particles_mat
+    sc, d = dataset
+    np.savetxt(tmp_path / "truth.txt", sc.landmarks)
+    cfg = tmp_path / "r.cfg"
+    cfg.write_text(open(base).read() + TINY + f"n_steps = {RESUME_T}\n"
+                   + extra_cfg + "\n")
+    extra = [str(tmp_path / a) if a == "truth.txt" else a
+             for a in extra_args]
+    z_prevs = {}
+    step = runner.slam_step
+
+    def recording_step(*a, **kw):
+        z_prevs[name].append(kw["z_prev"])
+        return step(*a, **kw)
+
+    monkeypatch.setattr(runner, "slam_step", recording_step)
+    outs = {}
+    for name in ("straight", "resumed"):
+        out = outs[name] = tmp_path / name
+        if name == "resumed":
+            (out / "checkpoints").mkdir(parents=True)
+            ck = f"ckpt_{RESUME_FROM:06d}.npz"
+            (out / "checkpoints" / ck).write_bytes(
+                (outs["straight"] / "checkpoints" / ck).read_bytes())
+            flags = ("--resume",)
+        else:
+            flags = ("--checkpoint-every", str(RESUME_EVERY))
+        z_prevs[name] = []
+        args = _args(d, out, "--seed", "6", "--data-dir", str(d), *flags,
+                     *extra)
+        args[0] = str(cfg)
+        runner.main(args)
+    # z_prev is None at the straight run's step 0 and at the resumed run's
+    # first step, and nowhere else
+    for name, n in (("straight", RESUME_T),
+                    ("resumed", RESUME_T - RESUME_FROM - 1)):
+        assert len(z_prevs[name]) == n
+        assert [z is None for z in z_prevs[name]] == [True] + [False] * (
+            n - 1)
+    assert sorted(os.listdir(outs["straight"] / "checkpoints")) == [
+        f"ckpt_{t:06d}.npz" for t in (5, 10, 15)]
+    resumed = range(RESUME_FROM + 1, RESUME_T)
+    straight_logs = _files(outs["straight"], "state_estimate")
+    resumed_logs = _files(outs["resumed"], "state_estimate")
+    assert sorted(resumed_logs) == [f"state_estimate{t:05d}.log"
+                                    for t in resumed]
+    with open(outs["resumed"] / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["t"] for r in rows] == list(resumed)
+    if "filter_type = 1" in extra_cfg:
+        # the first resumed step has no births from step 10's measurements
+        first = f"state_estimate{RESUME_FROM + 1:05d}.log"
+        assert resumed_logs[first] != straight_logs[first]
+        return
+    assert resumed_logs == {k: v for k, v in straight_logs.items()
+                            if k in resumed_logs}
+    if "--truth" in extra_args:
+        with open(outs["straight"] / "metrics.jsonl") as f:
+            ref = [json.loads(line)["ospa"] for line in f][RESUME_FROM + 1:]
+        assert [r["ospa"] for r in rows] == ref
+    if "save_prediction" in extra_cfg:
+        for t in resumed:
+            name = f"particles_predict{t:05d}.mat"
+            a = read_particles_mat(str(outs["straight"] / name))
+            b = read_particles_mat(str(outs["resumed"] / name))
+            np.testing.assert_array_equal(a["states"], b["states"])
+            np.testing.assert_array_equal(a["weights"], b["weights"])
 
 
 def _logs(out, n):
