@@ -44,20 +44,23 @@ code is not 0:
        bit against the plain version; registers and CTAs per SM; the
        kernels' log1p against the library's log1pf on every float in [0,
        inf), bit for bit
-     - auction (FastSLAM's joint association): [8192, 64, 576], [256, 64,
-       192], [1001, 64, 192], every other particle with no live pair, and
-       NaN entries (2000-round budget), each timed beside its plain version
-       and its bound (counted on the rounds each launch ran); owners and
-       rounds bit for bit; the rounds per particle and budget hits
+     - auction (FastSLAM's joint association, clamp, rounds and readout in
+       one launch) on raw benefits: [8192, 64, 512], [256, 64, 128], [1001,
+       64, 128], every other particle with no live pair, NaN entries, and
+       budgets of 1 and 2 rounds (the readout's fallback), each timed
+       beside its plain version and its bound (counted on the rounds each
+       launch ran); columns and rounds bit for bit; the rounds per particle
+       and budget hits; registers and CTAs per SM on each path
      - OSPA auction (the in-loop OSPA's square eps-scaled auction): the
        padded costs of scripts/ospa_latency.py's 8 random set pairs at n =
-       16, 64 and 256 (p = 1, c = 5; n = 256 reads the cost from device
-       memory), one launch a size, and at n = 64 with 2 rounds a phase
-       (the clean-up): owners and rounds per phase bit for bit against the
-       plain version, timed beside it and its bound (counted on the bids
-       made); then ospa_torch, the entry point, on every pair with its
-       launches counted from 0, within 2e-2 of ospa_np (card term 1e-4),
-       and its time a call
+       16, 64 and 256 (p = 1, c = 5; n = 256 keeps the cost in shared
+       memory and registers), one launch a size, and at n = 64 with 2
+       rounds a phase (the clean-up): owners and rounds per phase bit for
+       bit against the plain version, timed beside it and its bound
+       (counted on the bids made), the microseconds a round, registers and
+       CTAs per SM; then ospa_torch, the entry point, on every pair with
+       its launches counted from 0, within 2e-2 of ospa_np (card term
+       1e-4), and its time a call
      - past the old limits, each against plain and timed: select and
        select4 (both modes) at 64 x 4096 x 64 (the wide-row kernels), merge
        [64, 7745] -> 256, merge4 [64, 3521] -> 256, merge3 [64, 5052] -> 128
@@ -145,8 +148,9 @@ code is not 0:
      the kernels against plain on the last step's inputs
   9b. dense FastSLAM step - cfg/fastslam_synth.cfg at 8192 x 512 x 64 on
      the stress stream from empty maps: 8 warm-up steps, 16 timed, split
-     into glue and the auction; live slots, rounds per particle and the
-     peak device memory
+     into glue and the auction (its clamp, rounds and readout in the one
+     launch) and the peak device memory of the steps; live slots and
+     rounds per particle
  10. the card's name and power limit, the kernels' JSON line, then
      {"ok": true, "device": {...}} last
 
@@ -162,6 +166,7 @@ breakdown in PERF.md).
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -239,14 +244,15 @@ DENSE_CPHD = dict(P=1024, F=128, M=64)
 DENSE_DISP = dict(P=8192, F=128, M=48)
 DISP_WARMUP = 8                     # fills the dense disparity map first
 WARMUP, TIMED = 3, 16
-AUCTION_CASES = [                   # (P, M, F, kind): C = F + M columns
+AUCTION_CASES = [                   # (P, M, F, kind): raw [P, M, F]
     (8192, 64, 512, ""),            # the dense FastSLAM shape
     (256, 64, 128, ""),             # cfg/fastslam_synth.cfg's shape
     (1001, 64, 128, ""),            # odd P
     (256, 64, 128, "gated"),        # every other particle: no pair live
-    (256, 64, 128, "nan"),          # NaN entries, AUCTION_NAN_BUDGET rounds
+    (256, 64, 128, "nan"),          # NaN entries in the raw benefit
+    (256, 64, 128, "budget 1"),     # the readout's fallback: rows left
+    (256, 64, 128, "budget 2"),     # unassigned at the budget
 ]
-AUCTION_NAN_BUDGET = 2000
 # float32 operations per (round, row, column) of the auction: the value
 # (benefit - price), the compares for the best and the second best, the
 # NaN test; counted for every row of every round run (the kernel scans
@@ -318,8 +324,8 @@ KERNELS = (                         # name, source, the TPU kernel replaced
     ("esf", "phdslam_tpu_torch/csrc/esf.cu",
      "phdslam_tpu/kernels/esf_pallas.py:85"),
     ("auction", "phdslam_tpu_torch/csrc/auction.cu",
-     "phdslam_tpu/filter/fastslam.py:98 (_auction_rows, lax.while_loop; "
-     "not a Pallas kernel)"),
+     "phdslam_tpu/filter/fastslam.py:98 (_auction_rows whole: the clamp, "
+     "the lax.while_loop and the readout; not a Pallas kernel)"),
     ("ospa_auction", "phdslam_tpu_torch/csrc/auction.cu",
      "phdslam_tpu/ops/ospa.py:74 (_auction_assign, lax.while_loop in a "
      "lax.scan over eps phases; not a Pallas kernel)"),
@@ -338,6 +344,15 @@ def gpu_line():
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def reset_peak_memory():
+    """Start a phase's peak device memory from what it can reach: tensors
+    an earlier phase left unreachable (in reference cycles) are freed
+    first, or they count in this phase's peak."""
+    import torch
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -1140,11 +1155,11 @@ def phase_esf(dev, stats):
 # ----------------------------------------------------- phase 2: auction --
 
 def random_auction_inputs(P, M, F, seed, dev, kind=""):
-    """FastSLAM's full benefit on seeded values (F feature columns, 60 %
-    of the pairs gated out at _NEG, then M private no-match columns),
-    clamped as the filter clamps it; kind "gated": every other particle
-    has no live pair; "nan": NaN entries in 5 particles. Returns (clamped
-    [P, M, F + M], eps [P], budget)."""
+    """FastSLAM's raw benefit on seeded values (F feature columns, 60 % of
+    the pairs gated out at NEG) and a private value (log kappa of
+    cfg/fastslam_synth.cfg's order); kind "gated": every other particle
+    has no live pair; "nan": NaN entries in 5 particles (not live: clamped
+    to the floor). Returns (benefit [P, M, F], pv, budget)."""
     import torch
     from phdslam_tpu_torch.filter import fastslam as FS
     rng = np.random.default_rng(seed)
@@ -1152,31 +1167,28 @@ def random_auction_inputs(P, M, F, seed, dev, kind=""):
     ben[rng.uniform(size=(P, M, F)) < 0.6] = FS._NEG
     if kind == "gated":
         ben[::2] = FS._NEG
-    dummy = np.full((P, M, M), FS._NEG, np.float32)
-    idx = np.arange(M)
-    dummy[:, idx, idx] = rng.normal(-4.0, 1.0, (P, M))
-    full = torch.as_tensor(np.concatenate([ben, dummy], 2), device=dev)
-    clamped, eps, _ = FS.clamp_benefit(full)
-    budget = FS._BIDS_PER_ROW * (F + M)
     if kind == "nan":
-        clamped[1, 3, 7] = float("nan")
-        clamped[4] = float("nan")
-        clamped[5, :, 50] = float("nan")
-        clamped[9, 0, :] = float("nan")
-        clamped[100, 63, F + 63] = float("nan")
-        budget = AUCTION_NAN_BUDGET
-    return clamped.contiguous(), eps.contiguous(), budget
+        ben[1, 3, 7] = np.nan
+        ben[4] = np.nan
+        ben[5, :, 50] = np.nan
+        ben[9, 0, :] = np.nan
+        ben[100, 63, F - 1] = np.nan
+    budget = FS._BIDS_PER_ROW * (F + M)
+    if kind.startswith("budget "):
+        budget = int(kind.split()[1])
+    return (torch.as_tensor(ben, device=dev).contiguous(),
+            float(rng.normal(-4.0, 1.0)), budget)
 
 
-def auction_exact(kern, plain, rows, what):
-    """The auction kernel's (owner, iters) equal the plain version's bit
-    for bit, every owner one of the particle's rows or -1. Returns
-    (particles that differ, max abs error): (0, 0.0)."""
+def auction_exact(kern, plain, n_cols, what):
+    """The auction kernel's (col, iters) equal the plain version's bit for
+    bit, every column in [0, n_cols). Returns (particles that differ, max
+    abs error): (0, 0.0)."""
     bad, _ = differing_rows(kern, plain)
-    if int(bad.sum()) or int(kern[0].min()) < -1 \
-            or int(kern[0].max()) >= rows:
+    if int(bad.sum()) or int(kern[0].min()) < 0 \
+            or int(kern[0].max()) >= n_cols:
         raise RuntimeError(f"auction ({what}): {int(bad.sum())} particles "
-                           "differ from the plain version, or an owner is "
+                           "differ from the plain version, or a column is "
                            "out of range")
     return 0, 0.0
 
@@ -1187,50 +1199,54 @@ def auction_rounds(iters, budget):
             int((iters >= budget).sum()))
 
 
-def auction_bound(stats, name, P, M, C, iters):
-    """The benefit read once and the owners written, over the memory rate;
-    AUCTION_OPS per (round, row, column) of the rounds run, over the
-    float32 rate."""
-    bound(stats, name, 4 * P * (M * C + C + 2),
-          int(iters.long().sum()) * M * C * AUCTION_OPS)
+def auction_bound(stats, name, P, M, F, iters):
+    """The raw benefit read once and the columns and rounds written, over
+    the memory rate; AUCTION_OPS per (round, row, column) of the rounds
+    run, over the float32 rate."""
+    bound(stats, name, 4 * P * (M * F + M + 1),
+          int(iters.long().sum()) * M * (F + M) * AUCTION_OPS)
 
 
 def phase_auction(dev, stats):
+    import ctypes
     from phdslam_tpu_torch.kernels import _build
     A = _auction()
     t0 = time.perf_counter()
     _new_stats(stats, "auction")
     lib, _ = _build.library()
-    for M_, C_ in ((64, 192), (64, 576)):
-        occupancy(functools.partial(lib.phd_auction_ctas_per_sm, M_), C_,
-                  f"auction at M = {M_}, C = {C_} (path "
-                  f"{lib.phd_auction_path(M_, C_)}: 2 the benefit in shared "
-                  "memory)")
+    regs = ctypes.c_int(0)
+    for M_, C_ in ((64, 192), (64, 576), (64, 20000)):
+        ctas = lib.phd_auction_ctas_per_sm(M_, C_, ctypes.byref(regs))
+        log(f"auction at M = {M_}, C = {C_}: path "
+            f"{lib.phd_auction_path(M_, C_)} (1 the state in shared memory, "
+            f"0 in device memory), {regs.value} registers, {ctas} CTAs per "
+            "SM")
+        if ctas <= 0:
+            raise RuntimeError("auction: the occupancy query failed")
     for i, (P, M, F, kind) in enumerate(AUCTION_CASES):
-        clamped, eps, budget = random_auction_inputs(P, M, F, 80 + i, dev,
-                                                     kind)
-        C = F + M
-        kern = A.auction_rows_cuda(clamped, eps, budget)
-        auction_exact(kern, A.auction_rows_plain(clamped, eps, budget), M,
-                      f"[{P}, {M}, {C}] {kind}")
-        bit_identical(lambda: A.auction_rows_cuda(clamped, eps, budget),
-                      f"auction [{P}, {M}, {C}]")
-        case = dict(ms=cuda_ms(lambda: A.auction_rows_cuda(clamped, eps,
-                                                           budget), 10),
-                    plain_ms=cuda_ms(lambda: A.auction_rows_plain(
-                        clamped, eps, budget), 1),
+        ben, pv, budget = random_auction_inputs(P, M, F, 80 + i, dev, kind)
+        kern = A.auction_assign_cuda(ben, pv, budget)
+        auction_exact(kern, A.auction_assign_plain(ben, pv, budget), F + M,
+                      f"[{P}, {M}, {F}] {kind}")
+        bit_identical(lambda: A.auction_assign_cuda(ben, pv, budget),
+                      f"auction [{P}, {M}, {F}]")
+        case = dict(ms=cuda_ms(lambda: A.auction_assign_cuda(ben, pv,
+                                                              budget), 10),
+                    plain_ms=cuda_ms(lambda: A.auction_assign_plain(
+                        ben, pv, budget), 1),
                     library_ms=None)
         one = {"auction": case}
-        auction_bound(one, "auction", P, M, C, kern[1])
+        auction_bound(one, "auction", P, M, F, kern[1])
         mean_it, max_it, at_budget = auction_rounds(kern[1], budget)
-        log(f"auction [{P}, {M}, {C}] {kind or 'random'}: bit-identical to "
-            f"plain; rounds per particle mean {mean_it:.2f} max {max_it}, "
-            f"{at_budget} at the budget {budget}; {case['ms']:.4f} ms "
-            f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.4f}"
-            f" ms by {case['bound_by']})")
-        if kind == "nan" and at_budget < 2:
-            raise RuntimeError("auction: the NaN rows did not run to the "
-                               "budget")
+        log(f"auction [{P}, {M}, {F}] {kind or 'random'}: bit-identical to "
+            f"plain (columns and rounds); rounds per particle mean "
+            f"{mean_it:.2f} max {max_it}, {at_budget} at the budget {budget};"
+            f" {case['ms']:.4f} ms (plain {case['plain_ms']:.3f} ms, bound "
+            f"{case['bound_ms']:.4f} ms by {case['bound_by']})")
+        if kind.startswith("budget") and (at_budget == 0
+                                          or max_it != budget):
+            raise RuntimeError("auction: no particle ran to the budget of "
+                               f"{budget} rounds")
         if kind == "gated" and int(kern[1][::2].max()) != 1:
             raise RuntimeError("auction: all-gated particles took more "
                                "than one round")
@@ -1276,11 +1292,14 @@ def phase_ospa(dev, stats):
     OSPA_BUDGET rounds a phase, timed beside its bound; then the entry
     point ospa_torch on every pair, its launches counted, against
     ospa_np."""
+    import ctypes
+
     import torch
     from phdslam_tpu_torch.kernels import _build
     from phdslam_tpu_torch.ops import ospa as O
     from phdslam_tpu_torch.ops.ospa import ospa_np
     A = _auction()
+    regs = ctypes.c_int(0)
     t0 = time.perf_counter()
     _new_stats(stats, "ospa_auction")
     lib, _ = _build.library()
@@ -1309,14 +1328,25 @@ def phase_ospa(dev, stats):
         bound(one, "ospa_auction", 4 * (B * n * n + K + B * n + B * K),
               int(bids.sum()) * n * AUCTION_OPS)
         it = kern[1].float()
+        rounds = it.sum(1)
+        ctas = lib.phd_auction_square_ctas_per_sm(n, ctypes.byref(regs))
         log(f"square auction [{B}, {n}, {n}] (path "
-            f"{lib.phd_auction_square_path(n)}: 2 the cost in shared memory)"
-            f": bit-identical to plain; rounds per phase mean "
+            f"{lib.phd_auction_square_path(n)}: 3 the cost in shared memory "
+            f"and registers, 2 in shared memory, 1 in device memory; "
+            f"{regs.value} registers, {ctas} CTAs per SM): bit-identical to "
+            f"plain; rounds per phase mean "
             + ", ".join(f"{v:.1f}" for v in it.mean(0).tolist())
             + f", max {int(kern[1].max())} (budget {budget}); bids "
             f"{int(bids.sum()) / B:.0f} a problem; {case['ms']:.4f} ms "
             f"(plain {case['plain_ms']:.3f} ms, bound {case['bound_ms']:.3e}"
-            f" ms by {case['bound_by']})")
+            f" ms by {case['bound_by']}); "
+            f"{case['ms'] * 1e3 / float(rounds.mean()):.3f} us a round over "
+            f"the mean {float(rounds.mean()):.1f} rounds a problem, "
+            f"{case['ms'] * 1e3 / float(rounds.max()):.3f} over the most "
+            f"({int(rounds.max())})")
+        if n == 256 and lib.phd_auction_square_path(n) < 2:
+            raise RuntimeError("square auction: the cost at n = 256 is not "
+                               "on chip")
         if n == max(OSPA_SIZES):    # the largest size goes to the JSON
             stats["ospa_auction"].update(case)
     n = OSPA_BUDGET_N
@@ -1496,7 +1526,7 @@ def timers():
                 merge4=_KernelTimer(G4, "merge4_cuda"),
                 merge3=_KernelTimer(G3, "merge3_cuda"),
                 esf=_KernelTimer(E, "esf_all_cuda"),
-                auction=_KernelTimer(_auction(), "auction_rows_cuda"))
+                auction=_KernelTimer(_auction(), "auction_assign_cuda"))
 
 
 def agree_on_last_args(tm, stats, what):
@@ -1506,7 +1536,7 @@ def agree_on_last_args(tm, stats, what):
     plain_of = dict(select=S.select_plain, select4=S4.select4_plain,
                     merge=G.merge_plain, merge4=G4.merge4_plain,
                     merge3=G3.merge3_plain, esf=E.esf_all_plain,
-                    auction=_auction().auction_rows_plain)
+                    auction=_auction().auction_assign_plain)
     parts = []
     for name, t in tm.items():
         if t.last_args is None:
@@ -1524,7 +1554,8 @@ def agree_on_last_args(tm, stats, what):
             n_bad, err = esf_agree(kern, plain)
             esf_exact(kern, plain, f"{what} inputs")
         elif name == "auction":
-            n_bad, err = auction_exact(kern, plain, a[0].shape[1],
+            n_bad, err = auction_exact(kern, plain,
+                                       a[0].shape[1] + a[0].shape[2],
                                        f"{what} inputs")
         else:
             n_bad, err = compare_rows(kern, plain)
@@ -2286,12 +2317,15 @@ def stress_stepper(shape, n_steps, dev, dense=True,
     return cfg, SlamState.create(cfg, dev), step
 
 
-def timed_steps(stats, state, step, warmup, what, shape, tm=None):
+def timed_steps(stats, state, step, warmup, what, shape, tm=None,
+                peak=False):
     """warmup steps, then TIMED steps with CUDA events around the whole
     and around every kernel launch (glue is the remainder); logs the split
-    and checks every kernel against its plain version on the last timed
-    step's own inputs (real pools hold exact weight ties, e.g. births of
-    measurements no feature explains). Returns (state, ms/step)."""
+    (peak: and the peak device memory since the phase's reset_peak_memory,
+    read before the checks) and checks every kernel against its plain
+    version on the last timed step's own inputs (real pools hold exact
+    weight ties, e.g. births of measurements no feature explains). Returns
+    (state, ms/step)."""
     import torch
     from contextlib import ExitStack
     for t in range(warmup):
@@ -2309,13 +2343,15 @@ def timed_steps(stats, state, step, warmup, what, shape, tm=None):
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / TIMED
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     k_ms = {k: t.ms() / TIMED for k, t in tm.items() if t.pairs}
     glue_ms = step_ms - sum(k_ms.values())
     neff = float(aux.neff)
     log(f"{what} {shape}: {step_ms:.3f} ms/step = pre-update and glue "
         f"{glue_ms:.3f} + " + " + ".join(
             f"{k} kernel {v:.3f}" for k, v in k_ms.items())
-        + f" (neff {neff:.4f})")
+        + f" (neff {neff:.4f})"
+        + (f"; peak device memory {peak_gib:.2f} GiB" if peak else ""))
     agree_on_last_args(tm, stats, what)
     if not np.isfinite(neff) or glue_ms < 0:
         raise RuntimeError(f"{what}: neff {neff}, glue {glue_ms} ms")
@@ -2388,7 +2424,6 @@ def disparity_stepper(shape, n_steps, dev):
 def phase_dense_cphd_disparity(dev, stats, gpu):
     """The two stress shapes of this slice (not shipped cfgs): CPHD at
     BASELINE config 3's shape and the disparity step at 8192 particles."""
-    import torch
     t0 = time.perf_counter()
     _, state, step = stress_stepper(
         DENSE_CPHD, WARMUP + TIMED, dev, filterType=1, maxCardinality=127,
@@ -2402,16 +2437,15 @@ def phase_dense_cphd_disparity(dev, stats, gpu):
     log(f"phase dense CPHD: ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     state, step = disparity_stepper(DENSE_DISP, DISP_WARMUP + TIMED, dev)
     state, ms = timed_steps(stats, state, step, DISP_WARMUP,
                             "dense disparity step",
                             "x".join(str(DENSE_DISP[k]) for k in "PFM")
-                            + " x 64 points")
+                            + " x 64 points", peak=True)
     stats["dense_disparity_ms_per_step"] = ms
     log(f"dense disparity step: max live map slots "
-        f"{int((state.w > 0).sum(1).max())}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{int((state.w > 0).sum(1).max())}")
     log(f"dense timing on {gpu}: CPHD step "
         f"{stats['dense_cphd_ms_per_step']:.3f} ms, disparity step "
         f"{stats['dense_disparity_ms_per_step']:.3f} ms")
@@ -2422,15 +2456,15 @@ def phase_dense_fastslam(dev, stats, gpu):
     """The FastSLAM step at 8192 x 512 x 64 on the stress stream, from
     empty maps: FS_WARMUP steps fill them with counters the filter made,
     then TIMED steps split into glue and the auction."""
-    import torch
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     _, state, step = stress_stepper(DENSE_FS, FS_WARMUP + TIMED, dev,
                                     cfg_file="cfg/fastslam_synth.cfg")
     tm = timers()
     state, ms = timed_steps(stats, state, step, FS_WARMUP,
                             "dense FastSLAM step",
-                            "x".join(str(DENSE_FS[k]) for k in "PFM"), tm)
+                            "x".join(str(DENSE_FS[k]) for k in "PFM"), tm,
+                            peak=True)
     a, _ = tm["auction"].last_args
     mean_it, max_it, at_budget = auction_rounds(tm["auction"].last_out[1],
                                                 a[2])
@@ -2438,8 +2472,7 @@ def phase_dense_fastslam(dev, stats, gpu):
     log(f"dense FastSLAM step: live slots per particle mean "
         f"{float(live.mean()):.1f} max {int(live.max())}; the last "
         f"launch's rounds per particle mean {mean_it:.2f} max {max_it}, "
-        f"{at_budget} at the budget {a[2]}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{at_budget} at the budget {a[2]}")
     stats["dense_fastslam_ms_per_step"] = ms
     log(f"dense timing on {gpu}: FastSLAM step {ms:.3f} ms")
     log(f"phase dense FastSLAM: ok ({time.perf_counter() - t0:.1f} s)")

@@ -10,11 +10,11 @@ rectangular Jacobi auction in which every measurement also owns a private
 no-match column priced at the clutter likelihood; 0, gated per-measurement
 maximum likelihood with winner-takes-feature conflict resolution.
 
-The auction's rounds run in the auction kernel (``kernels/auction.py``,
-one launch per update); the clamp of gated-out pairs before them and the
-column-of-row readout after them are plain torch ops here, as in JAX. The
-particle weight increment ``dw`` is the joint association log-likelihood
-of the chosen assignment.
+The auction runs whole in the auction kernel (``kernels/auction.py::
+auction_assign``, one launch per update: the clamp of gated-out pairs, the
+rounds and the column readout, the private columns never materialised).
+The particle weight increment ``dw`` is the joint association
+log-likelihood of the chosen assignment.
 """
 
 from __future__ import annotations
@@ -31,50 +31,9 @@ from phdslam_tpu_torch.ops.gm import top_k
 from phdslam_tpu_torch.ops.linalg import wrap_angle
 
 #: benefit of a gated-out or invalid pair: finite, so bids stay NaN-free
-_NEG = -1e30
-#: the auction's eps, in units of the particle's live-benefit span
-_EPS_FINAL = 1e-3
+_NEG = auction.NEG
 #: round budget per column
 _BIDS_PER_ROW = 128
-
-
-def clamp_benefit(benefit):
-    """Per particle of benefit [P, M, C]: gated-out pairs (at _NEG) raised
-    to a floor 4 spans below the lowest live value, so prices stay within a
-    few spans. Returns (clamped benefit, eps [P], live mask)."""
-    live = benefit > _NEG / 2
-    hi = torch.where(live, benefit, float("-inf")).amax((1, 2))
-    lo = torch.where(live, benefit, float("inf")).amin((1, 2))
-    hi = torch.where(hi.isfinite(), hi, 0.0)     # degenerate: nothing live
-    lo = torch.where(lo.isfinite(), lo, 0.0)
-    span = torch.clamp(hi - lo, min=1.0)
-    floor = lo - 4.0 * span - 1.0
-    return (torch.where(live, benefit, floor[:, None, None]),
-            _EPS_FINAL * span, live)
-
-
-def col_of_row(owner, clamped, live):
-    """Each row's column [P, M]: the lowest column it owns, or, for a row
-    left unassigned at the budget, its best column among those only it can
-    win (with the private no-match columns, column F + m)."""
-    P, M, C = clamped.shape
-    cols = torch.arange(C, device=owner.device).expand(P, C)
-    held = torch.where(owner >= 0, owner, M).long()
-    col = torch.full((P, M + 1), C, dtype=torch.long, device=owner.device)
-    col = col.scatter_reduce(1, held, cols, "amin")[:, :M]
-    alone = live & (live.sum(1, keepdim=True) == 1)
-    private = torch.where(alone, clamped, float("-inf"))
-    return torch.where(col < C, col, private.argmax(2))
-
-
-def auction_assign(benefit):
-    """JAX's ``_auction_rows`` over a batch: benefit [P, M, C] (gated-out
-    pairs at _NEG, every row with a column only it can win) -> the column
-    of each row [P, M]."""
-    clamped, eps, live = clamp_benefit(benefit)
-    owner, _ = auction.auction_rows(clamped, eps,
-                                    _BIDS_PER_ROW * benefit.shape[2])
-    return col_of_row(owner, clamped, live)
 
 
 def _log_constants(cfg):
@@ -113,11 +72,10 @@ def associate(benefit, z_valid, cfg):
     dev = benefit.device
     log_kappa = _log_constants(cfg)[2]
     if cfg.fastslamAssoc == 1:
-        # private no-match columns: row m may always take column F + m
-        eye = torch.eye(M, dtype=torch.bool, device=dev)
-        dummy = torch.where(eye, log_kappa, _NEG).to(benefit.dtype)
-        full = torch.cat([benefit, dummy.expand(P, M, M)], dim=2)
-        col = auction_assign(full)                      # [P, M]
+        # JAX's _auction_rows with private no-match columns: row m may
+        # always take column F + m at log kappa
+        col, _ = auction.auction_assign(benefit, log_kappa,
+                                        _BIDS_PER_ROW * (F + M))  # [P, M]
         return (col < F) & z_valid[None, :], torch.clamp(col, max=F - 1)
     # gated ML; no match where even the best feature loses to clutter
     best_f = benefit.argmax(2)                          # first of equals

@@ -62,13 +62,14 @@ SIGNATURES = {
     "phd_esf_ctas_per_sm": [_I, _I, _P],
     "phd_esf_log1p_mismatches": [],
     "phd_merge4_reject_scale": [_P, _P, _I, _P],
-    "phd_auction_launch": [_P] * 4 + [_I] * 4 + [_P, _P],
+    "phd_auction_launch": [_P] * 3 + [_I] * 3 + [_F, _I, _P, _P],
     "phd_auction_wide_floats": [_I, _I, _I],
     "phd_auction_path": [_I, _I],
     "phd_auction_ctas_per_sm": [_I, _I, _P],
     "phd_auction_square_launch": [_P] * 4 + [_I] * 4 + [_P, _P],
     "phd_auction_square_wide_floats": [_I, _I],
     "phd_auction_square_path": [_I],
+    "phd_auction_square_ctas_per_sm": [_I, _P],
     "phd_error_string": [_I],
 }
 # every other function returns an int

@@ -1,39 +1,46 @@
-"""The FastSLAM auction: the rounds of the joint association's Jacobi
-forward auction, every particle's inside one kernel launch.
+"""The two auctions: FastSLAM's joint association whole, and the in-loop
+OSPA's square eps-scaled auction, each one kernel launch.
 
-Replaces the ``lax.while_loop`` of ``phdslam_tpu/filter/fastslam.py::
-_auction_rows`` (not a Pallas kernel). Its trip count depends on the data;
-a loop of PyTorch ops could end only by reading a flag on the host every
-round, so the rounds run inside ``csrc/auction.cu``, as the merges keep
-theirs. ``auction_rows_cuda`` launches it; ``auction_rows_plain`` is the
-same rounds in PyTorch ops over all particles at once, a particle frozen
-once it has finished (as JAX's vmapped ``while_loop`` freezes it), reading
-the device every round. ``auction_rows`` runs the first on CUDA tensors
-and the second on CPU tensors.
+FastSLAM (``auction_assign``) replaces ``phdslam_tpu/filter/fastslam.py::
+_auction_rows`` under ``jax.vmap`` (not a Pallas kernel): the clamp of the
+gated-out pairs, the Jacobi forward auction's rounds (a ``lax.while_loop``
+whose trip count depends on the data; a loop of PyTorch ops could end only
+by reading a flag on the host every round) and the column readout.
+``auction_assign_cuda`` runs all three in ``csrc/auction.cu``;
+``auction_assign_plain`` is the same in PyTorch ops over all particles at
+once: the private no-match columns concatenated, ``clamp_benefit``, the
+rounds (``_rounds``, a particle frozen once it has finished, as JAX's
+vmapped ``while_loop`` freezes it, reading the device every round), then
+``col_of_row``. ``auction_assign`` runs the first on CUDA tensors and the
+second on CPU tensors. They take the raw benefit ``[P, M, F]`` (float32,
+gated-out pairs at ``NEG``), the private value (log kappa: column F + m
+holds it for row m and ``NEG`` for every other row; the kernel never
+materialises those columns) and the round budget, and return ``col [P,
+M]`` int32, each row's column (F + m: no match), and ``iters [P]`` int32,
+the rounds each particle ran.
 
-Both take the clamped benefit ``[P, M, C]`` (float32, finite where the
-filter made it), ``eps [P]`` and the round budget, and return ``owner
-[P, C]`` int32 (-1 for an unowned column) and ``iters [P]`` int32, the
-rounds each particle ran. A round: every unassigned row bids on the first
-column of its largest ``benefit - price`` (a NaN counts as the largest)
-the gap to its second-largest value over the other columns (itself where
-that is not finite) plus eps; a column whose largest bid is finite goes to
-the lowest row among its largest bids, its price rising by the bid; the
-rounds end when every row is assigned or at the budget. Nothing is
-multiplied, so the kernel's owners equal the plain version's bit for bit.
+A round: every unassigned row bids on the first column of its largest
+``benefit - price`` (a NaN counts as the largest) the gap to its
+second-largest value over the other columns (itself where that is not
+finite) plus eps; a column whose largest bid is finite goes to the lowest
+row among its largest bids, its price rising by the bid; the rounds end
+when every row is assigned or at the budget. Nothing is multiplied in the
+rounds and the clamp rounds as PyTorch does, so the kernel's columns and
+rounds equal the plain version's bit for bit.
 
 The same rounds run the square eps-scaled auction of the in-loop OSPA
 (``ops/ospa.py::ospa_torch``), which replaces the ``lax.while_loop`` inside
 a ``lax.scan`` over eps phases of ``phdslam_tpu/ops/ospa.py::
 _auction_assign``: ``auction_square_cuda`` runs every phase and the
-clean-up in one launch, one CTA per problem; ``auction_square_plain`` is
-the same in PyTorch ops; ``auction_square`` picks one by the device. They
-take ``cost [B, n, n]`` (float32, in [0, 1]; the benefit is ``-cost``),
-the eps schedule ``eps [n_phases]`` and a per-phase budget, and return
-``owner [B, n]`` int32 (every column owned) and ``iters [B, n_phases]``
-int32, the rounds of each phase. Prices carry from one phase to the next;
-ownership restarts each phase; after the last one the rows left
-unassigned take the columns left unowned in index order.
+clean-up in one launch, one CTA per problem, the cost on chip up to n =
+256; ``auction_square_plain`` is the same in PyTorch ops;
+``auction_square`` picks one by the device. They take ``cost [B, n, n]``
+(float32, in [0, 1]; the benefit is ``-cost``), the eps schedule ``eps
+[n_phases]`` and a per-phase budget, and return ``owner [B, n]`` int32
+(every column owned) and ``iters [B, n_phases]`` int32, the rounds of each
+phase. Prices carry from one phase to the next; ownership restarts each
+phase; after the last one the rows left unassigned take the columns left
+unowned in index order.
 """
 
 from __future__ import annotations
@@ -42,19 +49,24 @@ import torch
 
 from phdslam_tpu_torch.kernels import _build
 
-#: kernel launches since the count was last set to 0 (FastSLAM's rows
-#: auction; the square OSPA auction counts in ``launches_square``)
+#: kernel launches since the count was last set to 0 (FastSLAM's
+#: association; the square OSPA auction counts in ``launches_square``)
 launches = 0
 launches_square = 0
 
+#: benefit of a gated-out or invalid pair: finite, so bids stay NaN-free
+NEG = -1e30
+#: the auction's eps, in units of the particle's live-benefit span
+EPS_FINAL = 1e-3
 
-def _check(benefit, eps, budget):
-    P, M, C = benefit.shape
-    if M > 0 and C < 1:
-        raise ValueError("auction: rows need at least one column")
+
+def _check(benefit, budget):
+    if benefit.dim() != 3:
+        raise ValueError(f"auction: benefit must be [P, M, F], got "
+                         f"{tuple(benefit.shape)}")
     if not 0 <= budget < 2 ** 31:
         raise ValueError(f"auction: budget {budget} out of range")
-    return P, M, C
+    return benefit.shape
 
 
 def _rounds(benefit, eps, budget: int, price):
@@ -97,45 +109,88 @@ def _rounds(benefit, eps, budget: int, price):
     return owner, iters, price, assigned, bids
 
 
-def auction_rows_plain(benefit, eps, budget: int):
-    """The kernel's rounds in PyTorch ops, all particles at once; a
-    particle stops changing once every row is assigned or its budget is
-    spent."""
-    P, M, C = _check(benefit, eps, budget)
-    owner, iters, _, _, _ = _rounds(benefit, eps, budget,
-                                    benefit.new_zeros((P, C)))
-    return owner, iters
+def clamp_benefit(benefit):
+    """Per particle of benefit [P, M, C]: gated-out pairs (at NEG) raised
+    to a floor 4 spans below the lowest live value, so prices stay within a
+    few spans. Returns (clamped benefit, eps [P], live mask)."""
+    live = benefit > NEG / 2
+    hi = torch.where(live, benefit, float("-inf")).amax((1, 2))
+    lo = torch.where(live, benefit, float("inf")).amin((1, 2))
+    hi = torch.where(hi.isfinite(), hi, 0.0)     # degenerate: nothing live
+    lo = torch.where(lo.isfinite(), lo, 0.0)
+    span = torch.clamp(hi - lo, min=1.0)
+    floor = lo - 4.0 * span - 1.0
+    return (torch.where(live, benefit, floor[:, None, None]),
+            EPS_FINAL * span, live)
 
 
-def auction_rows_cuda(benefit, eps, budget: int):
-    """Launch ``csrc/auction.cu`` on PyTorch's current stream. The benefit
-    is staged in a CTA's shared memory where it fits, read from device
-    memory otherwise; a state too large for shared memory (C in the tens
-    of thousands) lives in device memory this wrapper allocates."""
+def col_of_row(owner, clamped, live):
+    """Each row's column [P, M]: the lowest column it owns, or, for a row
+    left unassigned at the budget, its best column among those only it can
+    win (with the private no-match columns, column F + m)."""
+    P, M, C = clamped.shape
+    cols = torch.arange(C, device=owner.device).expand(P, C)
+    held = torch.where(owner >= 0, owner, M).long()
+    col = torch.full((P, M + 1), C, dtype=torch.long, device=owner.device)
+    col = col.scatter_reduce(1, held, cols, "amin")[:, :M]
+    alone = live & (live.sum(1, keepdim=True) == 1)
+    private = torch.where(alone, clamped, float("-inf"))
+    return torch.where(col < C, col, private.argmax(2))
+
+
+def auction_assign_plain(benefit, private_value: float, budget: int):
+    """The kernel's clamp, rounds and readout in PyTorch ops, all particles
+    at once; a particle stops changing once every row is assigned or its
+    budget is spent."""
+    P, M, F = _check(benefit, budget)
+    if P == 0 or M == 0:
+        return (torch.empty((P, M), dtype=torch.int32, device=benefit.device),
+                torch.zeros((P,), dtype=torch.int32, device=benefit.device))
+    # the private no-match columns: column F + m holds private_value for
+    # row m and NEG for the others (the tensor the kernel never makes)
+    eye = torch.eye(M, dtype=torch.bool, device=benefit.device)
+    dummy = torch.where(eye, private_value, NEG).to(benefit.dtype)
+    full = torch.cat([benefit, dummy.expand(P, M, M)], dim=2)
+    clamped, eps, live = clamp_benefit(full)
+    owner, iters, _, _, _ = _rounds(clamped, eps, budget,
+                                    clamped.new_zeros((P, F + M)))
+    return col_of_row(owner, clamped, live).to(torch.int32), iters
+
+
+def auction_assign_cuda(benefit, private_value: float, budget: int):
+    """Launch FastSLAM's association in ``csrc/auction.cu`` on PyTorch's
+    current stream: one CTA per particle, the state in shared memory (in
+    device memory this wrapper allocates where C = F + M is in the tens of
+    thousands), the benefit read from device memory."""
     global launches
-    P, M, C = _check(benefit, eps, budget)
+    P, M, F = _check(benefit, budget)
     dev = benefit.device
-    _build.check_tensor(benefit, (P, M, C), dev, "benefit")
-    _build.check_tensor(eps, (P,), dev, "eps")
-    lib, _ = _build.library()
-    owner = torch.empty((P, C), dtype=torch.int32, device=dev)
+    _build.check_tensor(benefit, (P, M, F), dev, "benefit")
+    col = torch.empty((P, M), dtype=torch.int32, device=dev)
     iters = torch.empty((P,), dtype=torch.int32, device=dev)
-    scratch = _build.scratch(lib.phd_auction_wide_floats(P, M, C), dev)
+    if P == 0 or M == 0:
+        iters.zero_()
+        return col, iters
+    lib, _ = _build.library()
+    scratch = _build.scratch(lib.phd_auction_wide_floats(P, M, F), dev)
+    # ctypes rounds the private value to float32, as the plain version's
+    # cast of its private columns does
     err = lib.phd_auction_launch(
-        benefit.data_ptr(), eps.data_ptr(), owner.data_ptr(),
-        iters.data_ptr(), P, M, C, int(budget), _build.ptr(scratch),
+        benefit.data_ptr(), col.data_ptr(), iters.data_ptr(), P, M, F,
+        float(private_value), int(budget), _build.ptr(scratch),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "auction kernel")
     launches += 1
-    return owner, iters
+    return col, iters
 
 
-def auction_rows(benefit, eps, budget: int):
-    """(owner [P, C], iters [P]) of the clamped benefit [P, M, C]: the
-    kernel on a CUDA tensor, its plain version on a CPU tensor."""
-    run = _build.kernel_for(benefit.device, auction_rows_cuda,
-                            auction_rows_plain, "auction")
-    return run(benefit.contiguous(), eps.contiguous(), budget)
+def auction_assign(benefit, private_value: float, budget: int):
+    """(col [P, M], iters [P]) of the raw benefit [P, M, F] with private
+    no-match columns at private_value: the kernel on a CUDA tensor, its
+    plain version on a CPU tensor."""
+    run = _build.kernel_for(benefit.device, auction_assign_cuda,
+                            auction_assign_plain, "auction")
+    return run(benefit.contiguous(), private_value, budget)
 
 
 # ------------------------------------------- the square OSPA auction --
@@ -187,8 +242,9 @@ def auction_square_plain(cost, eps, budget: int):
 
 def auction_square_cuda(cost, eps, budget: int):
     """Launch the square auction of ``csrc/auction.cu`` on PyTorch's current
-    stream: one CTA per problem, the cost staged in shared memory up to n =
-    238 and read from device memory above."""
+    stream: one CTA of up to 32 warps per problem, the cost in shared
+    memory up to n = 237, in shared memory and registers up to n = 256, and
+    read from device memory above."""
     global launches_square
     B, n, K = _check_square(cost, eps, budget)
     dev = cost.device

@@ -1,16 +1,23 @@
-"""Rebuild the select, merge3 and esf kernels with other constants or small
-source edits and time each variant on the card: the sweep behind the
-choice of ``kRowRegs``, ``kWarps`` (``csrc/select_common.cuh``), merge3's
-``kThreads`` / ``kBatch`` (``csrc/merge3.cu``) and esf's ``kGroup`` and
-``kLaneThreads`` (``csrc/esf.cu``), with a few diagnostic builds that show
-where the select loop's and the esf kernel's time goes.
+"""Rebuild the select, merge3, esf and auction kernels with other constants
+or small source edits and time each variant on the card: the sweep behind
+the choice of ``kRowRegs``, ``kWarps`` (``csrc/select_common.cuh``),
+merge3's ``kThreads`` / ``kBatch`` (``csrc/merge3.cu``) and esf's
+``kGroup`` and ``kLaneThreads`` (``csrc/esf.cu``), with a few diagnostic
+builds that show where the select loop's, the esf kernel's and the
+auctions' time goes ("auction prologue only": FastSLAM's association
+stops after its prologue pass, so the rest is the rounds and the readout;
+"square empty rounds": no row of the square auction bids, so every phase
+runs its budget of rounds that do nothing but synchronise, the cost of a
+round without bidders).
 
     python3 -m phdslam_tpu_torch.kernels.sweep [NAME ...]
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc; the
 inputs are ``chip_smoke.py``'s seeded dense ones (8192 x 512 x 64 for the
 selects, a [8192, 560] -> 128 pool at min_sep 4 for merge3, log Lambda
-[1024, 64] for esf). Each variant copies ``csrc/`` to a temporary
+[1024, 64] for esf, FastSLAM's raw benefit at [8192, 64, 512] and [256,
+64, 128], the OSPA costs of 8 set pairs at n = 16, 64 and 256). Each
+variant copies ``csrc/`` to a temporary
 directory, applies its edits, builds it with ``kernels/_build.py`` and
 prints one line: registers and CTAs per SM, the times (CUDA events) of
 select normalised at k1 = 8, 1 and 31, raw at k1 = 8, by index and at F =
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import re
 import shutil
 import sys
@@ -36,10 +44,12 @@ import numpy as np
 import torch
 
 from phdslam_tpu_torch.kernels import _build
+from phdslam_tpu_torch.kernels import auction as A
 from phdslam_tpu_torch.kernels import esf as E
 from phdslam_tpu_torch.kernels import merge3 as G3
 from phdslam_tpu_torch.kernels import select as S
 from phdslam_tpu_torch.kernels import select4 as S4
+from phdslam_tpu_torch.ops import ospa as O
 
 _HEADER = "select_common.cuh"
 _SHUFFLES = """// The per-launch constants of the loop.""", """\
@@ -58,6 +68,10 @@ __device__ __forceinline__ int warp_min(int x) {
 _ESF_LAE = "mx + log1p_nonneg(expf(mn - mx))"
 _ESF_FILLS = "fills_card(four.kernel, 4LL * P * M)"
 _ESF_KERNEL = re.compile(r"esf_\w+")
+_PROLOGUE = "    int it = 0;\n    if (budget > 0 && M > 0) {\n"
+_SQUARE_BID = "if (s.assigned[m]) continue;\n          const float* row"
+_SQUARE_NO_BID = "if (true) continue;\n          const float* row"
+_SQUARE_REG_BID = "if (m >= n || s.assigned[m])"
 
 #: name -> (edits (file, old text, new text), what the variant is)
 VARIANTS = {
@@ -112,6 +126,13 @@ VARIANTS = {
                  "base-2 MUFU ex2.approx and lg2.approx, not exact"),
     "esf no math": ([("esf.cu", _ESF_LAE, "mx")],
                     "diagnostic: logaddexp is the max"),
+    "auction prologue only": ([("auction.cu", _PROLOGUE,
+                                "    if (budget > 0) continue;\n"
+                                + _PROLOGUE)],
+                              "diagnostic: no rounds, no readout"),
+    "square empty rounds": ([("auction.cu", _SQUARE_BID, _SQUARE_NO_BID),
+                             ("auction.cu", _SQUARE_REG_BID, "if (true)")],
+                            "diagnostic: no row bids"),
 }
 
 
@@ -202,6 +223,18 @@ def main(argv=None):
         "esf": lambda: E.esf_all_cuda(ll),
         "esf P = 256": lambda: E.esf_all_cuda(ll[:256]),
     }
+    for i, (Pa, Ma, Fa, kind) in enumerate(C.AUCTION_CASES[:2]):
+        ben, pv, budget = C.random_auction_inputs(Pa, Ma, Fa, 80 + i, dev,
+                                                  kind)
+        runs[f"auction [{Pa}, {Ma}, {Fa}]"] = functools.partial(
+            A.auction_assign_cuda, ben, pv, budget)
+    eps = O.eps_schedule(dev)
+    for n in C.OSPA_SIZES:
+        cost = torch.stack([O.padded_cost(*C.ospa_sets(n, s, dev)[4],
+                                          C.OSPA_P, C.OSPA_C)[1]
+                            for s in range(C.OSPA_SEEDS)]).contiguous()
+        runs[f"square n = {n}"] = functools.partial(
+            A.auction_square_cuda, cost, eps, O._BIDS_PER_N * n)
     first = None
     for name in names:
         edits, what = VARIANTS[name]
@@ -214,6 +247,11 @@ def main(argv=None):
                        for a, b in zip(outs[k], first[k]))
             ms = {k: C.cuda_ms(fn, 5 if k == "merge3" else 10)
                   for k, fn in runs.items()}
+            # the square auction's rounds: per problem over its phases
+            per_round = "; ".join(
+                f"{k} {ms[k] * 1e3 / float(outs[k][1].sum(1).float().mean()):.3f}"
+                f" us a round (mean {float(outs[k][1].sum(1).float().mean()):.1f}"
+                f" rounds a problem)" for k in runs if k.startswith("square"))
             live = [p > -1e29 for p in esf_plain]
             esf_err = max(float((k - p)[m].abs().max())
                           for k, p, m in zip(outs["esf"], esf_plain, live))
@@ -223,6 +261,7 @@ def main(argv=None):
                   + f"; esf max abs difference from plain {esf_err:.3e}"
                   + "; log1p_nonneg / log1pf mismatches on [0, inf) "
                   f"{lib.phd_esf_log1p_mismatches()}"
+                  + f"; {per_round}"
                   + f"; outputs as the first variant's: {same}", flush=True)
 
 

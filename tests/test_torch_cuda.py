@@ -923,32 +923,26 @@ def test_disparity_step_cuda_matches_cpu(dev):
 # ------------------------------------------------------------ auction --
 
 def _auction_inputs(P, M, F, seed, dev, gated=0.6, all_gated=()):
-    """FastSLAM's full benefit (F feature columns, a random share gated
-    out at _NEG, then M private no-match columns), clamped as the filter
-    clamps it: (clamped [P, M, F + M], eps [P], budget)."""
+    """FastSLAM's raw benefit (F feature columns, a random share gated out
+    at NEG) and a private value: (benefit [P, M, F], pv, budget)."""
     from phdslam_tpu_torch.filter import fastslam as FS
     rng = np.random.default_rng(seed)
     ben = rng.normal(-3.0, 3.0, (P, M, F))
     ben[rng.uniform(size=(P, M, F)) < gated] = FS._NEG
     ben[list(all_gated)] = FS._NEG
-    dummy = np.full((P, M, M), FS._NEG)
-    idx = np.arange(M)
-    dummy[:, idx, idx] = rng.normal(-4.0, 1.0, (P, M))
-    full = torch.as_tensor(np.concatenate([ben, dummy], 2),
-                           dtype=torch.float32, device=dev)
-    clamped, eps, _ = FS.clamp_benefit(full)
-    return clamped.contiguous(), eps.contiguous(), FS._BIDS_PER_ROW * (F + M)
+    return (torch.as_tensor(ben, dtype=torch.float32, device=dev),
+            float(rng.normal(-4.0, 1.0)), FS._BIDS_PER_ROW * (F + M))
 
 
-def _assert_auction_equal(clamped, eps, budget):
+def _assert_auction_equal(ben, pv, budget):
     from phdslam_tpu_torch.kernels import auction as A
-    owner, iters = A.auction_rows_cuda(clamped, eps, budget)
-    owner_p, iters_p = A.auction_rows_plain(clamped, eps, budget)
-    assert torch.equal(owner, owner_p)
+    col, iters = A.auction_assign_cuda(ben, pv, budget)
+    col_p, iters_p = A.auction_assign_plain(ben, pv, budget)
+    assert torch.equal(col, col_p)
     assert torch.equal(iters, iters_p)
-    M = clamped.shape[1]
-    assert int(owner.min()) >= -1 and int(owner.max()) < M
-    return owner, iters
+    P, M, F = ben.shape
+    assert int(col.min()) >= 0 and int(col.max()) < F + M
+    return col, iters
 
 
 @pytest.mark.parametrize("P,M,F", [
@@ -958,74 +952,75 @@ def _assert_auction_equal(clamped, eps, budget):
     (3, 5, 17), (2, 1, 1), (5, 40, 0), (7, 33, 95),
 ])
 def test_auction_kernel_matches_plain(dev, P, M, F):
-    """Owners and rounds bit for bit; a second launch gives the same."""
+    """Columns and rounds bit for bit (the clamp, the rounds and the
+    readout in one launch); a second launch gives the same."""
     from phdslam_tpu_torch.kernels import auction as A
-    clamped, eps, budget = _auction_inputs(P, M, F, P + M + F, dev)
-    owner, iters = _assert_auction_equal(clamped, eps, budget)
-    assert torch.equal(A.auction_rows_cuda(clamped, eps, budget)[0], owner)
+    ben, pv, budget = _auction_inputs(P, M, F, P + M + F, dev)
+    col, iters = _assert_auction_equal(ben, pv, budget)
+    assert torch.equal(A.auction_assign_cuda(ben, pv, budget)[0], col)
     assert int(iters.min()) >= 1 and int(iters.max()) < budget
 
 
 def test_auction_kernel_all_gated_particles(dev):
     """Particles whose rows have only their private columns live: one
     round, each row on its own column."""
-    clamped, eps, budget = _auction_inputs(16, 12, 30, 3, dev,
-                                           all_gated=range(0, 16, 2))
-    owner, iters = _assert_auction_equal(clamped, eps, budget)
+    ben, pv, budget = _auction_inputs(16, 12, 30, 3, dev,
+                                      all_gated=range(0, 16, 2))
+    col, iters = _assert_auction_equal(ben, pv, budget)
     assert (iters[::2] == 1).all()
-    expect = torch.full((30 + 12,), -1, dtype=torch.int32, device=dev)
-    expect[30:] = torch.arange(12, dtype=torch.int32, device=dev)
-    assert (owner[::2] == expect).all()
+    expect = torch.arange(30, 42, dtype=torch.int32, device=dev)
+    assert (col[::2] == expect).all()
 
 
 def test_auction_kernel_each_side_of_the_shared_memory_edges(dev):
-    """Both places a launch may keep its data: the benefit staged in
-    shared memory or read from device memory (C at the largest staged
-    width and one past it, M = 64), and the state in shared memory or in
-    device-memory scratch (C at the widest shared state and one past it,
-    M = 8)."""
+    """Both places a launch may keep its state: shared memory, or a
+    device-memory slice per CTA (C at the widest shared state and one past
+    it, at M = 8 and M = 64)."""
     from phdslam_tpu_torch.kernels import _build
     lib, _ = _build.library()
 
-    def edge(M, path):
-        lo, hi = 1, 1 << 20              # path(M, lo) >= path, at hi below
+    def edge(M):
+        lo, hi = M + 1, 1 << 20          # path(M, lo) == 1, at hi 0
         while hi - lo > 1:
             mid = (lo + hi) // 2
-            lo, hi = (mid, hi) if lib.phd_auction_path(M, mid) >= path \
+            lo, hi = (mid, hi) if lib.phd_auction_path(M, mid) == 1 \
                 else (lo, mid)
         return lo
 
-    for M, path, P in ((64, 2, 6), (8, 1, 3)):
-        C = edge(M, path)
+    for M, P in ((8, 3), (64, 2)):
+        C = edge(M)
         for c in (C, C + 1):
-            assert lib.phd_auction_path(M, c) == (path if c == C
-                                                  else path - 1)
-            assert (lib.phd_auction_wide_floats(P, M, c) > 0) == (
-                c > C and path == 1)
+            assert lib.phd_auction_path(M, c) == (1 if c == C else 0)
+            assert (lib.phd_auction_wide_floats(P, M, c - M) > 0) == (c > C)
             _assert_auction_equal(*_auction_inputs(P, M, c - M, c, dev))
 
 
 def test_auction_kernel_nan_benefit_stays_in_range(dev):
-    """A NaN in the benefit (a NaN pose upstream) is the largest value of
-    its row, whose bid is NaN and never wins: the rounds end at the budget,
-    every owner is a row of the particle or -1, as in the plain version."""
-    clamped, eps, _ = _auction_inputs(8, 16, 40, 9, dev)
-    clamped[1, 3, 7] = float("nan")
-    clamped[4] = float("nan")
-    clamped[5, :, 50] = float("nan")
-    owner, iters = _assert_auction_equal(clamped, eps, 300)
-    assert int(iters[1]) == 300 and int(iters[4]) == 300
-    assert int(iters[0]) < 300
+    """A NaN in the raw benefit (a NaN pose upstream) is not live: it is
+    clamped to the floor, as in JAX, and the rounds end as for any other
+    particle; a NaN private value leaves the rows no live private column.
+    Columns and rounds as in the plain version, every column in range."""
+    ben, pv, budget = _auction_inputs(8, 16, 40, 9, dev)
+    ben[1, 3, 7] = float("nan")
+    ben[4] = float("nan")
+    ben[5, :, 30] = float("nan")
+    col, iters = _assert_auction_equal(ben, pv, budget)
+    assert int(iters.max()) < budget
+    assert (col[4] == torch.arange(40, 56, dtype=torch.int32,
+                                   device=dev)).all()
+    _assert_auction_equal(ben, float("nan"), 300)
 
 
 def test_auction_kernel_budget(dev):
-    """A budget below what the rows need stops every particle there, as in
-    the plain version; a budget of 0 runs no round."""
-    clamped, eps, _ = _auction_inputs(64, 32, 64, 11, dev, gated=0.2)
-    _, iters = _assert_auction_equal(clamped, eps, 2)
-    assert int(iters.max()) == 2
-    owner, iters = _assert_auction_equal(clamped, eps, 0)
-    assert int(iters.max()) == 0 and int(owner.max()) == -1
+    """A budget below what the rows need stops every particle there and the
+    rows left take their best column only they can win, as in the plain
+    version; a budget of 0 runs no round and every row falls back."""
+    ben, pv, _ = _auction_inputs(64, 32, 64, 11, dev, gated=0.2)
+    for budget in (2, 1):
+        _, iters = _assert_auction_equal(ben, pv, budget)
+        assert int(iters.max()) == budget
+    col, iters = _assert_auction_equal(ben, pv, 0)
+    assert int(iters.max()) == 0
 
 
 @pytest.mark.parametrize("assoc", [0, 1])
@@ -1102,14 +1097,16 @@ def _assert_square_equal(cost, budget):
 
 
 @pytest.mark.parametrize("B,n", [(8, 16), (8, 64), (8, 256), (3, 1),
-                                 (5, 2), (4, 37), (2, 230)])
+                                 (5, 2), (4, 37), (2, 230), (2, 255),
+                                 (2, 256)])
 def test_square_auction_kernel_matches_plain(dev, B, n):
     """Owners and the rounds of each phase bit for bit, at the default
-    budget of 16 n a phase; n = 256 takes the device-memory path (the cost
-    is 256 KiB, past a CTA's shared memory)."""
+    budget of 16 n a phase; the cost stays on chip: in shared memory up to
+    n = 230, in shared memory and registers at 255 and 256 (256 KiB, past a
+    CTA's shared memory)."""
     from phdslam_tpu_torch.kernels import _build
     lib, _ = _build.library()
-    assert lib.phd_auction_square_path(n) == (1 if n == 256 else 2)
+    assert lib.phd_auction_square_path(n) == (3 if n >= 255 else 2)
     owner, iters = _assert_square_equal(_square_costs(B, n, 7 * n, dev),
                                         16 * n)
     assert int(iters.min()) >= 1 and int(iters.max()) < 16 * n
@@ -1124,15 +1121,18 @@ def test_square_auction_kernel_budget(dev):
 
 
 def test_square_auction_kernel_each_side_of_the_shared_memory_edge(dev):
-    """The cost staged in shared memory at the largest n that fits, read
-    from device memory one past it."""
+    """The cost in shared memory at the largest n that fits, in shared
+    memory and registers one past it; in shared memory and registers at n
+    = 256 (the registers' edge), read from device memory at 257."""
     from phdslam_tpu_torch.kernels import _build
     lib, _ = _build.library()
     n = 1
     while lib.phd_auction_square_path(n + 1) == 2:
         n += 1
-    assert lib.phd_auction_square_path(n + 1) == 1
-    for m in (n, n + 1):
+    assert lib.phd_auction_square_path(n + 1) == 3
+    assert lib.phd_auction_square_path(256) == 3
+    assert lib.phd_auction_square_path(257) == 1
+    for m in (n, n + 1, 256, 257):
         _assert_square_equal(_square_costs(2, m, m, dev), 16 * m)
 
 

@@ -45,31 +45,49 @@ def _fs_cfg(tiny_cfg, **kw):
 # ------------------------------------------------------------ auction --
 
 def _auction_case(rng, m=12, f=30):
-    """test_fastslam.py's scipy case: 60 % of the pairs gated out, private
-    no-match columns on the diagonal."""
+    """test_fastslam.py's scipy case: 60 % of the pairs gated out, one
+    private value on the diagonal of the no-match columns. Returns (raw
+    benefit [m, f], private value, full benefit [m, f + m])."""
     ben = rng.normal(size=(m, f)) * 3.0
-    ben = np.where(rng.random((m, f)) < 0.6, JF._NEG, ben)
-    dummy = np.full((m, m), JF._NEG)
-    np.fill_diagonal(dummy, rng.normal(size=m) - 2.0)
-    return np.concatenate([ben, dummy], axis=1).astype(np.float32)
+    ben = np.where(rng.random((m, f)) < 0.6, JF._NEG, ben).astype(np.float32)
+    pv = float(rng.normal() - 2.0)
+    return ben, pv, _full(ben, pv)
+
+
+def _full(ben, pv):
+    """The JAX side's benefit: the private columns concatenated as
+    phdslam_tpu/filter/fastslam.py builds them (:220-224)."""
+    m = ben.shape[-2]
+    dummy = np.where(np.eye(m, dtype=bool), np.float32(pv),
+                     np.float32(JF._NEG))
+    dummy = np.broadcast_to(dummy, ben.shape[:-1] + (m,))
+    return np.concatenate([ben, dummy], axis=-1).astype(np.float32)
+
+
+def _assign(ben, pv, budget=None):
+    """The port's auction_assign (plain on the CPU) on raw benefits."""
+    ben = np.asarray(ben, np.float32)
+    budget = 128 * (ben.shape[-1] + ben.shape[-2]) if budget is None \
+        else budget
+    col, iters = A.auction_assign(torch.as_tensor(ben), pv, budget)
+    assert col.dtype == torch.int32 and iters.dtype == torch.int32
+    return col.numpy(), iters.numpy()
 
 
 @pytest.mark.parametrize("trial", range(5))
 def test_auction_plain_matches_jax_and_scipy(trial):
-    """The port's clamp, auction_rows_plain and column readout give JAX's
-    _auction_rows columns exactly, within 2e-3 span m of scipy's optimum."""
+    """The port's auction_assign_plain on the raw benefit gives JAX's
+    _auction_rows columns on the concatenated one exactly, within 2e-3
+    span m of scipy's optimum."""
     from scipy.optimize import linear_sum_assignment
     rng = np.random.default_rng(0)
     for _ in range(trial + 1):
-        full = _auction_case(rng)
+        ben, pv, full = _auction_case(rng)
     m = full.shape[0]
     ref = np.asarray(JF._auction_rows(jnp.asarray(full)))
-    clamped, eps, live = TF.clamp_benefit(torch.as_tensor(full)[None])
-    owner, iters = A.auction_rows_plain(clamped, eps, 128 * full.shape[1])
-    col = TF.col_of_row(owner, clamped, live)[0].numpy()
+    col, iters = _assign(ben[None], pv)
+    col = col[0]
     np.testing.assert_array_equal(col, ref)
-    np.testing.assert_array_equal(
-        TF.auction_assign(torch.as_tensor(full)[None])[0].numpy(), ref)
     got = full[np.arange(m), col].sum()
     rows, cols = linear_sum_assignment(-full)
     opt = full[rows, cols].sum()
@@ -81,51 +99,166 @@ def test_auction_plain_matches_jax_and_scipy(trial):
 
 def test_auction_all_private_columns():
     m, f = 4, 6
-    full = np.full((m, f + m), JF._NEG, np.float32)
-    for i in range(m):
-        full[i, f + i] = -3.0
-    ref = np.asarray(JF._auction_rows(jnp.asarray(full)))
-    got = TF.auction_assign(torch.as_tensor(full)[None])[0].numpy()
-    np.testing.assert_array_equal(got, ref)
-    np.testing.assert_array_equal(got, f + np.arange(m))
+    ben = np.full((m, f), JF._NEG, np.float32)
+    ref = np.asarray(JF._auction_rows(jnp.asarray(_full(ben, -3.0))))
+    got, iters = _assign(ben[None], -3.0)
+    np.testing.assert_array_equal(got[0], ref)
+    np.testing.assert_array_equal(got[0], f + np.arange(m))
+    assert int(iters[0]) == 1
 
 
 def test_auction_batch_equals_per_particle_calls():
     """Particles that converge in one round (only private columns live)
     beside particles that take many: the batched plain version freezes each
-    finished particle, so every particle's owners and rounds equal a call
+    finished particle, so every particle's columns and rounds equal a call
     on it alone, and the columns equal JAX's vmapped _auction_rows."""
     rng = np.random.default_rng(3)
-    fulls = [_auction_case(rng) for _ in range(6)]
-    for i in (1, 4):
-        fulls[i][:, :30] = JF._NEG
-    full = np.stack(fulls)
-    clamped, eps, live = TF.clamp_benefit(torch.as_tensor(full))
-    budget = 128 * full.shape[2]
-    owner, iters = A.auction_rows_plain(clamped, eps, budget)
+    cases = [_auction_case(rng) for _ in range(6)]
+    ben = np.stack([c[0] for c in cases])
+    ben[[1, 4]] = JF._NEG
+    pv = cases[0][1]
+    budget = 128 * 42
+    col, iters = _assign(ben, pv, budget)
     assert int(iters[1]) == int(iters[4]) == 1
     assert int(iters.max()) > 2
-    for p in range(len(fulls)):
-        o, it = A.auction_rows_plain(clamped[p:p + 1], eps[p:p + 1], budget)
-        assert torch.equal(o[0], owner[p]) and int(it[0]) == int(iters[p])
-    ref = np.asarray(jax.vmap(JF._auction_rows)(jnp.asarray(full)))
-    np.testing.assert_array_equal(
-        TF.col_of_row(owner, clamped, live).numpy(), ref)
+    for p in range(len(cases)):
+        c, it = _assign(ben[p:p + 1], pv, budget)
+        np.testing.assert_array_equal(c[0], col[p])
+        assert int(it[0]) == int(iters[p])
+    ref = np.asarray(jax.vmap(JF._auction_rows)(jnp.asarray(_full(ben, pv))))
+    np.testing.assert_array_equal(col, ref)
 
 
 def test_auction_plain_nan_ends_at_the_budget_in_range():
-    """A NaN in the benefit: its row bids NaN, which never wins, so the
+    """A NaN in the clamped benefit (the rounds' core, _rounds, as the
+    kernel's bid round sees it): its row bids NaN, which never wins, so the
     rounds end at the budget; every owner stays a row or -1 and the column
     readout falls back to the private columns, in range."""
     rng = np.random.default_rng(5)
-    full = np.stack([_auction_case(rng) for _ in range(3)])
-    clamped, eps, live = TF.clamp_benefit(torch.as_tensor(full))
+    full = np.stack([_auction_case(rng)[2] for _ in range(3)])
+    clamped, eps, live = A.clamp_benefit(torch.as_tensor(full))
     clamped[1, 2, 5] = float("nan")
-    owner, iters = A.auction_rows_plain(clamped, eps, 200)
+    owner, iters, _, _, _ = A._rounds(clamped, eps, 200,
+                                      clamped.new_zeros(clamped.shape[::2]))
     assert int(iters[1]) == 200 and int(iters[0]) < 200
     assert int(owner.min()) >= -1 and int(owner.max()) < 12
-    col = TF.col_of_row(owner, clamped, live)
+    col = A.col_of_row(owner, clamped, live)
     assert int(col.min()) >= 0 and int(col.max()) < full.shape[2]
+
+
+def _raw_cases(kind, rng):
+    """Raw [P, M, F] benefits for the JAX comparison: (benefit, pv)."""
+    P, M, F = 5, 10, 24
+    ben = np.where(rng.random((P, M, F)) < 0.5, JF._NEG,
+                   rng.normal(size=(P, M, F)) * 3.0).astype(np.float32)
+    if kind == "private_only":
+        ben[:] = JF._NEG
+    elif kind == "padded":                  # z_valid false: rows gated out
+        ben[:, 7:] = JF._NEG
+    elif kind == "nan":                     # a NaN pose upstream
+        ben[0, 2, 3] = np.nan
+        ben[1] = np.nan
+        ben[2, :, 5] = np.nan
+        ben[3, 4, :] = np.nan
+    elif kind == "all_gated":
+        ben[2] = JF._NEG
+    return ben, float(rng.normal() - 2.0)
+
+
+@pytest.mark.parametrize("kind", ["random", "private_only", "padded", "nan",
+                                  "all_gated"])
+def test_auction_assign_matches_jax(kind):
+    """auction_assign_plain on raw benefits [P, M, F] and one private value
+    against JAX's jax.vmap(_auction_rows) on the concatenated benefit:
+    the columns exactly. A NaN in the raw benefit is not live, so it is
+    clamped to the floor on both sides."""
+    ben, pv = _raw_cases(kind, np.random.default_rng(
+        ["random", "private_only", "padded", "nan", "all_gated"].index(kind)))
+    ref = np.asarray(jax.vmap(JF._auction_rows)(jnp.asarray(_full(ben, pv))))
+    col, iters = _assign(ben, pv)
+    np.testing.assert_array_equal(col, ref)
+    M, F = ben.shape[1:]
+    if kind == "private_only":
+        np.testing.assert_array_equal(col, np.broadcast_to(F + np.arange(M),
+                                                           col.shape))
+        assert (iters == 1).all()
+    if kind == "padded":
+        np.testing.assert_array_equal(
+            col[:, 7:], np.broadcast_to(F + np.arange(7, M), col[:, 7:].shape))
+    if kind == "all_gated":
+        np.testing.assert_array_equal(col[2], F + np.arange(M))
+
+
+def _kernel_prologue(ben, pv):
+    """csrc/auction.cu::assign_kernel's prologue on one particle, each
+    operation an IEEE float32 one as the kernel does it: (eps, floor)."""
+    f32 = np.float32
+    live_above = f32(JF._NEG / 2)
+    vals = np.concatenate([ben.ravel(), [f32(pv)]]).astype(f32)
+    with np.errstate(invalid="ignore"):
+        live = vals[vals > live_above]
+    hi = live.max() if live.size else f32(-np.inf)
+    lo = live.min() if live.size else f32(np.inf)
+    hi = hi if np.isfinite(hi) else f32(0.0)
+    lo = lo if np.isfinite(lo) else f32(0.0)
+    d = f32(hi - lo)
+    span = f32(1.0) if d < f32(1.0) else d
+    floor = f32(f32(lo - f32(f32(4.0) * span)) - f32(1.0))
+    return f32(f32(1e-3) * span), floor
+
+
+def test_auction_prologue_is_the_clamp_bit_for_bit():
+    """The kernel's prologue (eps, floor), rounded op by op in float32 with
+    the scalars cast as PyTorch casts them, equals clamp_benefit's on the
+    concatenated benefit, bit for bit: spans from below 1 to 1e29, values
+    at _NEG / 2's edge, NaN, +inf, nothing live."""
+    rng = np.random.default_rng(11)
+    P, M, F = 12, 6, 9
+    ben = (rng.normal(size=(P, M, F))
+           * np.logspace(-3, 29, P)[:, None, None]).astype(np.float32)
+    ben[rng.random((P, M, F)) < 0.4] = JF._NEG
+    ben[3, 0, 0] = np.float32(JF._NEG / 2)          # not live: not above
+    ben[4, 1, 1] = np.nextafter(np.float32(JF._NEG / 2), np.float32(0))
+    ben[5, 2, 2] = np.nan
+    ben[6, 3, 3] = np.inf
+    ben[7] = JF._NEG                                # only pv live
+    ben[8, :, :4] = -4.0e29
+    for pv in (-2.5, -4.9e29, JF._NEG):             # pv not live last
+        clamped, eps, _ = A.clamp_benefit(torch.as_tensor(_full(ben, pv)))
+        floor = clamped.amin((1, 2)).numpy()
+        for p in range(P):
+            k_eps, k_floor = _kernel_prologue(ben[p], pv)
+            # the private columns off the diagonal hold the floor
+            assert np.float32(eps[p]).tobytes() == k_eps.tobytes(), (pv, p)
+            assert floor[p].tobytes() == k_floor.tobytes(), (pv, p)
+
+
+@pytest.mark.parametrize("budget", [0, 1, 2])
+def test_auction_assign_readout_at_the_budget(budget):
+    """A budget the rows cannot finish in: auction_assign_plain equals the
+    old composition (concatenate, clamp_benefit, the rounds, col_of_row)
+    column for column, and the rows left unassigned take their best column
+    only they can win."""
+    rng = np.random.default_rng(21 + budget)
+    ben = np.stack([_auction_case(rng, m=8, f=6)[0] for _ in range(4)])
+    ben[0, :, 1] = np.float32(JF._NEG)
+    ben[0, 3, 1] = 2.0                              # column 1: row 3 alone
+    pv = -1.5
+    full = torch.as_tensor(_full(ben, pv))
+    clamped, eps, live = A.clamp_benefit(full)
+    owner, iters, _, assigned, _ = A._rounds(
+        clamped, eps, budget, clamped.new_zeros(clamped.shape[::2]))
+    old = A.col_of_row(owner, clamped, live)
+    col, it = _assign(ben, pv, budget)
+    np.testing.assert_array_equal(col, old.numpy())
+    np.testing.assert_array_equal(it, iters.numpy())
+    assert (it == budget).all() and (~assigned).any()
+    left = ~assigned.numpy()
+    assert ((col >= 0) & (col < 14)).all()
+    # an unassigned row's column is live for it and for no other row
+    live_n = live.numpy().sum(1)
+    for p, m in zip(*np.nonzero(left)):
+        assert live[p, m, col[p, m]] and live_n[p, col[p, m]] == 1
 
 
 # ----------------------------------------------------- fastslam_update --
