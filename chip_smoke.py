@@ -61,6 +61,11 @@ code is not 0:
        CTAs per SM; then ospa_torch, the entry point, on every pair with
        its launches counted from 0, within 2e-2 of ospa_np (card term
        1e-4), and its time a call
+     - run sets: select and select4, both modes (select normalised and
+       raw), on 4 runs of the shipped shape blockwise, each run with its
+       own measurement set (select: and its own n_valid): one launch bit
+       for bit as 4 single-run launches on the particle slices, and
+       against the plain version on the same per-run inputs
      - past the old limits, each against plain and timed: select and
        select4 (both modes) at 64 x 4096 x 64 (the wide-row kernels), merge
        [64, 7745] -> 256, merge4 [64, 3521] -> 256, merge3 [64, 5052] -> 128
@@ -116,7 +121,23 @@ code is not 0:
      launch counts from 0 before each: select, merge and (CPHD) esf once
      per update step; the late-half mean OSPA within the JAX record's
      ospa_late_std of its ospa_late_mean (results/round3_evidence.json),
-     the late-half pose error below 1.5 m; run_batch's ms per step
+     the late-half pose error below 1.5 m; run_batch's ms per step; then
+     both arms again with vmapped=True (the 20 runs in one chunk): the
+     same gates, each kernel launched once per step of the chunk (not per
+     run), ms per run-step beside the sequential path's. Then:
+     - one batched step of 8 runs (after 30 steps together) against each
+       run stepped alone from the same state and draws, the resample
+       forced, PHD and CPHD: each run's log-likelihood within 1e-5
+       relative, resample picks differing on at most 0.1 % of particles
+     - FastSLAM (cfg/fastslam_synth.cfg) and mixed (cfg/mixed_synth.cfg)
+       run_batch, 4 runs x 20 steps, sequential and vmapped: every pose
+       finite, the kernels launched once per update step of each run or
+       once per step of the chunk; the gap between the pose curves logged
+     - fill probe: vmapped at JAX's default chunk (65536 // 256 = 256 runs
+       of 256 particles) over the first 50 steps, PHD and CPHD: ms per
+       run-step and peak device memory (with --profile, the busy share and
+       the ops with the most device time); one step's draws for 20 and for
+       256 runs, from a generator a run against one generator
   6c. FastSLAM main path - scripts/fastslam_evidence.py's low-clutter cell
      (cfg/fastslam_synth.cfg at clutter 2, std_range 0.25, start pose 0;
      256 particles x 128 slots x 64 measurements, 150 steps of
@@ -160,7 +181,7 @@ adds, before the JSON lines, a torch.profiler pass over the static step at
 the dense and the shipped shape, the dense CPHD step, the dense disparity
 step and the FastSLAM step at the dense and the shipped shape: host wall
 time, the device's busy share and the ops with the most device time (the
-breakdown in PERF.md).
+breakdown in PERF.md); and the fill probe's busy share.
 """
 
 from __future__ import annotations
@@ -286,6 +307,18 @@ MC_RUNS, MC_STEPS, MC_LANDMARKS, MC_SCENARIO_SEED = 20, 200, 80, 42
 MC_CONTROL_NOISE, MC_EVERY, MC_POSE_BAR_M = (0.2, 0.01), 4, 1.5
 MC_ARMS = (("PHD", {}), ("CPHD", dict(filterType=1, maxCardinality=127)))
 MC_RECORD = "results/round3_evidence.json"
+# the run axis (run_batch(vmapped=True)): phase 2's per-run measurement
+# sets; the one-step comparison (MC_STEP_RUNS runs stepped together for
+# MC_STEP_AT steps, then one more step batched and run by run; per-run
+# log-likelihoods within MC_LOG_LIK_RTOL, resample picks within
+# MAX_DIFFER); FastSLAM and mixed, MC_SIDE_RUNS runs x MC_SIDE_STEPS steps
+# vmapped and sequential; the fill probe, JAX's default chunk (65536 //
+# 256 = 256 runs) over the first MC_FILL_STEPS steps
+RUN_SETS = 4
+MC_PARTICLES, MC_FILL_PARTICLES = 256, 65536
+MC_STEP_RUNS, MC_STEP_AT, MC_LOG_LIK_RTOL = 8, 30, 1e-5
+MC_SIDE_RUNS, MC_SIDE_STEPS = 4, 20
+MC_FILL_STEPS = 50
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -875,6 +908,88 @@ def phase_select4(dev, stats):
             f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} ms by "
             f"{s['bound_by']})")
     log(f"phase select4: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------ phase 2: per-run measurement sets --
+
+def run_sets(R, M, cfg, seed, dev):
+    """R seeded measurement sets [R, M, 2] over the sensor's range."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(np.stack(
+        [rng.uniform(0.5, cfg.maxRange, (R, M)),
+         rng.uniform(-cfg.maxBearing, cfg.maxBearing, (R, M))],
+        -1).astype(np.float32), device=dev)
+
+
+def phase_select_runs(dev, stats):
+    """select and select4, both modes, on RUN_SETS runs of the shipped
+    shape blockwise, each run with its own measurement set (select: and
+    its own n_valid): one launch against RUN_SETS single-run launches on
+    the particle slices, bit for bit, and against the plain version on the
+    same per-run inputs."""
+    import torch
+    S, S4 = _mods()[:2]
+    t0 = time.perf_counter()
+    R = RUN_SETS
+    n, F, M = SHIPPED["P"], SHIPPED["F"], SHIPPED["M"]
+    P = R * n
+    cfg, pre, gm, z1 = random_select_inputs(P, F, M, 31, dev)
+    z = run_sets(R, M, cfg, 32, dev)
+    nv = torch.tensor([M, 41, M, 7][:R], dtype=torch.int32, device=dev)
+    pre4, gm4, _ = random_select4_inputs(P, F, M, 33, dev)
+    loop4, gain, mean, cov = S4.select4_channels(pre4, gm4)
+    loop4 = [c.contiguous() for c in loop4]
+    pay4 = [gain.contiguous(), mean.contiguous(), cov.contiguous()]
+    cut = lambda xs, sl: [x[sl] for x in xs]
+    cases = []
+    for raw in (False, True):
+        chans, kw, _ = _select_args(S, cfg, pre, gm, z1, dict(
+            raw=raw, with_compat=not raw, with_lpw=not raw, nv=None))
+        kwb = dict(kw, by_index=True)
+        cases += [
+            (f"select raw={raw}", "select", S.select_cuda, S.select_plain,
+             lambda zz, v, sl, c=chans: (cut(c, sl), zz, v), kw,
+             select_outputs_agree),
+            (f"select by index raw={raw}", "select_by_index", S.select_cuda,
+             S.select_plain,
+             lambda zz, v, sl, c=chans: (cut(c[:S_LOOP], sl), zz, v), kwb,
+             compare_rows)]
+    cases += [
+        ("select4", "select4", S4.select4_cuda, S4.select4_plain,
+         lambda zz, v, sl: (cut(loop4, sl), *cut(pay4, sl), zz),
+         dict(k1=K1), select4_outputs_agree),
+        ("select4 by index", "select4_by_index", S4.select4_cuda,
+         S4.select4_plain,
+         lambda zz, v, sl: (cut(loop4, sl), None, None, None, zz),
+         dict(k1=K1, by_index=True), compare_rows)]
+    for what, key, kern_fn, plain_fn, args, kw, agree in cases:
+        zero_launch_counts()
+        got = kern_fn(*args(z, nv, slice(None)), **kw)
+        launched = sum(launch_counts().values())
+        if launched != 1:
+            raise RuntimeError(f"{what} with {R} run sets: {launched} "
+                               "launches, expected 1")
+        n_diff = 0
+        for r in range(R):
+            sl = slice(r * n, (r + 1) * n)
+            one = kern_fn(*args(z[r].contiguous(), nv[r:r + 1].contiguous(),
+                                sl), **kw)
+            same = torch.ones(n, dtype=torch.bool, device=dev)
+            for g, o in zip(got, one):
+                same &= (g[sl] == o).reshape(n, -1).all(1)
+            n_diff += int((~same).sum())
+        if n_diff:
+            raise RuntimeError(f"{what} with {R} run sets: {n_diff} of {P} "
+                               "particles differ from the single-run "
+                               "launches")
+        n_bad, err = agree(got, plain_fn(*args(z, nv, slice(None)), **kw))
+        _limit(n_bad, P, f"{what} with {R} run sets")
+        _err(stats, key, err)
+        log(f"{what} {R} runs x {n}x{F}x{M}: bit for bit as {R} single-run "
+            f"launches; against plain {n_bad}/{P} particles differing "
+            f"(max_abs_err {err:.3e})")
+    log(f"phase run sets: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------------------ phase 2: merge4 --
@@ -2021,68 +2136,325 @@ def phase_seed_envelopes(dev, stats):
 
 # ------------------------------------- phase 6e: Monte-Carlo envelope --
 
+def mc_setup(n_steps=MC_STEPS):
+    """scripts/round3_evidence.py::phase_variants' cfg and scenario, the
+    scenario cut to its first n_steps steps."""
+    import dataclasses
+
+    from phdslam_tpu_torch import load_config, simdata
+    base = load_config(str(ROOT / "cfg/ackerman_synth.cfg")).replace(
+        n_particles=MC_PARTICLES)
+    sc = simdata.make_scenario(np.random.default_rng(MC_SCENARIO_SEED),
+                               n_landmarks=MC_LANDMARKS, n_steps=MC_STEPS)
+    if n_steps < MC_STEPS:
+        sc = dataclasses.replace(sc, traj=sc.traj[:n_steps + 1],
+                                 controls_true=sc.controls_true[:n_steps])
+    return base, sc
+
+
+def update_steps(cfg, sc, runs):
+    """(update steps of the runs one after another, steps at which some run
+    updates): the launches of a per-update kernel on the sequential and on
+    the vmapped path."""
+    from phdslam_tpu_torch.eval import batch as B
+    t_len = sc.traj.shape[0]
+    has = np.stack([B._prepare_run(cfg, sc, r, 0, MC_CONTROL_NOISE,
+                                   t_len)[3].any(1) for r in runs])
+    return int(has.sum()), int(has.any(0).sum())
+
+
 def phase_mc_envelope(dev, stats):
     """run_batch, the Monte-Carlo harness, on scripts/round3_evidence.py's
-    variant setup for the PHD and the CPHD arm, counts from 0 before each:
-    select, merge and (CPHD) esf launched once per update step of the
-    runs; each arm's late-half mean OSPA within the JAX record's
-    ospa_late_std of its ospa_late_mean, its late-half mean pose error
-    below MC_POSE_BAR_M."""
-    from phdslam_tpu_torch import load_config, simdata
+    variant setup for the PHD and the CPHD arm, sequential and then
+    vmapped (the 20 runs in one chunk), counts from 0 before each run:
+    select, merge and (CPHD) esf launched once per update step of each run
+    (sequential) or once per step of the chunk (vmapped); each arm's
+    late-half mean OSPA within the JAX record's ospa_late_std of its
+    ospa_late_mean, its late-half mean pose error below MC_POSE_BAR_M;
+    ms per run-step of both paths."""
     from phdslam_tpu_torch.eval import batch as B
     t0 = time.perf_counter()
     record = json.loads((ROOT / MC_RECORD).read_text())["variants"]
-    base = load_config(str(ROOT / "cfg/ackerman_synth.cfg")).replace(
-        n_particles=256)
-    sc = simdata.make_scenario(np.random.default_rng(MC_SCENARIO_SEED),
-                               n_landmarks=MC_LANDMARKS, n_steps=MC_STEPS)
+    base, sc = mc_setup()
     t_len = sc.traj.shape[0]
     half = t_len // 2
-    # the update steps: those with a measurement, over every run
-    n_update = sum(int(B._prepare_run(base, sc, r, 0, MC_CONTROL_NOISE,
-                                      t_len)[3].any(1).sum())
-                   for r in range(MC_RUNS))
+    n_update, n_update_vm = update_steps(base, sc, range(MC_RUNS))
     for arm, over in MC_ARMS:
         cfg = base.replace(**over)
-        zero_launch_counts()
-        t_run = time.perf_counter()
-        res = B.run_batch(cfg, sc, MC_RUNS, control_noise=MC_CONTROL_NOISE,
-                          collect_maps_every=MC_EVERY, device=dev)
-        launches = launch_counts()
-        run_s = time.perf_counter() - t_run
-        with warnings.catch_warnings():     # steps no run scored: NaN
-            warnings.simplefilter("ignore", RuntimeWarning)
-            agg = B.aggregate(res)
-        ospa_late = float(np.nanmean(agg["ospa_mean"][half:]))
-        ospa_late_std = float(np.nanmean(agg["ospa_std"][half:]))
-        pose_late = float(agg["pose_err_mean"][half:].mean())
-        ms = np.array([r.ms_per_step for r in res])
-        ref = record[arm]
-        log(f"Monte-Carlo {arm}: {MC_RUNS} runs x {t_len} steps, launches "
-            f"{launches} (update steps {n_update}); late-half OSPA "
-            f"{ospa_late:.4f} (std over runs {ospa_late_std:.4f}; JAX record "
-            f"{ref['ospa_late_mean']:.4f} +- {ref['ospa_late_std']:.4f}), "
-            f"late-half pose error {pose_late:.4f} m (JAX "
-            f"{ref['pose_late_mean']:.4f}), card error late "
-            f"{float(agg['card_err_mean'][half:].mean()):.3f} (JAX "
-            f"{ref['card_err_late_mean']:.3f}); run_batch {ms.mean():.3f} "
-            f"ms/step (runs {ms.min():.3f}-{ms.max():.3f}), {run_s:.1f} s")
-        check_launches(launches, dict(
-            select=n_update, merge=n_update,
-            esf=n_update if over.get("filterType") == 1 else 0,
-            select_by_index=0, select4=0, select4_by_index=0, merge4=0,
-            merge3=0, auction=0, ospa_auction=0), f"Monte-Carlo {arm}")
-        if not abs(ospa_late - ref["ospa_late_mean"]) <= ref["ospa_late_std"]:
-            raise RuntimeError(
-                f"Monte-Carlo {arm}: late-half OSPA {ospa_late:.4f} is not "
-                f"within {ref['ospa_late_std']:.4f} of JAX's "
-                f"{ref['ospa_late_mean']:.4f}")
-        if not pose_late < MC_POSE_BAR_M:
-            raise RuntimeError(f"Monte-Carlo {arm}: late-half pose error "
-                               f"{pose_late:.4f} m is not below "
-                               f"{MC_POSE_BAR_M} m")
-        stats[f"mc_{arm.lower()}_ms_per_step"] = float(ms.mean())
+        ms_seq = None
+        for vmapped in (False, True):
+            path = "vmapped" if vmapped else "sequential"
+            zero_launch_counts()
+            t_run = time.perf_counter()
+            res = B.run_batch(cfg, sc, MC_RUNS,
+                              control_noise=MC_CONTROL_NOISE,
+                              collect_maps_every=MC_EVERY, vmapped=vmapped,
+                              device=dev)
+            launches = launch_counts()
+            run_s = time.perf_counter() - t_run
+            with warnings.catch_warnings():     # steps no run scored: NaN
+                warnings.simplefilter("ignore", RuntimeWarning)
+                agg = B.aggregate(res)
+            ospa_late = float(np.nanmean(agg["ospa_mean"][half:]))
+            ospa_late_std = float(np.nanmean(agg["ospa_std"][half:]))
+            pose_late = float(agg["pose_err_mean"][half:].mean())
+            ms = np.array([r.ms_per_step for r in res])
+            ref = record[arm]
+            n_up = n_update_vm if vmapped else n_update
+            log(f"Monte-Carlo {arm} {path}: {MC_RUNS} runs x {t_len} steps, "
+                f"launches {launches} (update steps {n_up}); late-half OSPA "
+                f"{ospa_late:.4f} (std over runs {ospa_late_std:.4f}; JAX "
+                f"record {ref['ospa_late_mean']:.4f} +- "
+                f"{ref['ospa_late_std']:.4f}), late-half pose error "
+                f"{pose_late:.4f} m (JAX {ref['pose_late_mean']:.4f}), card "
+                f"error late {float(agg['card_err_mean'][half:].mean()):.3f} "
+                f"(JAX {ref['card_err_late_mean']:.3f}); run_batch "
+                f"{ms.mean():.3f} ms per run-step (runs {ms.min():.3f}-"
+                f"{ms.max():.3f}), {run_s:.1f} s")
+            check_launches(launches, dict(
+                select=n_up, merge=n_up,
+                esf=n_up if over.get("filterType") == 1 else 0,
+                select_by_index=0, select4=0, select4_by_index=0, merge4=0,
+                merge3=0, auction=0, ospa_auction=0),
+                f"Monte-Carlo {arm} {path}")
+            if not abs(ospa_late - ref["ospa_late_mean"]) \
+                    <= ref["ospa_late_std"]:
+                raise RuntimeError(
+                    f"Monte-Carlo {arm} {path}: late-half OSPA "
+                    f"{ospa_late:.4f} is not within {ref['ospa_late_std']:.4f}"
+                    f" of JAX's {ref['ospa_late_mean']:.4f}")
+            if not pose_late < MC_POSE_BAR_M:
+                raise RuntimeError(
+                    f"Monte-Carlo {arm} {path}: late-half pose error "
+                    f"{pose_late:.4f} m is not below {MC_POSE_BAR_M} m")
+            if vmapped:
+                stats[f"mc_{arm.lower()}_vmapped_ms_per_run_step"] = \
+                    float(ms.mean())
+                log(f"Monte-Carlo {arm}: vmapped {ms.mean():.3f} against "
+                    f"sequential {ms_seq:.3f} ms per run-step "
+                    f"({ms_seq / ms.mean():.2f}x)")
+            else:
+                ms_seq = float(ms.mean())
+                stats[f"mc_{arm.lower()}_ms_per_step"] = ms_seq
     log(f"phase Monte-Carlo envelope: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_mc_one_step(dev, stats):
+    """One batched step of MC_STEP_RUNS runs against each run stepped
+    alone, on the card, from the same states (the runs stepped together for
+    MC_STEP_AT steps of phase 6e's setup) and the same draws, PHD and CPHD
+    arms, the resample forced (threshold 2): per-run log-likelihoods
+    within MC_LOG_LIK_RTOL relative, resample picks within MAX_DIFFER of
+    the particles."""
+    import torch
+    from phdslam_tpu_torch.eval import batch as B
+    from phdslam_tpu_torch.filter.state import Measurements, SlamState
+    from phdslam_tpu_torch.filter.step import draw_noise, run_scan, slam_step
+    t0 = time.perf_counter()
+    base, sc = mc_setup(MC_STEP_AT + 1)
+    R, K = MC_STEP_RUNS, MC_STEP_AT
+    base = base.replace(x0=float(sc.traj[0, 0]), y0=float(sc.traj[0, 1]),
+                        yaw0=float(sc.traj[0, 2]))
+    n = base.n_particles
+    dts = np.full(K, base.dt, np.float32)
+    one_run = lambda z, r: Measurements(rb=z.rb[r], label=z.label[r],
+                                        valid=z.valid[r], count=z.count[r])
+    for arm, over in MC_ARMS:
+        cfg = base.replace(**over)
+        ctrl, zs, gens = B.chunk_inputs(cfg, sc, range(R), 0,
+                                        MC_CONTROL_NOISE, dev)
+        state, _ = run_scan(SlamState.create(cfg, dev, n_runs=R), ctrl[:K],
+                            zs[:K], dts, cfg, generator=gens)
+        cfg_s = cfg.replace(resampleThresh=2.0)
+        noise = draw_noise(cfg_s, R * n, dev, gens)
+        c = torch.as_tensor(ctrl[K], device=dev)
+        batch, aux = slam_step(state, (c[:, 0], c[:, 1]), zs[K],
+                               float(cfg.dt), True, cfg_s, noise=noise,
+                               z_prev=zs[K - 1])
+        worst, n_diff = 0.0, 0
+        for r in range(R):
+            sl = slice(r * n, (r + 1) * n)
+            alone, aux1 = slam_step(
+                state.map(lambda t: t[sl]),
+                (float(ctrl[K, r, 0]), float(ctrl[K, r, 1])),
+                one_run(zs[K], r), float(cfg.dt), True, cfg_s,
+                noise=(noise[0][:, sl], noise[1][sl]),
+                z_prev=one_run(zs[K - 1], r))
+            worst = max(worst, abs(float(aux.log_lik[r] - aux1.log_lik))
+                        / abs(float(aux1.log_lik)))
+            n_diff += int((batch.resample_idx[sl]
+                           != alone.resample_idx).sum())
+        log(f"one batched step, {arm}, {R} runs x {n} particles after {K} "
+            f"steps: log_lik per run within {worst:.3e} relative of each "
+            f"run alone (bar {MC_LOG_LIK_RTOL:g}); resample picks differing "
+            f"{n_diff}/{R * n}")
+        if not worst <= MC_LOG_LIK_RTOL:
+            raise RuntimeError(f"one batched step, {arm}: log_lik off by "
+                               f"{worst:.3e} relative")
+        _limit(n_diff, R * n, f"one batched step, {arm}: resample picks")
+    log(f"phase one batched step: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_mc_fastslam_mixed(dev, stats):
+    """run_batch with cfg/fastslam_synth.cfg and cfg/mixed_synth.cfg,
+    MC_SIDE_RUNS runs x MC_SIDE_STEPS steps of phase 6e's scenario,
+    sequential and vmapped, counts from 0 before each: each kernel of the
+    filter once per update step of each run (sequential) or once per step
+    of the chunk (vmapped); every pose finite; the gap between the two
+    paths' pose curves logged (their draws are the same)."""
+    from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.eval import batch as B
+    t0 = time.perf_counter()
+    _, sc = mc_setup(MC_SIDE_STEPS)
+    zero = dict(select=0, select_by_index=0, select4=0, select4_by_index=0,
+                merge=0, merge4=0, merge3=0, esf=0, auction=0,
+                ospa_auction=0)
+    for name, cfg_file, kernels in (
+            ("FastSLAM", "cfg/fastslam_synth.cfg", ("auction",)),
+            ("mixed", "cfg/mixed_synth.cfg",
+             ("select", "select4", "merge", "merge4"))):
+        cfg = load_config(str(ROOT / cfg_file))
+        n_seq, n_vm = update_steps(cfg, sc, range(MC_SIDE_RUNS))
+        out = {}
+        for vmapped, n_up in ((False, n_seq), (True, n_vm)):
+            zero_launch_counts()
+            res = B.run_batch(cfg, sc, MC_SIDE_RUNS,
+                              control_noise=MC_CONTROL_NOISE,
+                              collect_maps_every=MC_EVERY, vmapped=vmapped,
+                              device=dev)
+            check_launches(launch_counts(),
+                           dict(zero, **{k: n_up for k in kernels}),
+                           f"{name} {'vmapped' if vmapped else 'sequential'}")
+            if not all(np.isfinite(r.poses).all() for r in res):
+                raise RuntimeError(f"{name}: a pose is not finite")
+            out[vmapped] = res
+        gap = max(float(np.abs(a.poses[:, :2] - b.poses[:, :2]).max())
+                  for a, b in zip(out[False], out[True]))
+        err = [float(np.mean([r.pose_err.mean() for r in out[v]]))
+               for v in (False, True)]
+        ms = [float(np.mean([r.ms_per_step for r in out[v]]))
+              for v in (False, True)]
+        log(f"{name} run_batch {MC_SIDE_RUNS} runs x {sc.traj.shape[0]} "
+            f"steps: vmapped launches per chunk-step, sequential per "
+            f"run-step ({n_vm}, {n_seq} update steps); pose curves apart by "
+            f"at most {gap:.3e} m; mean pose error sequential {err[0]:.4f}, "
+            f"vmapped {err[1]:.4f} m; {ms[0]:.3f} / {ms[1]:.3f} ms per "
+            f"run-step")
+        stats[f"mc_{name.lower()}_pose_gap_m"] = gap
+    log(f"phase FastSLAM and mixed batches: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def device_busy(prof):
+    """(device busy us: the union of the device's kernel and copy
+    intervals, the profiled window in us, device activities)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    on_dev = sorted((e.time_range.start, e.time_range.end)
+                    for e in events if e.device_type == DeviceType.CUDA)
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    busy, reach = 0.0, lo
+    for a, b in on_dev:
+        busy += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    return busy, hi - lo, len(on_dev)
+
+
+def draws_cost(cfg, R, dev):
+    """Log one step's random draws for R runs, each from its own generator
+    (2R launches, the run axis' contract) and, for comparison, the same
+    numbers from one generator (2 launches), host wall per step."""
+    import torch
+    from phdslam_tpu_torch.filter.step import draw_noise
+    gens = [torch.Generator(device=dev).manual_seed(r) for r in range(R)]
+    one = torch.Generator(device=dev).manual_seed(0)
+    n = R * cfg.n_particles
+    out = []
+    for g in (gens, one):
+        draw_noise(cfg, n, dev, g)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(TIMED):
+            draw_noise(cfg, n, dev, g)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3 / TIMED)
+    log(f"draws for {R} runs x {cfg.n_particles} particles: {out[0]:.3f} ms "
+        f"a step from {R} generators, {out[1]:.3f} ms from one")
+
+
+def phase_mc_fill(dev, stats, profile):
+    """run_batch(vmapped=True) at JAX's default chunk (65536 // 256 = 256
+    runs of 256 particles in one chunk) over the first MC_FILL_STEPS steps
+    of phase 6e's scenario, PHD and CPHD arms: ms per run-step and the peak
+    device memory, and the cost of the per-run draws at MC_RUNS and at the
+    chunk's runs; with --profile, the device's busy share of PROFILED
+    batched steps after PROFILE_WARMUP and the ops with the most device
+    time."""
+    import torch
+    from phdslam_tpu_torch.eval import batch as B
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import slam_step
+    t0 = time.perf_counter()
+    base, sc = mc_setup(MC_FILL_STEPS)
+    R = MC_FILL_PARTICLES // base.n_particles
+    for arm, over in MC_ARMS:
+        cfg = base.replace(**over)
+        reset_peak_memory()
+        t_run = time.perf_counter()
+        res = B.run_batch(cfg, sc, R, control_noise=MC_CONTROL_NOISE,
+                          collect_maps_every=MC_EVERY, vmapped=True,
+                          device=dev)
+        run_s = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = res[0].ms_per_step
+        if not all(np.isfinite(r.poses).all() for r in res):
+            raise RuntimeError(f"fill probe {arm}: a pose is not finite")
+        pose = float(np.mean([r.pose_err.mean() for r in res]))
+        log(f"fill probe {arm}: {R} runs x {cfg.n_particles} particles in "
+            f"one chunk x {sc.traj.shape[0]} steps: {ms:.4f} ms per run-step "
+            f"({ms * R:.2f} ms per chunk-step), peak device memory "
+            f"{peak:.2f} GiB, mean pose error {pose:.4f} m, {run_s:.1f} s")
+        stats[f"mc_fill_{arm.lower()}"] = dict(ms_per_run_step=ms,
+                                               peak_gib=peak)
+        if arm == MC_ARMS[0][0]:
+            for n_runs in (MC_RUNS, R):
+                draws_cost(cfg, n_runs, dev)
+        if not profile:
+            continue
+        from torch.profiler import ProfilerActivity, profile as trace
+        cfg = cfg.replace(x0=float(sc.traj[0, 0]), y0=float(sc.traj[0, 1]),
+                          yaw0=float(sc.traj[0, 2]))
+        ctrl, zs, gens = B.chunk_inputs(cfg, sc, range(R), 0,
+                                        MC_CONTROL_NOISE, dev)
+        state = SlamState.create(cfg, dev, n_runs=R)
+        ctl = torch.as_tensor(ctrl, device=dev)
+
+        def step(st, t):
+            return slam_step(st, (ctl[t, :, 0], ctl[t, :, 1]), zs[t],
+                             float(cfg.dt), t > 0, cfg, generator=gens,
+                             z_prev=zs[t - 1] if t else None)[0]
+
+        for t in range(PROFILE_WARMUP):
+            state = step(state, t)
+        torch.cuda.synchronize()
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for t in range(PROFILE_WARMUP, PROFILE_WARMUP + PROFILED):
+                state = step(state, t)
+            torch.cuda.synchronize()
+        busy, window, n_act = device_busy(prof)
+        busy_ms = busy / 1e3 / PROFILED
+        # the profiler slows the host: the share of run_batch's chunk-step
+        # (profiler off) is the one to read
+        log(f"profile fill probe {arm}: device busy {busy_ms:.3f} ms per "
+            f"chunk-step = {busy_ms / (ms * R):.1%} of run_batch's "
+            f"{ms * R:.3f} ms (profiler off), {busy / window:.1%} of the "
+            f"profiled window ({window / 1e3 / PROFILED:.3f} ms per "
+            f"chunk-step); {n_act / PROFILED:.0f} device activities per step")
+        stats[f"mc_fill_{arm.lower()}"]["busy_share"] = busy_ms / (ms * R)
+        log_top_ops(prof)
+    log(f"phase fill probe: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------- phase 6c: FastSLAM main path --
@@ -2489,7 +2861,6 @@ def phase_profile(dev):
     busy share of the profiled window (the union of its kernel and copy
     intervals) and the ops and kernels with the most device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -2522,34 +2893,31 @@ def phase_profile(dev):
             for t in range(PROFILE_WARMUP + PROFILED, n):
                 state, _ = step(state, t)
             torch.cuda.synchronize()
-        events = prof.events()
-        on_dev = sorted((e.time_range.start, e.time_range.end)
-                        for e in events if e.device_type == DeviceType.CUDA)
-        lo = min(e.time_range.start for e in events)
-        hi = max(e.time_range.end for e in events)
-        busy, reach = 0.0, lo
-        for a, b in on_dev:         # union of the device intervals, in us
-            busy += max(0.0, b - max(a, reach))
-            reach = max(reach, b)
+        busy, window, n_act = device_busy(prof)
         dims = "x".join(str(shape[k]) for k in "PFM")
         busy_ms = busy / 1e3 / PROFILED
         # the profiler slows the host, so the window overstates the idle
         # share; the device's work is the same with it off
         log(f"profile {name} {dims}: host wall {wall_ms:.3f} ms/step "
             f"(profiler off); device busy {busy_ms:.3f} ms/step = "
-            f"{busy_ms / wall_ms:.1%} of that wall, {busy / (hi - lo):.1%} "
-            f"of the profiled window ({(hi - lo) / 1e3 / PROFILED:.3f} "
-            f"ms/step); {len(on_dev) / PROFILED:.0f} device activities/step")
-        # ops that launch device work, and our kernels (launched outside
-        # any op): device time of each per step
-        rows = [e for e in prof.key_averages() if e.self_device_time_total
-                > 0 and (e.device_type == DeviceType.CPU
-                         or "_kernel" in e.key and "at::" not in e.key)]
-        rows.sort(key=lambda e: -e.self_device_time_total)
-        for e in rows[:PROFILE_ROWS]:
-            log(f"  {e.self_device_time_total / 1e3 / PROFILED:8.3f} ms/step"
-                f"  {e.count / PROFILED:5.1f} calls/step  {e.key[:70]}")
+            f"{busy_ms / wall_ms:.1%} of that wall, {busy / window:.1%} "
+            f"of the profiled window ({window / 1e3 / PROFILED:.3f} "
+            f"ms/step); {n_act / PROFILED:.0f} device activities/step")
+        log_top_ops(prof)
     log(f"phase profile: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def log_top_ops(prof):
+    """The PROFILE_ROWS ops that launch device work, and our kernels
+    (launched outside any op), with the most device time per step."""
+    from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages() if e.self_device_time_total
+            > 0 and (e.device_type == DeviceType.CPU
+                     or "_kernel" in e.key and "at::" not in e.key)]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:PROFILE_ROWS]:
+        log(f"  {e.self_device_time_total / 1e3 / PROFILED:8.3f} ms/step"
+            f"  {e.count / PROFILED:5.1f} calls/step  {e.key[:70]}")
 
 
 # ------------------------------------------------------------------ main --
@@ -2594,6 +2962,7 @@ def main(argv=None):
     phase_select(dev, stats)
     phase_merge(dev, stats)
     phase_select4(dev, stats)
+    phase_select_runs(dev, stats)
     phase_merge4(dev, stats)
     phase_merge3(dev, stats)
     phase_esf(dev, stats)
@@ -2607,6 +2976,9 @@ def main(argv=None):
     phase_cphd_main_path(dev, stats)
     phase_seed_envelopes(dev, stats)
     phase_mc_envelope(dev, stats)
+    phase_mc_one_step(dev, stats)
+    phase_mc_fastslam_mixed(dev, stats)
+    phase_mc_fill(dev, stats, args.profile)
     phase_fastslam_main_path(dev, stats)
     phase_fastslam_runner(dev, stats)
     phase_dense(dev, stats, gpu)

@@ -20,6 +20,13 @@
 // u11) and lpw; by_index = 1, their index f (0 where w = 0). Columns
 // m >= n_valid are zeros.
 //
+// Monte-Carlo runs: z may hold R measurement sets [R, M, 2] and n_valid R
+// counts, for R runs of p_run = P / R particles each, blockwise; particle
+// p reads run p / p_run's set and count (kRuns). One run (p_run = P) runs
+// the one-set kernel, from the same pointers: the run's offset costs the
+// per-run kernel registers (44 against 40 at F = 512, 71 against 64 at
+// F = 128 on the H100, one CTA per SM fewer), which one run does not pay.
+//
 // What bounds it on an H100: P*M*F (p, m, f) triples, each with one expf
 // and about thirty other instructions (only the live slots' need them: a
 // dead slot's term is 0), and k1 argmax rounds per (p, m) row. At the
@@ -127,11 +134,11 @@ __device__ __forceinline__ void write_row(const Channels& in,
   }
 }
 
-template <int kSlots>
+template <int kSlots, bool kRuns>
 __global__ void __launch_bounds__(kWarps * 32)
     select_kernel(Channels in, const float* __restrict__ z,
-                  const int* __restrict__ n_valid, Outputs out, int M,
-                  Loop a, int with_lpw, int by_index) {
+                  const int* __restrict__ n_valid, Outputs out, int p_run,
+                  int M, Loop a, int with_lpw, int by_index) {
   constexpr int G = group<kSlots>();
   extern __shared__ float smem[];
   const int F = a.F;
@@ -142,6 +149,11 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  if (kRuns) {                                    // the run's set
+    const int run = p / p_run;
+    z += static_cast<size_t>(run) * M * 2;
+    n_valid += run;
+  }
   const int nv = max(min(*n_valid, M), 0);
   zero_columns(out, p, M, nv, a.k1, by_index, warp, lane);
 
@@ -165,17 +177,19 @@ __global__ void __launch_bounds__(kWarps * 32)
 // measurement per warp, the row in scratch (kWarps rows of F floats per
 // CTA); the CTAs stride over the particles.
 __global__ void __launch_bounds__(kWarps * 32)
-    select_wide_kernel(Channels in, const float* __restrict__ z,
+    select_wide_kernel(Channels in, const float* __restrict__ z_all,
                        const int* __restrict__ n_valid, Outputs out, int P,
-                       int M, Loop a, int with_lpw, int by_index,
+                       int p_run, int M, Loop a, int with_lpw, int by_index,
                        float* __restrict__ scratch) {
   const int F = a.F;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* row =
       scratch + (static_cast<size_t>(blockIdx.x) * kWarps + warp) * F;
-  const int nv = max(min(*n_valid, M), 0);
   for (int p = blockIdx.x; p < P; p += gridDim.x) {
+    const int run = p / p_run;
+    const float* z = z_all + static_cast<size_t>(run) * M * 2;
+    const int nv = max(min(n_valid[run], M), 0);
     const size_t off = static_cast<size_t>(p) * F;
     zero_columns(out, p, M, nv, a.k1, by_index, warp, lane);
     const Row rw{in.r + off,    in.b + off,    in.lpw + off, in.si00 + off,
@@ -191,19 +205,19 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int kSlots>
+template <int kSlots, bool kRuns>
 cudaError_t launch(int P, size_t smem, cudaStream_t stream, Channels in,
-                   const float* z, const int* n_valid, Outputs out, int M,
-                   Loop a, int with_lpw, int by_index) {
-  select_kernel<kSlots><<<P, kWarps * 32, smem, stream>>>(
-      in, z, n_valid, out, M, a, with_lpw, by_index);
+                   const float* z, const int* n_valid, Outputs out, int p_run,
+                   int M, Loop a, int with_lpw, int by_index) {
+  select_kernel<kSlots, kRuns><<<P, kWarps * 32, smem, stream>>>(
+      in, z, n_valid, out, p_run, M, a, with_lpw, by_index);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(int, size_t, cudaStream_t, Channels,
-                               const float*, const int*, Outputs, int, Loop,
-                               int, int);
-using Kernel = void (*)(Channels, const float*, const int*, Outputs, int,
+                               const float*, const int*, Outputs, int, int,
+                               Loop, int, int);
+using Kernel = void (*)(Channels, const float*, const int*, Outputs, int, int,
                         Loop, int, int);
 
 }  // namespace
@@ -214,8 +228,9 @@ const char* phd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Channels are [P, F] row-major float32; z is [M, 2]; n_valid points to one
-// int32 on the device. Outputs: sum [P, M], w [P, M, k1], compat [P, M] as
+// Channels are [P, F] row-major float32; z is [R, M, 2] and n_valid points
+// to R int32 on the device, R = P / p_run (one run: R = 1, p_run = P).
+// Outputs: sum [P, M], w [P, M, k1], compat [P, M] as
 // bytes, and either the six payload channels [P, M, k1] (mx, my, u00, u01,
 // u11, lpw; by_index = 0) or idx [P, M, k1] int32 (by_index = 1). The
 // pointers a mode does not use may be null: by_index = 1 reads only the
@@ -230,16 +245,21 @@ int phd_select_launch(const float* r, const float* b, const float* lpw,
                       const int* n_valid, float* sum_out, float* w_out,
                       float* mx_out, float* my_out, float* u00_out,
                       float* u01_out, float* u11_out, float* lpw_out,
-                      int* idx_out, unsigned char* compat_out, int P, int F,
-                      int M, int k1, float clutter_birth, float min_weight,
-                      float gate, int raw, int with_compat, int with_lpw,
-                      int by_index, float* scratch, void* stream) {
+                      int* idx_out, unsigned char* compat_out, int P,
+                      int p_run, int F, int M, int k1, float clutter_birth,
+                      float min_weight, float gate, int raw, int with_compat,
+                      int with_lpw, int by_index, float* scratch,
+                      void* stream) {
   if (P <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
-  if (F <= 0 || k1 <= 0 || k1 > 32)
+  if (F <= 0 || k1 <= 0 || k1 > 32 || p_run <= 0 || P % p_run != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch go =
-      for_slots<Launch>(F, launch<1>, launch<2>, launch<4>, launch<8>,
-                        launch<16>, launch<32>);
+      p_run == P ? for_slots<Launch>(F, launch<1, false>, launch<2, false>,
+                                     launch<4, false>, launch<8, false>,
+                                     launch<16, false>, launch<32, false>)
+                 : for_slots<Launch>(F, launch<1, true>, launch<2, true>,
+                                     launch<4, true>, launch<8, true>,
+                                     launch<16, true>, launch<32, true>);
   if (go == nullptr && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Channels in{r,   b,   lpw, si00, si01, si11, lds, mx,
@@ -250,10 +270,10 @@ int phd_select_launch(const float* r, const float* b, const float* lpw,
                with_compat != 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (go != nullptr)
-    return static_cast<int>(go(P, smem_bytes(F), st, in, z, n_valid, out, M,
-                               a, with_lpw, by_index));
+    return static_cast<int>(go(P, smem_bytes(F), st, in, z, n_valid, out,
+                               p_run, M, a, with_lpw, by_index));
   select_wide_kernel<<<wide_ctas(P), kWarps * 32, 0, st>>>(
-      in, z, n_valid, out, P, M, a, with_lpw, by_index, scratch);
+      in, z, n_valid, out, P, p_run, M, a, with_lpw, by_index, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -265,13 +285,15 @@ long long phd_select_wide_floats(int P, int F) {
   return static_cast<long long>(wide_ctas(P)) * kWarps * F;
 }
 
-// CTAs of the kernel for F slots that fit on one SM, and its registers per
-// thread in *regs (the wide-row kernel's above 1024 slots); 0 when F < 1.
+// CTAs of the (one-run) kernel for F slots that fit on one SM, and its
+// registers per thread in *regs (the wide-row kernel's above 1024 slots); 0
+// when F < 1.
 int phd_select_ctas_per_sm(int F, int* regs) {
   if (F <= 0) return 0;
-  const Kernel k = for_slots<Kernel>(F, select_kernel<1>, select_kernel<2>,
-                                     select_kernel<4>, select_kernel<8>,
-                                     select_kernel<16>, select_kernel<32>);
+  const Kernel k = for_slots<Kernel>(
+      F, select_kernel<1, false>, select_kernel<2, false>,
+      select_kernel<4, false>, select_kernel<8, false>,
+      select_kernel<16, false>, select_kernel<32, false>);
   return k != nullptr ? ctas_per_sm(k, smem_bytes(F), regs)
                       : ctas_per_sm(select_wide_kernel, 0, regs);
 }

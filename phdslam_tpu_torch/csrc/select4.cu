@@ -18,6 +18,10 @@
 // in the JAX layouts mean [P, 4, M, k1] and cov [P, 10, M, k1];
 // by_index = 1 writes idx [P, M, k1] (0 where w = 0).
 //
+// Monte-Carlo runs: z may hold R measurement sets [R, M, 2] for R runs of
+// p_run = P / R particles each, blockwise; particle p reads run p / p_run's
+// set (kRuns). One run (p_run = P) runs the one-set kernel, as select.cu.
+//
 // What bounds it on an H100: as select.cu, P*M*F (p, m, f) triples of
 // expf and a dozen flops; the payload is 14 [P, F] channels read only at the
 // k1 winners, so the bytes are the 29 [P, F] inputs (7 by index) and the
@@ -88,14 +92,15 @@ __device__ __forceinline__ void write_row4(const Channels4& in,
   if (lane == 0) out.sum[pm] = sum;
 }
 
-template <int kSlots>
+template <int kSlots, bool kRuns>
 __global__ void __launch_bounds__(kWarps * 32)
     select4_kernel(Channels4 in, const float* __restrict__ z, Outputs4 out,
-                   int M, Loop a, int by_index) {
+                   int p_run, int M, Loop a, int by_index) {
   constexpr int G = group<kSlots>();
   extern __shared__ float smem[];
   const int F = a.F;
   const int p = blockIdx.x;
+  if (kRuns) z += static_cast<size_t>(p / p_run) * M * 2;   // the run's set
   const size_t off = static_cast<size_t>(p) * F;
   const Staged s = stage(smem, F, off, in.r, in.b, in.lpw, in.si00, in.si01,
                          in.si11, in.lds);
@@ -121,15 +126,16 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // Rows wider than the register rows (F > 1024): sweep_wide, as in select.cu.
 __global__ void __launch_bounds__(kWarps * 32)
-    select4_wide_kernel(Channels4 in, const float* __restrict__ z,
-                        Outputs4 out, int P, int M, Loop a, int by_index,
-                        float* __restrict__ scratch) {
+    select4_wide_kernel(Channels4 in, const float* __restrict__ z_all,
+                        Outputs4 out, int P, int p_run, int M, Loop a,
+                        int by_index, float* __restrict__ scratch) {
   const int F = a.F;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* row =
       scratch + (static_cast<size_t>(blockIdx.x) * kWarps + warp) * F;
   for (int p = blockIdx.x; p < P; p += gridDim.x) {
+    const float* z = z_all + static_cast<size_t>(p / p_run) * M * 2;
     const size_t off = static_cast<size_t>(p) * F;
     const Row rw{in.r + off,    in.b + off,    in.lpw + off, in.si00 + off,
                  in.si01 + off, in.si11 + off, in.lds + off};
@@ -144,25 +150,27 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int kSlots>
+template <int kSlots, bool kRuns>
 cudaError_t launch(int P, size_t smem, cudaStream_t stream, Channels4 in,
-                   const float* z, Outputs4 out, int M, Loop a,
+                   const float* z, Outputs4 out, int p_run, int M, Loop a,
                    int by_index) {
-  select4_kernel<kSlots><<<P, kWarps * 32, smem, stream>>>(in, z, out, M, a,
-                                                           by_index);
+  select4_kernel<kSlots, kRuns><<<P, kWarps * 32, smem, stream>>>(
+      in, z, out, p_run, M, a, by_index);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(int, size_t, cudaStream_t, Channels4,
-                               const float*, Outputs4, int, Loop, int);
-using Kernel = void (*)(Channels4, const float*, Outputs4, int, Loop, int);
+                               const float*, Outputs4, int, int, Loop, int);
+using Kernel = void (*)(Channels4, const float*, Outputs4, int, int, Loop,
+                        int);
 
 }  // namespace
 
 extern "C" {
 
 // The seven loop channels are [P, F] row-major float32; gain, mean and cov
-// are [P, 8, F], [P, 4, F] and [P, 10, F]; z is [M, 2]. Outputs: sum
+// are [P, 8, F], [P, 4, F] and [P, 10, F]; z is [R, M, 2], R = P / p_run
+// (one run: R = 1, p_run = P). Outputs: sum
 // [P, M], w [P, M, k1], and either mean [P, 4, M, k1] and cov
 // [P, 10, M, k1] (by_index = 0) or idx [P, M, k1] int32 (by_index = 1). The
 // pointers a mode does not use may be null. scratch:
@@ -173,15 +181,19 @@ int phd_select4_launch(const float* r, const float* b, const float* lpw,
                        const float* si11, const float* lds, const float* gain,
                        const float* mean, const float* cov, const float* z,
                        float* sum_out, float* w_out, float* mean_out,
-                       float* cov_out, int* idx_out, int P, int F, int M,
-                       int k1, int by_index, float* scratch,
+                       float* cov_out, int* idx_out, int P, int p_run, int F,
+                       int M, int k1, int by_index, float* scratch,
                        void* stream) {
   if (P <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
-  if (F <= 0 || k1 <= 0 || k1 > 32)
+  if (F <= 0 || k1 <= 0 || k1 > 32 || p_run <= 0 || P % p_run != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch go =
-      for_slots<Launch>(F, launch<1>, launch<2>, launch<4>, launch<8>,
-                        launch<16>, launch<32>);
+      p_run == P ? for_slots<Launch>(F, launch<1, false>, launch<2, false>,
+                                     launch<4, false>, launch<8, false>,
+                                     launch<16, false>, launch<32, false>)
+                 : for_slots<Launch>(F, launch<1, true>, launch<2, true>,
+                                     launch<4, true>, launch<8, true>,
+                                     launch<16, true>, launch<32, true>);
   if (go == nullptr && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Channels4 in{r, b, lpw, si00, si01, si11, lds, gain, mean, cov};
@@ -189,20 +201,22 @@ int phd_select4_launch(const float* r, const float* b, const float* lpw,
   const Loop a{F, k1, 0.0f, 0.0f, 0.0f, true, false};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (go != nullptr)
-    return static_cast<int>(go(P, smem_bytes(F), st, in, z, out, M, a,
+    return static_cast<int>(go(P, smem_bytes(F), st, in, z, out, p_run, M, a,
                                by_index));
   select4_wide_kernel<<<wide_ctas(P), kWarps * 32, 0, st>>>(
-      in, z, out, P, M, a, by_index, scratch);
+      in, z, out, P, p_run, M, a, by_index, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs of the kernel for F slots that fit on one SM, and its registers per
-// thread in *regs (the wide-row kernel's above 1024 slots); 0 when F < 1.
+// CTAs of the (one-run) kernel for F slots that fit on one SM, and its
+// registers per thread in *regs (the wide-row kernel's above 1024 slots); 0
+// when F < 1.
 int phd_select4_ctas_per_sm(int F, int* regs) {
   if (F <= 0) return 0;
   const Kernel k = for_slots<Kernel>(
-      F, select4_kernel<1>, select4_kernel<2>, select4_kernel<4>,
-      select4_kernel<8>, select4_kernel<16>, select4_kernel<32>);
+      F, select4_kernel<1, false>, select4_kernel<2, false>,
+      select4_kernel<4, false>, select4_kernel<8, false>,
+      select4_kernel<16, false>, select4_kernel<32, false>);
   return k != nullptr ? ctas_per_sm(k, smem_bytes(F), regs)
                       : ctas_per_sm(select4_wide_kernel, 0, regs);
 }

@@ -7,9 +7,13 @@ and the OSPA of the MAP particle's map against the landmarks visited so
 far. Run r is re-noised with ``default_rng(seed + 1000 r)``, as in JAX, so
 both packages filter the same data bit for bit; its filter draws from
 ``torch.Generator(device).manual_seed(seed + r)`` (JAX's ``PRNGKey(seed +
-r)``: the streams differ, the statistics do not). Runs go one after
-another through ``filter/step.py::run_scan``. JAX's ``vmapped=True`` (the
-runs on a leading batch axis) is ROADMAP Queue 1 item 13b and raises here.
+r)``: the streams differ, the statistics do not). By default runs go one
+after another through ``filter/step.py::run_scan``; with ``vmapped=True``
+a chunk of runs goes through it together, blockwise on the particle axis
+(``filter/runs.py``): one step of every run of the chunk at a time, each
+kernel launched once per step for the whole chunk. Run r draws from its
+own generator in the single run's order, so both paths filter the same
+draws, and the chunking changes no run.
 
 The helpers (``RunResult``, ``analyze_run``, ``visited_landmarks``,
 ``_map_ospa_curve``, ``_prepare_run``, ``_analyze_one``, ``aggregate``,
@@ -191,17 +195,18 @@ def run_batch(cfg, scenario, n_runs: int, control_noise=(0.2, 0.01),
     host copy of its poses, over its steps. ``collect_maps_every = k``
     scores the map OSPA (against the cumulative visited-landmark truth)
     every k steps and at the last; 0 disables map scoring (pose error
-    only). ``vmapped`` and ``vmap_chunk`` are the JAX package's run axis,
-    not ported (ROADMAP Queue 1 item 13b)."""
+    only).
+
+    ``vmapped=True`` filters ``vmap_chunk`` runs at a time together (0:
+    65536 // n_particles runs, JAX's default), the chunk's measurements
+    and controls copied to the device once and its results back once;
+    ``ms_per_step`` is then the chunk's wall time over its steps and
+    runs. Each run filters what it filters on the sequential path."""
     import torch
 
     from phdslam_tpu_torch.filter.state import Measurements, SlamState
     from phdslam_tpu_torch.filter.step import run_scan
 
-    if vmapped:
-        raise NotImplementedError(
-            "run_batch(vmapped=True), the run axis, is ROADMAP Queue 1 item "
-            "13b; the sequential path (vmapped=False) runs the same runs")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"run_batch(device={device!r}): CUDA is not "
@@ -215,6 +220,10 @@ def run_batch(cfg, scenario, n_runs: int, control_noise=(0.2, 0.01),
     true_maps = visited_landmarks(scenario) if collect_maps_every else None
     with_log = collect_maps_every > 0
     dts = np.full((t_len,), cfg.dt, np.float32)
+    if vmapped:
+        return _run_chunks(cfg, scenario, n_runs, control_noise, seed,
+                           out_dir, collect_maps_every, vmap_chunk, dev,
+                           true_maps, dts)
 
     results = []
     for run in range(n_runs):
@@ -237,6 +246,69 @@ def run_batch(cfg, scenario, n_runs: int, control_noise=(0.2, 0.01),
         results.append(_analyze_one(
             run, poses, auxs.neff.cpu().numpy(), log_auxs, true_maps,
             collect_maps_every, scenario, elapsed / t_len * 1000, out_dir))
+    return results
+
+
+def chunk_inputs(cfg, scenario, runs, seed, control_noise, device):
+    """The inputs of a chunk of runs (``run_batch``'s seeding): controls
+    [T, R, 2] on the host, T per-run Measurements [R, M, ...] (one copy to
+    the device for the chunk) and the runs' R generators."""
+    import torch
+
+    from phdslam_tpu_torch.filter.state import Measurements
+
+    t_len = scenario.traj.shape[0]
+    prep = [_prepare_run(cfg, scenario, r, seed, control_noise, t_len)
+            for r in runs]
+    ctrl = np.stack([p[0] for p in prep], 1)                   # [T, R, 2]
+    rb, labels, valid = (np.stack([p[i] for p in prep], 1)
+                         for i in (1, 2, 3))             # [T, R, M(, 2)]
+    rb_d, labels_d, valid_d = (torch.as_tensor(a, device=device)
+                               for a in (rb, labels, valid))
+    zs = [Measurements(rb=rb_d[t], label=labels_d[t], valid=valid_d[t],
+                       count=tuple(int(c) for c in valid[t].sum(-1)))
+          for t in range(t_len)]
+    generators = [torch.Generator(device=device).manual_seed(seed + r)
+                  for r in runs]
+    return ctrl, zs, generators
+
+
+def _run_chunks(cfg, scenario, n_runs, control_noise, seed, out_dir,
+                collect_maps_every, vmap_chunk, dev, true_maps, dts):
+    """run_batch's vmapped path: chunks of runs through one run_scan."""
+    import torch
+
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import run_scan
+
+    t_len = scenario.traj.shape[0]
+    with_log = collect_maps_every > 0
+    if vmap_chunk <= 0:
+        vmap_chunk = max(1, 65536 // max(cfg.n_particles, 1))
+    results = []
+    for start in range(0, n_runs, vmap_chunk):
+        runs = list(range(start, min(start + vmap_chunk, n_runs)))
+        ctrl, zs, generators = chunk_inputs(cfg, scenario, runs, seed,
+                                            control_noise, dev)
+        state = SlamState.create(cfg, dev, n_runs=len(runs))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = run_scan(state, ctrl, zs, dts, cfg, generator=generators,
+                       with_log_state=with_log)
+        auxs, log_auxs = out[1] if with_log else (out[1], None)
+        poses = auxs.expected_pose.cpu().numpy()   # [T, R, 6]; waits
+        elapsed = time.perf_counter() - t0
+        ms = elapsed / (t_len * len(runs)) * 1000
+        neffs = auxs.neff.cpu().numpy()
+        if log_auxs is not None:                   # one bulk copy
+            log_auxs = type(log_auxs)(*(t.cpu().numpy() for t in log_auxs))
+        for i, run in enumerate(runs):
+            la = (type(log_auxs)(*(x[:, i] for x in log_auxs))
+                  if log_auxs is not None else None)
+            results.append(_analyze_one(
+                run, poses[:, i], neffs[:, i], la, true_maps,
+                collect_maps_every, scenario, ms, out_dir))
     return results
 
 

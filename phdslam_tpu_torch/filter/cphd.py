@@ -24,6 +24,11 @@ and the merge kernel reduces the pool. On CPU tensors the three kernel
 wrappers run their plain versions. ``esf_log``, ``esf_deleted`` and
 ``esf_all`` (divide and conquer) are the JAX package's -inf forms, kept as
 references for the tests.
+
+The measurements are one set for every particle or R per-run sets for R
+runs blockwise on the particle axis (``filter/runs.py``); ``psi_terms``
+then counts each run's measurements and keeps its [N + 1, J] masks per run
+([R, 1, N + 1, J] against the [R, P, N + 1, J] terms), not per particle.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from phdslam_tpu_torch.config import STATIC_MEASUREMENT
+from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.filter.state import Gaussian2DMixture
 from phdslam_tpu_torch.filter.update import (gather_selected,
                                              kalman_preupdate, n_valid_of)
@@ -181,10 +187,13 @@ def psi_terms(sum_l, qdw, w, valid_mask, z_valid, cn_predict,
               consts: CphdConstants, cfg) -> CphdUpdateTerms:
     """Vo's Psi inner products. sum_l [P, M] log detection mass per
     measurement; qdw [P, F] log((1 - pd_f) w_f); w [P, F]; valid_mask
-    [P, F] the in-range set; cn_predict [P, N+1] log. The measurement count
-    stays on the device. The ESFs come from the ESF kernel, whose -1e30
-    sentinel for empty coefficients vanishes in every logsumexp below as
-    -inf does."""
+    [P, F] the in-range set; cn_predict [P, N+1] log; z_valid [M], or
+    [R, M] for R runs. The measurement count stays on the device, one per
+    run. The ESFs come from the ESF kernel, whose -1e30 sentinel for empty
+    coefficients vanishes in every logsumexp below as -inf does.
+
+    The terms are formed on a run view: [G, P / G, ...] for G = R runs (G =
+    1 for one set), the per-run factors [G, 1, ...]."""
     P, M = sum_l.shape
     ncard = cn_predict.shape[-1]
     dev = sum_l.device
@@ -192,8 +201,11 @@ def psi_terms(sum_l, qdw, w, valid_mask, z_valid, cn_predict,
     cn_clut = consts.log_cn_clutter
     log_rate = _log32(cfg.clutterRate) - _log32(cfg.clutterDensity)
 
-    log_lambda = torch.where(z_valid[None, :], sum_l + log_rate, NEG_INF)
+    log_lambda = torch.where(rows(z_valid, P, 1), sum_l + log_rate, NEG_INF)
     esf, esfd = esf_kernel.esf_all(log_lambda)           # [P, M+1], [P, M, M]
+    zv = z_valid.reshape(-1, M)                          # [G, M]
+    G = zv.shape[0]
+    grp = lambda t: t.reshape(G, P // G, *t.shape[1:])   # [P, ...] -> runs
 
     # bounded log-ratio form of (n - a) log<q_D, w> - n log<1, w>
     ip_qdw = torch.clamp(torch.logsumexp(
@@ -203,25 +215,27 @@ def psi_terms(sum_l, qdw, w, valid_mask, z_valid, cn_predict,
     log_ratio = torch.clamp(ip_qdw - log_wsum_raw, -30.0, 0.0)     # [P]
     log_wsum = torch.clamp(log_wsum_raw, min=-30.0)
 
-    m_count = z_valid.to(torch.int64).sum()
+    m_count = zv.to(torch.int64).sum(-1)[:, None]                   # [G, 1]
     n_idx = torch.arange(ncard, device=dev)
     j_idx = torch.arange(M + 1, device=dev)
-    mj = torch.clamp(m_count - j_idx, 0, ncard - 1)
+    mj = torch.clamp(m_count - j_idx, 0, ncard - 1)                 # [G, J]
     j_ok = j_idx <= m_count
 
     def psi(esf_j, shift, j_valid):
         a = j_idx + shift
         a_c = torch.clamp(a, 0, ncard - 1)
         perm = lbin[n_idx[:, None], a_c[None, :]] + lf[a_c][None, :]
-        valid = j_valid[None, :] & (a[None, :] <= n_idx[:, None])  # [N+1, J]
-        esf_norm = esf_j - j_idx[None, :] * log_wsum[:, None]     # [P, J]
-        aux = (lf[mj] + cn_clut[mj])[None, None, :] + esf_norm[:, None, :]
-        pow_term = ((n_idx[None, :, None] - a[None, None, :])
-                    * log_ratio[:, None, None])
-        terms = (aux + torch.where(valid, perm, 0.0)[None] + pow_term
-                 - shift * log_wsum[:, None, None])
-        terms = torch.where(valid[None], terms, NEG_INF)
-        return torch.logsumexp(terms, -1)                         # [P, N+1]
+        valid = (j_valid[:, None, :]
+                 & (a[None, :] <= n_idx[:, None]))[:, None]  # [G,1,N+1,J]
+        esf_norm = grp(esf_j - j_idx[None, :] * log_wsum[:, None])  # [G,.,J]
+        aux = ((lf[mj] + cn_clut[mj])[:, None, None, :]
+               + esf_norm[:, :, None, :])
+        pow_term = ((n_idx[:, None] - a[None, :])
+                    * grp(log_ratio)[:, :, None, None])
+        terms = (aux + torch.where(valid, perm, 0.0) + pow_term
+                 - shift * grp(log_wsum)[:, :, None, None])
+        terms = torch.where(valid, terms, NEG_INF)
+        return torch.logsumexp(terms, -1).reshape(P, ncard)       # [P, N+1]
 
     psi0 = psi(esf, 0, j_ok)
     psi1 = psi(esf, 1, j_ok)
@@ -233,7 +247,7 @@ def psi_terms(sum_l, qdw, w, valid_mask, z_valid, cn_predict,
     #   ip1d[p, m] = lse_j (esfd_norm[p, m, j] + lf[m'-1-j] + cnc[m'-1-j]
     #                       + C[p, j] - log_wsum[p])
     jm = j_idx[:M]
-    mj1 = torch.clamp(m_count - 1 - jm, 0, ncard - 1)
+    mj1 = torch.clamp(m_count - 1 - jm, 0, ncard - 1)               # [G, M]
     j1_ok = jm <= torch.clamp(m_count - 1, min=0)
     a1 = jm + 1
     a1_c = torch.clamp(a1, 0, ncard - 1)
@@ -246,10 +260,11 @@ def psi_terms(sum_l, qdw, w, valid_mask, z_valid, cn_predict,
     cterm = torch.where(valid_nj[None], cterm, NEG_INF)
     c_pj = torch.logsumexp(cterm, 1)                                # [P, M]
     esfd_norm = esfd - jm[None, None, :] * log_wsum[:, None, None]
-    d_term = (esfd_norm + (lf[mj1] + cn_clut[mj1])[None, None, :]
-              + c_pj[:, None, :] - log_wsum[:, None, None])         # [P, M, M]
-    d_term = torch.where(j1_ok[None, None, :], d_term, NEG_INF)
-    ip1d = torch.logsumexp(d_term, -1)                              # [P, M]
+    d_term = (grp(esfd_norm) + (lf[mj1] + cn_clut[mj1])[:, None, None, :]
+              + grp(c_pj)[:, :, None, :]
+              - grp(log_wsum)[:, :, None, None])              # [G, ., M, M]
+    d_term = torch.where(j1_ok[:, None, None, :], d_term, NEG_INF)
+    ip1d = torch.logsumexp(d_term, -1).reshape(P, M)                # [P, M]
 
     return CphdUpdateTerms(
         cn_update=cn_predict + psi0 - ip0[:, None], log_lik=ip0,
@@ -263,25 +278,27 @@ def add_births(state_map: Gaussian2DMixture, pose, z_rb, z_valid, cfg,
     before the update, keeping the top F by weight (ties: lower index
     first, as ``jax.lax.top_k``). Under gateBirths only measurements that no
     existing feature explains (a measurement-noise Mahalanobis gate) give
-    birth. Returns (map_with_births, cn_birth [P, N+1])."""
+    birth. Measurements: one set, or R per-run sets ([R, M, 2], [R, M]).
+    Returns (map_with_births, cn_birth [P, N+1])."""
     P, F = state_map.w.shape
-    M = z_rb.shape[0]
+    M = z_rb.shape[-2]
+    zp, vp = rows(z_rb, P, 2), rows(z_valid, P, 1)
     if cfg.gateBirths:
         mean_xy = torch.stack([state_map.mx, state_map.my], dim=-1)
         r, b, _, _, _ = predict_measurement(pose[:, None, :], mean_xy)
-        ir = z_rb[None, :, None, 0] - r[:, None, :]
-        ib = wrap_angle(z_rb[None, :, None, 1] - b[:, None, :])
+        ir = zp[:, :, None, 0] - r[:, None, :]
+        ib = wrap_angle(zp[:, :, None, 1] - b[:, None, :])
         d2 = (ir / cfg.stdRange) ** 2 + (ib / cfg.stdBearing) ** 2
         compatible = ((d2 < cfg.gateThreshold ** 2)
                       & state_map.valid[:, None, :]).any(-1)       # [P, M]
-        birth_ok = z_valid[None, :] & ~compatible
+        birth_ok = vp & ~compatible
     else:
-        birth_ok = z_valid[None, :].expand(P, M)
+        birth_ok = vp.expand(P, M)
 
-    theta = pose[:, None, 2] + z_rb[None, :, 1]
+    theta = pose[:, None, 2] + zp[:, :, 1]
     ct, st = torch.cos(theta), torch.sin(theta)
-    bdx = z_rb[None, :, 0] * ct
-    bdy = z_rb[None, :, 0] * st
+    bdx = zp[:, :, 0] * ct
+    bdy = zp[:, :, 0] * st
     var_r = (cfg.stdRange * cfg.birthNoiseFactor) ** 2
     var_b = (cfg.stdBearing * cfg.birthNoiseFactor) ** 2
     bw = torch.where(birth_ok, cfg.birthWeight, 0.0).to(state_map.w.dtype)
@@ -304,10 +321,11 @@ def cphd_update(pose, gm: Gaussian2DMixture, cn_predict, z_rb, z_label,
     """The CPHD measurement update: Kalman pre-update, select (raw), ESF and
     Psi terms, weight scaling, merge. cn_predict [P, N+1] is the carried
     prior, used only with ``cnPoissonPredict`` off; by default the prior is
-    rebuilt as the Poisson pmf of the in-range submap's mass. Returns
-    (map_out, cn_update, log_weight_delta)."""
+    rebuilt as the Poisson pmf of the in-range submap's mass. Measurements:
+    one set, or R per-run sets ([R, M, 2], [R, M]). Returns (map_out,
+    cn_update, log_weight_delta)."""
     P, F = gm.w.shape
-    M = z_rb.shape[0]
+    M = z_rb.shape[-2]
     pre = kalman_preupdate(pose, gm, cfg)
     valid_mask = gm.w > 0
     # the Psi machinery runs on the in-range submap (rclass != 0); the
@@ -340,10 +358,11 @@ def cphd_update(pose, gm: Gaussian2DMixture, cn_predict, z_rb, z_label,
          _) = select.fused_update_select(z_rb, pre, gm, cfg, k1=k1, raw=True,
                                          n_valid=nv, with_compat=False,
                                          with_lpw=False)
-    m_ok = z_valid & (z_label == STATIC_MEASUREMENT) \
-        if cfg.labeledMeasurements else z_valid
-    sum_exp = torch.where(m_ok[None, :], sum_exp, 0.0)
-    e_sel = torch.where(m_ok[None, :, None], e_sel, 0.0)
+    vp = rows(z_valid, P, 1)
+    m_ok = vp & (rows(z_label, P, 1) == STATIC_MEASUREMENT) \
+        if cfg.labeledMeasurements else vp
+    sum_exp = torch.where(m_ok, sum_exp, 0.0)
+    e_sel = torch.where(m_ok[:, :, None], e_sel, 0.0)
     sum_l = torch.where(sum_exp > 0, safe_log(sum_exp), NEG_INF)
 
     terms = psi_terms(sum_l, qdw, gm.w, set_mask, z_valid, cn_predict,

@@ -13,10 +13,14 @@ from phdslam_tpu_torch.filter.state import Gaussian2DMixture, SlamState
 from phdslam_tpu_torch.ops.gm import reduce_mixture_np
 
 
-def expected_pose(state: SlamState):
-    """Weighted mean of the particle poses."""
+def expected_pose(state: SlamState, n_runs=None):
+    """Weighted mean of the particle poses: [6], or [R, 6] for each of
+    ``n_runs`` runs (``filter/runs.py``)."""
     w = torch.exp(state.log_weights)
-    return (w[:, None] * state.pose).sum(0)
+    wp = w[:, None] * state.pose
+    if n_runs is None:
+        return wp.sum(0)
+    return wp.reshape(n_runs, -1, wp.shape[-1]).sum(1)
 
 
 def map_map_static(state: SlamState) -> Gaussian2DMixture:

@@ -15,6 +15,10 @@ auction_assign``, one launch per update: the clamp of gated-out pairs, the
 rounds and the column readout, the private columns never materialised).
 The particle weight increment ``dw`` is the joint association
 log-likelihood of the chosen assignment.
+
+The measurements are one set for every particle or R per-run sets
+(``z_rb [R, M, 2]``, ``z_valid [R, M]``) for R runs blockwise on the
+particle axis (``filter/runs.py``); the auction is per particle either way.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import math
 
 import torch
 
+from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.filter.state import Gaussian2DMixture
 from phdslam_tpu_torch.filter.update import LOG_2PI, kalman_preupdate
 from phdslam_tpu_torch.kernels import auction
@@ -47,8 +52,9 @@ def association_terms(pose, gm: Gaussian2DMixture, z_rb, z_valid, cfg):
     innov_r, innov_b [P, M, F], benefit [P, M, F] (_NEG where gated out),
     in_fov [P, F])."""
     pre = kalman_preupdate(pose, gm, cfg)               # [P, F] channels
-    innov_r = z_rb[None, :, None, 0] - pre.r[:, None, :]
-    innov_b = wrap_angle(z_rb[None, :, None, 1] - pre.bearing[:, None, :])
+    zp = rows(z_rb, pose.shape[0], 2)
+    innov_r = zp[:, :, None, 0] - pre.r[:, None, :]
+    innov_b = wrap_angle(zp[:, :, None, 1] - pre.bearing[:, None, :])
     dist = (innov_r * innov_r * pre.si00[:, None, :]
             + 2.0 * innov_r * innov_b * pre.si01[:, None, :]
             + innov_b * innov_b * pre.si11[:, None, :])
@@ -57,7 +63,7 @@ def association_terms(pose, gm: Gaussian2DMixture, z_rb, z_valid, cfg):
 
     in_fov = (pre.rclass == 1) & gm.valid               # [P, F]
     gate_ok = ((dist <= cfg.fastslamGate) & in_fov[:, None, :]
-               & z_valid[None, :, None])
+               & rows(z_valid, pose.shape[0], 1)[:, :, None])
     log_pd, log_qd, _ = _log_constants(cfg)
     # the gain of pairing m with f over leaving both unpaired
     benefit = torch.where(gate_ok, ln_n + (log_pd - log_qd), _NEG)
@@ -71,16 +77,17 @@ def associate(benefit, z_valid, cfg):
     P, M, F = benefit.shape
     dev = benefit.device
     log_kappa = _log_constants(cfg)[2]
+    vp = rows(z_valid, P, 1)                            # [1 or P, M]
     if cfg.fastslamAssoc == 1:
         # JAX's _auction_rows with private no-match columns: row m may
         # always take column F + m at log kappa
         col, _ = auction.auction_assign(benefit, log_kappa,
                                         _BIDS_PER_ROW * (F + M))  # [P, M]
-        return (col < F) & z_valid[None, :], torch.clamp(col, max=F - 1)
+        return (col < F) & vp, torch.clamp(col, max=F - 1)
     # gated ML; no match where even the best feature loses to clutter
     best_f = benefit.argmax(2)                          # first of equals
     best_v = benefit.amax(2)
-    assigned = (best_v > log_kappa) & z_valid[None, :]
+    assigned = (best_v > log_kappa) & vp
     # winner takes the feature: of the measurements picking one feature,
     # only the most likely keeps it
     onehot = ((best_f[:, :, None] == torch.arange(F, device=dev))
@@ -96,9 +103,10 @@ def fastslam_update(pose, gm: Gaussian2DMixture, z_rb, z_valid, cfg):
     """One FastSLAM measurement update over all particles.
 
     pose [P, 6]; gm: per-particle EKF landmark maps (w = evidence counter);
-    z_rb [M, 2] padded measurements with z_valid [M]. Returns (gm_out,
-    dw [P])."""
+    z_rb [M, 2] padded measurements with z_valid [M] (or per run:
+    [R, M, 2], [R, M]). Returns (gm_out, dw [P])."""
     P, F = gm.w.shape
+    zp, vp = rows(z_rb, P, 2), rows(z_valid, P, 1)
     dev = gm.w.device
     _, log_qd, log_kappa = _log_constants(cfg)
     pre, innov_r, innov_b, benefit, in_fov = association_terms(
@@ -131,13 +139,13 @@ def fastslam_update(pose, gm: Gaussian2DMixture, z_rb, z_valid, cfg):
 
     # ---- particle weight: the joint association log-likelihood ----
     match_ben = torch.where(hit, benefit, 0.0).sum((1, 2))
-    n_unmatched = (z_valid[None, :] & ~assigned).sum(1)
+    n_unmatched = (vp & ~assigned).sum(1)
     dw = (torch.where(in_fov, log_qd, 0.0).sum(1) + match_ben
           + n_unmatched.to(w.dtype) * log_kappa)
 
     # ---- births from the unmatched measurements ----
-    bmean, bcov = birth_gaussian(pose[:, None, :], z_rb[None, :, :], cfg)
-    bw = (z_valid[None, :] & ~assigned).to(w.dtype)
+    bmean, bcov = birth_gaussian(pose[:, None, :], zp, cfg)
+    bw = (vp & ~assigned).to(w.dtype)
     all_w = torch.cat([w, bw], dim=1)                   # [P, F + M]
     all_ch = [torch.cat([a, b], dim=1) for a, b in (
         (mx, bmean[..., 0]), (my, bmean[..., 1]), (c00, bcov[..., 0, 0]),

@@ -11,6 +11,7 @@ import torch
 
 from phdslam_tpu_torch.config import (ACKERMAN_MOTION, CV_MOTION,
                                       DYNAMIC_MODEL, MIXED_MODEL)
+from phdslam_tpu_torch.filter.runs import per_particle
 from phdslam_tpu_torch.filter.state import SlamState
 from phdslam_tpu_torch.filter.update4 import cv_predict4, jump_markov_scales
 from phdslam_tpu_torch.models.motion import ackerman_predict, cv_predict
@@ -52,7 +53,12 @@ def predict_pose(pose, control, std_normal_noise, cfg, dt):
 def predict(state: SlamState, control, std_normal_noise, cfg,
             dt) -> SlamState:
     """One prediction sub-step: the poses, then the dynamic map (survival
-    and jump-Markov weight factors, constant-velocity motion)."""
+    and jump-Markov weight factors, constant-velocity motion). control:
+    (v_encoder, alpha), floats or 0-d tensors, or per run [R] tensors of R
+    runs blockwise on the particle axis (``filter/runs.py``), or [P]."""
+    control = tuple(per_particle(c, state.n_particles)
+                    if torch.is_tensor(c) and c.dim() == 1 else c
+                    for c in control)
     state = state.replace(
         pose=predict_pose(state.pose, control, std_normal_noise, cfg, dt))
     if cfg.featureModel in (DYNAMIC_MODEL, MIXED_MODEL) \

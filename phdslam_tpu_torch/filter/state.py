@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, fields
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -113,13 +113,16 @@ class SlamState(_TensorTree):
         return self.pose.device
 
     @classmethod
-    def create(cls, config, device=None,
-               dtype=torch.float32) -> "SlamState":
+    def create(cls, config, device=None, dtype=torch.float32,
+               n_runs=None) -> "SlamState":
         """All particles at the configured initial pose, uniform weights;
         under CPHD (filter_type = 1) a uniform cardinality [P, N+1] and a
         birth cardinality that puts all mass on 0 (-FLT_MAX elsewhere, not
-        -inf, as the JAX package starts it)."""
-        n = config.n_particles
+        -inf, as the JAX package starts it). With ``n_runs = R``, R runs
+        of P = ``n_particles`` particles each, blockwise (``filter/runs.py``):
+        R P rows, each run's weights -log P and lineage 0 .. P - 1."""
+        n_run = config.n_particles
+        n = n_run * (n_runs or 1)
         pose0 = torch.tensor([config.x0, config.y0, config.yaw0, config.vx0,
                               config.vy0, config.vyaw0], dtype=dtype,
                              device=device)
@@ -134,13 +137,14 @@ class SlamState(_TensorTree):
             cn_birth[:, 0] = 0.0
         return cls(
             pose=pose0.expand(n, 6).clone(),
-            log_weights=torch.full((n,), -math.log(float(n)), dtype=dtype,
+            log_weights=torch.full((n,), -math.log(float(n_run)), dtype=dtype,
                                    device=device),
             map_static=Gaussian2DMixture.empty((n,), config.maxFeatures,
                                                device, dtype),
             map_dynamic=Gaussian4DMixture.empty((n,), f_dynamic, device,
                                                 dtype),
-            resample_idx=torch.arange(n, dtype=torch.int32, device=device),
+            resample_idx=torch.arange(n, dtype=torch.int32, device=device)
+            % n_run,
             variances=torch.zeros((n,), dtype=dtype, device=device),
             cardinality=cardinality,
             cn_birth=cn_birth,
@@ -149,27 +153,60 @@ class SlamState(_TensorTree):
 
 @dataclass
 class Measurements(_TensorTree):
-    """One step's padded measurements. ``count`` is the number of valid
-    slots, known on the host (the runner builds it from the numpy mask), so
-    the step decides whether to update without reading the device."""
+    """One step's padded measurements, of one run (``rb [M, 2]``) or of R
+    runs (``rb [R, M, 2]``, ``label`` and ``valid [R, M]``). ``count`` is
+    the number of valid slots (a tuple of R for R runs), known on the host
+    (built from the numpy mask), so the step decides whether to update
+    without reading the device."""
 
-    rb: torch.Tensor      # [M, 2] (range, bearing)
-    label: torch.Tensor   # [M] int32
-    valid: torch.Tensor   # [M] bool
-    count: int
+    rb: torch.Tensor      # [M, 2] or [R, M, 2] (range, bearing)
+    label: torch.Tensor   # [M] or [R, M] int32
+    valid: torch.Tensor   # [M] or [R, M] bool
+    count: Union[int, Tuple[int, ...]]
+
+    @property
+    def n_runs(self) -> Optional[int]:
+        """R for per-run sets, None for one set."""
+        return None if self.rb.dim() == 2 else self.rb.shape[0]
+
+    @property
+    def counts(self) -> Tuple[int, ...]:
+        return self.count if isinstance(self.count, tuple) else (self.count,)
+
+    @property
+    def any_run(self) -> bool:
+        """Some run has a measurement."""
+        return max(self.counts) > 0
+
+    @property
+    def every_run(self) -> bool:
+        """Every run has a measurement."""
+        return min(self.counts) > 0
+
+    def run_mask(self) -> torch.Tensor:
+        """bool [R] on the device: the runs with a measurement."""
+        return torch.tensor([c > 0 for c in self.counts],
+                            device=self.rb.device)
 
     @classmethod
     def from_numpy(cls, rb, label, valid, device=None) -> "Measurements":
+        """From numpy arrays of one set ([M, 2], [M], [M]) or of R
+        ([R, M, 2], [R, M], [R, M])."""
         valid = np.asarray(valid, bool)
+        count = int(valid.sum()) if valid.ndim == 1 \
+            else tuple(int(c) for c in valid.sum(-1))
         return cls(rb=torch.as_tensor(np.asarray(rb, np.float32),
                                       device=device),
                    label=torch.as_tensor(np.asarray(label, np.int32),
                                          device=device),
                    valid=torch.as_tensor(valid, device=device),
-                   count=int(valid.sum()))
+                   count=count)
 
     @classmethod
-    def empty(cls, max_measurements: int, device=None) -> "Measurements":
+    def empty(cls, max_measurements: int, device=None,
+              n_runs=None) -> "Measurements":
+        """No measurement: one set, or R sets with ``n_runs``."""
+        lead = () if n_runs is None else (n_runs,)
         m = max_measurements
-        return cls.from_numpy(np.zeros((m, 2)), np.zeros(m), np.zeros(m),
-                              device)
+        return cls.from_numpy(np.zeros(lead + (m, 2)), np.zeros(lead + (m,)),
+                              np.zeros(lead + (m,)), device)

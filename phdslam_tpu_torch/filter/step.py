@@ -15,6 +15,18 @@ read inside a step; so is the CPHD birth gate (the previous step's
 measurement count). The resample trigger lives on the device: the indices
 are always computed and ``torch.where(trigger, idx, arange)`` picks them or
 the identity before the gather, which gives the ``cond``'s result.
+
+Monte-Carlo runs (``phdslam_tpu/eval/batch.py``'s vmapped path): with
+per-run measurements (``z.rb [R, M, 2]``) the state holds R runs of
+``n_particles`` blockwise (``filter/runs.py``, ``SlamState.create(...,
+n_runs=R)``) and one step advances all R. Every reduction over the
+particles (the weight normalisation, nEff, the expected pose, the
+resample, the shotgun contraction, the MAP particle of ``log_aux``) is per
+run, and the aux values gain a leading [R]. The host gates become per run:
+the update runs when any run has a measurement, and a run without one
+keeps its pre-update state (``runs.select_runs``); so do the CPHD births.
+Run r draws its noise from its own generator in the single run's order,
+so it filters the draws it would filter alone.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from phdslam_tpu_torch.config import (CPHD_TYPE, DYNAMIC_MODEL,
@@ -32,6 +45,8 @@ from phdslam_tpu_torch.filter.estimate import expected_pose
 from phdslam_tpu_torch.filter.fastslam import fastslam_update
 from phdslam_tpu_torch.filter.predict import (noise_dim, predict,
                                               shotgun_expand)
+from phdslam_tpu_torch.filter.runs import (normalise, per_particle,
+                                           run_view, select_runs)
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
 from phdslam_tpu_torch.filter.update import phd_update_static, phd_variance
 from phdslam_tpu_torch.filter.update4 import (informed_birth_velocity,
@@ -41,6 +56,8 @@ from phdslam_tpu_torch.ops.resample import neff, stratified_resample_indices
 
 
 class StepAux(NamedTuple):
+    """One step's values; each gains a leading [R] for R runs."""
+
     expected_pose: torch.Tensor   # [6]
     neff: torch.Tensor            # scalar (normalized)
     resampled: torch.Tensor       # bool
@@ -50,7 +67,8 @@ class StepAux(NamedTuple):
 
 class LogAux(NamedTuple):
     """What the state_estimate log needs after a whole-run loop: the MAP
-    particle's map and the per-particle quantities."""
+    particle's map and the per-particle quantities (a leading [R] for R
+    runs)."""
 
     map_w: torch.Tensor           # [F]
     map_mx: torch.Tensor
@@ -81,7 +99,15 @@ def check_supported(cfg):
 def draw_noise(cfg, n_predicted: int, device, generator=None,
                dtype=torch.float32):
     """One step's random draws: (pose_normals [sub, n_predicted, d],
-    resample_uniforms [n_particles]), d = 2 (Ackerman) or 3 (CV)."""
+    resample_uniforms [n_particles]), d = 2 (Ackerman) or 3 (CV). With a
+    list of R generators, R runs: run r draws its n_predicted / R normals
+    and n_particles uniforms from generator r, as alone, and the runs'
+    draws are concatenated on the particle axis."""
+    if isinstance(generator, (list, tuple)):
+        per_run = [draw_noise(cfg, n_predicted // len(generator), device, g,
+                              dtype) for g in generator]
+        return (torch.cat([n for n, _ in per_run], 1),
+                torch.cat([u for _, u in per_run]))
     sub = max(int(cfg.subdividePredict), 1)
     normals = torch.randn((sub, n_predicted, noise_dim(cfg)),
                           generator=generator, device=device, dtype=dtype)
@@ -110,9 +136,12 @@ def predicted_state(state: SlamState, control, dt: float, do_predict: bool,
     return state
 
 
-def gather_particles(state: SlamState, idx, new_log_w) -> SlamState:
+def gather_particles(state: SlamState, idx, new_log_w,
+                     lineage) -> SlamState:
+    """The particles at idx, with resample_idx = lineage (``_lineage``:
+    idx, or for R runs each run's own indices)."""
     new = state.map(lambda t: t.index_select(0, idx))
-    return new.replace(log_weights=new_log_w, resample_idx=idx)
+    return new.replace(log_weights=new_log_w, resample_idx=lineage)
 
 
 def slam_step(state: SlamState, control, z: Measurements, dt: float,
@@ -120,24 +149,35 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
               with_variance: bool = False, z_prev: Measurements = None):
     """One SLAM time step; returns (state', StepAux).
 
-    control     (v_encoder, alpha), floats or 0-d tensors
-    z           padded Measurements; ``z.count`` (host int) gates the update
+    control     (v_encoder, alpha), floats or 0-d tensors; per run [R]
+                tensors
+    z           padded Measurements; ``z.count`` (host int) gates the update.
+                Per-run sets (``z.rb [R, M, 2]``) step R runs at once: the
+                state holds R blocks of n_particles, every aux value gains a
+                leading [R], and ``generator`` is a list of R generators
     dt          host float
     do_predict  host bool: the first step skips prediction
     noise       (pose_normals [sub, P * nPredictParticles, d],
-                resample_uniforms [P]) to replay given draws; otherwise the
-                draws come from ``generator`` on the state's device
+                resample_uniforms [P]) to replay given draws (R runs: the
+                runs' draws concatenated); otherwise the draws come from
+                ``generator`` on the state's device
     z_prev      the previous step's Measurements: under birthVelocityInit
                 the dynamic births take their velocity from them, and the
                 CPHD births come from them (None: no births)
     """
     check_supported(cfg)
     is_cphd = cfg.filterType == CPHD_TYPE
-    n_target = cfg.n_particles
+    n_runs = z.n_runs
+    n_target = cfg.n_particles * (n_runs or 1)
     n_copies = max(int(cfg.nPredictParticles), 1)
     dtype = state.log_weights.dtype
     dev = state.device
     mixed = cfg.featureModel in (DYNAMIC_MODEL, MIXED_MODEL)
+    if n_runs is not None and state.n_particles \
+            != n_runs * cfg.n_particles:
+        raise ValueError(f"{n_runs} measurement sets need {n_runs} x "
+                         f"{cfg.n_particles} particles, the state holds "
+                         f"{state.n_particles}")
     if noise is None:
         noise = draw_noise(cfg, state.n_particles * n_copies, dev, generator,
                            dtype)
@@ -158,29 +198,32 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     # ---- CPHD births from the previous measurements ----
     if is_cphd:
         consts = cphd.make_constants(cfg, dev)
-        if z_prev is not None and z_prev.count > 0:
+        if z_prev is not None and z_prev.any_run:
             new_map, cn_birth = cphd.add_births(
                 state.map_static, state.pose, z_prev.rb, z_prev.valid, cfg,
                 consts)
-            state = state.replace(map_static=new_map, cn_birth=cn_birth)
+            born = state.replace(map_static=new_map, cn_birth=cn_birth)
+            state = born if z_prev.every_run \
+                else select_runs(z_prev.run_mask(), born, state)
 
     # ---- measurement update ----
-    n_measure = z.valid.sum()
-    if z.count > 0 and cfg.filterType == FASTSLAM_TYPE:
+    n_measure = z.valid.sum(-1)
+    # the runs with a measurement, where some run has none
+    has_z = z.run_mask() if z.any_run and not z.every_run else None
+    before = state
+    if z.any_run and cfg.filterType == FASTSLAM_TYPE:
         gm_out, dw = fastslam_update(state.pose, state.map_static, z.rb,
                                      z.valid, cfg)
-        lw = state.log_weights + dw
-        log_lik = torch.logsumexp(lw, 0)
-        state = state.replace(map_static=gm_out, log_weights=lw - log_lik)
-    elif z.count > 0 and is_cphd:
+        lw, log_lik = normalise(state.log_weights + dw, n_runs)
+        state = state.replace(map_static=gm_out, log_weights=lw)
+    elif z.any_run and is_cphd:
         map_out, cn_update, dw = cphd.cphd_update(
             state.pose, state.map_static, state.cardinality, z.rb, z.label,
             z.valid, cfg, consts)
-        lw = state.log_weights + dw
-        log_lik = torch.logsumexp(lw, 0)
-        state = state.replace(map_static=map_out, log_weights=lw - log_lik,
+        lw, log_lik = normalise(state.log_weights + dw, n_runs)
+        state = state.replace(map_static=map_out, log_weights=lw,
                               cardinality=cn_update)
-    elif z.count > 0 and mixed:
+    elif z.any_run and mixed:
         birth_vel = None
         if zw_prev is not None:
             birth_vel = informed_birth_velocity(state.pose, z.rb, z.valid,
@@ -189,70 +232,105 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
         gm2, gm4, dw = phd_update_mixed(state.pose, state.map_static,
                                         state.map_dynamic, z.rb, z.label,
                                         z.valid, cfg, birth_vel=birth_vel)
-        lw = state.log_weights + dw
-        log_lik = torch.logsumexp(lw, 0)
+        lw, log_lik = normalise(state.log_weights + dw, n_runs)
         state = state.replace(map_static=gm2, map_dynamic=gm4,
-                              log_weights=lw - log_lik)
-    elif z.count > 0:
+                              log_weights=lw)
+    elif z.any_run:
         res = phd_update_static(state.pose, state.map_static, z.rb, z.label,
                                 z.valid, cfg)
-        lw = state.log_weights + res.log_weight_delta
-        log_lik = torch.logsumexp(lw, 0)
-        lw = lw - log_lik
+        lw, log_lik = normalise(state.log_weights + res.log_weight_delta,
+                                n_runs)
         var = phd_variance(res, z.valid) if with_variance \
             else state.variances
         state = state.replace(map_static=res.map_out, log_weights=lw,
                               variances=var)
     else:
-        log_lik = torch.zeros((), dtype=dtype, device=dev)
+        log_lik = torch.zeros(() if n_runs is None else (n_runs,),
+                              dtype=dtype, device=dev)
+    if has_z is not None:
+        # the runs without a measurement keep their pre-update state
+        state = select_runs(has_z, state, before)
+        log_lik = torch.where(has_z, log_lik, 0.0)
 
-    exp_pose = expected_pose(state)
-    n_eff = neff(state.log_weights)
+    exp_pose = expected_pose(state, n_runs)
+    n_eff = neff(state.log_weights, n_runs)
     if cfg.debug:
-        print(f"[debug] log_lik={float(log_lik):.6f} neff={float(n_eff):.4f}"
-              f" lw[min,max]=[{float(state.log_weights.min()):.4f},"
-              f"{float(state.log_weights.max()):.4f}] "
+        lw_runs = run_view(state.log_weights, n_runs)
+        print(f"[debug] log_lik={log_lik.tolist()} neff={n_eff.tolist()}"
+              f" lw[min,max]=[{lw_runs.amin(-1).tolist()},"
+              f"{lw_runs.amax(-1).tolist()}] "
               f"card0={float(state.map_static.w[0].sum()):.2f}")
 
     # ---- resampling ----
+    run_shape = () if n_runs is None else (n_runs,)
     arange = torch.arange(n_target, dtype=torch.int32, device=dev)
-    uniform_lw = torch.full((n_target,), -math.log(float(n_target)),
+    uniform_lw = torch.full((n_target,), -math.log(float(cfg.n_particles)),
                             dtype=dtype, device=dev)
-    if state.n_particles != n_target:
+    n_in = state.n_particles
+    if n_in != n_target:
         # shotgun-expanded step: always contract back to n_particles
         idx = stratified_resample_indices(state.log_weights, uniforms,
-                                          n_target)
-        state = gather_particles(state, idx, uniform_lw)
-        resampled = torch.ones((), dtype=torch.bool, device=dev)
-    elif z.count > 0:
+                                          cfg.n_particles, n_runs)
+        state = gather_particles(state, idx, uniform_lw,
+                                 _lineage(idx, n_runs, n_in))
+        resampled = torch.ones(run_shape, dtype=torch.bool, device=dev)
+    elif z.any_run:
         trigger = n_eff <= cfg.resampleThresh
+        if has_z is not None:
+            trigger = trigger & has_z
         idx = stratified_resample_indices(state.log_weights, uniforms,
-                                          n_target)
-        idx = torch.where(trigger, idx, arange)
+                                          cfg.n_particles, n_runs)
+        trig = trigger if n_runs is None \
+            else per_particle(trigger, n_target)
+        idx = torch.where(trig, idx, arange)
         state = gather_particles(
-            state, idx, torch.where(trigger, uniform_lw, state.log_weights))
+            state, idx, torch.where(trig, uniform_lw, state.log_weights),
+            _lineage(idx, n_runs, n_in))
         resampled = trigger
     else:
-        state = state.replace(resample_idx=arange)
-        resampled = torch.zeros((), dtype=torch.bool, device=dev)
+        state = state.replace(resample_idx=_lineage(arange, n_runs, n_in))
+        resampled = torch.zeros(run_shape, dtype=torch.bool, device=dev)
 
     return state, StepAux(expected_pose=exp_pose, neff=n_eff,
                           resampled=resampled, n_measure=n_measure,
                           log_lik=log_lik)
 
 
-def log_aux(state: SlamState) -> LogAux:
-    idx = torch.argmax(state.log_weights).reshape(1)
-    row = lambda t: t.index_select(0, idx)[0]
+def _lineage(idx, n_runs, n_in: int):
+    """Each run's own resample indices: idx less r n_in / R in run r's
+    block (idx itself for one run)."""
+    if n_runs is None:
+        return idx
+    per = n_in // n_runs
+    off = torch.arange(n_runs, dtype=idx.dtype, device=idx.device) * per
+    return (idx.reshape(n_runs, -1) - off[:, None]).reshape(-1)
+
+
+def log_aux(state: SlamState, n_runs=None) -> LogAux:
+    """The MAP particle's maps and the per-particle values; with
+    ``n_runs`` each run's, on a leading [R]."""
+    if n_runs is None:
+        idx = torch.argmax(state.log_weights).reshape(1)
+        row = lambda t: t.index_select(0, idx)[0]
+        each = lambda t: t
+    else:
+        lw = state.log_weights.reshape(n_runs, -1)
+        idx = torch.argmax(lw, 1) + torch.arange(
+            n_runs, device=lw.device) * lw.shape[1]
+        row = lambda t: t.index_select(0, idx)
+        each = lambda t: run_view(t, n_runs)
     ms, md = state.map_static, state.map_dynamic
-    cn = (state.log_weights.new_zeros((1,)) if state.cardinality is None
-          else row(state.cardinality))
+    if state.cardinality is not None:
+        cn = row(state.cardinality)
+    else:
+        cn = state.log_weights.new_zeros(
+            (1,) if n_runs is None else (n_runs, 1))
     return LogAux(
         map_w=row(ms.w), map_mx=row(ms.mx), map_my=row(ms.my),
         map_c00=row(ms.c00), map_c01=row(ms.c01), map_c11=row(ms.c11),
         dyn_w=row(md.w), dyn_mean=row(md.mean_channels),
-        dyn_cov=row(md.cov_channels), log_weights=state.log_weights,
-        poses=state.pose, resample_idx=state.resample_idx,
+        dyn_cov=row(md.cov_channels), log_weights=each(state.log_weights),
+        poses=each(state.pose), resample_idx=each(state.resample_idx),
         cardinality=cn)
 
 
@@ -265,19 +343,29 @@ def run_scan(state: SlamState, controls, zs, dts, cfg, *, generator=None,
     dts [T] (host). Step 0 skips prediction. Each step gets the previous
     step's measurements as ``z_prev``, step 0 an empty set. Returns
     (final_state, stacked StepAux), or (final_state, (stacked StepAux,
-    stacked LogAux)) with ``with_log_state``."""
+    stacked LogAux)) with ``with_log_state``. R runs at once: per-run
+    measurement sets, controls [T, R, 2] (copied to the device once),
+    ``generator`` a list of R, and the stacked values [T, R, ...]."""
     auxs, logs = [], []
-    z_prev = Measurements.empty(zs[0].rb.shape[0], zs[0].rb.device)
+    n_runs = zs[0].n_runs
+    dev = zs[0].rb.device
+    z_prev = Measurements.empty(zs[0].rb.shape[-2], dev, n_runs)
+    if n_runs is not None:
+        ctl = torch.as_tensor(np.asarray(controls, np.float32), device=dev)
     for t, z in enumerate(zs):
+        if n_runs is None:
+            control = (float(controls[t][0]), float(controls[t][1]))
+        else:
+            control = (ctl[t, :, 0], ctl[t, :, 1])
         state, aux = slam_step(
-            state, (float(controls[t][0]), float(controls[t][1])), z,
-            float(dts[t]), t > 0, cfg, generator=generator,
+            state, control, z, float(dts[t]), t > 0, cfg,
+            generator=generator,
             noise=None if noises is None else noises[t],
             with_variance=with_variance, z_prev=z_prev)
         z_prev = z
         auxs.append(aux)
         if with_log_state:
-            logs.append(log_aux(state))
+            logs.append(log_aux(state, n_runs))
     stacked = StepAux(*(torch.stack(f) for f in zip(*auxs)))
     if with_log_state:
         return state, (stacked, LogAux(*(torch.stack(f) for f in zip(*logs))))

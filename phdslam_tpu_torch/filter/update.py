@@ -12,6 +12,11 @@ CPU tensor both kernel wrappers run their plain PyTorch versions.
 update runs it under ``select_by_index`` (the by-index mode of the select
 kernel). ``detection_log_weights`` is the JAX package's XLA route (the
 [P, M, F] tensor), kept for tests.
+
+The measurements are one set (``z_rb [M, 2]``, ``z_label`` and ``z_valid
+[M]``) for every particle, or R per-run sets (``[R, M, 2]``, ``[R, M]``) for
+R runs blockwise on the particle axis (``filter/runs.py``): each
+per-measurement term meets the particles through ``runs.rows``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from phdslam_tpu_torch.config import STATIC_MEASUREMENT
+from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.filter.state import Gaussian2DMixture
 from phdslam_tpu_torch.kernels import select
 from phdslam_tpu_torch.models.measurement import (predict_measurement,
@@ -130,17 +136,19 @@ def detection_log_weights(pre: PreUpdate, gm: Gaussian2DMixture, z_rb,
                           z_label, z_valid, cfg):
     """log pd + log w + log N(innov; 0, S) as [P, M, F], -inf where the
     pair takes no part (the XLA route)."""
-    innov_r = z_rb[None, :, None, 0] - pre.r[:, None, :]
-    innov_b = wrap_angle(z_rb[None, :, None, 1] - pre.bearing[:, None, :])
+    P = pre.r.shape[0]
+    zp = rows(z_rb, P, 2)
+    innov_r = zp[:, :, None, 0] - pre.r[:, None, :]
+    innov_b = wrap_angle(zp[:, :, None, 1] - pre.bearing[:, None, :])
     dist = (innov_r * innov_r * pre.si00[:, None, :]
             + 2.0 * innov_r * innov_b * pre.si01[:, None, :]
             + innov_b * innov_b * pre.si11[:, None, :])
     dist = torch.clamp(dist, min=0.0)
     lw = (safe_log(pre.pd)[:, None, :] + safe_log(gm.w)[:, None, :]
           - 0.5 * dist - LOG_2PI - 0.5 * pre.log_det_s[:, None, :])
-    ok = (pre.rclass == 1)[:, None, :] & z_valid[None, :, None]
+    ok = (pre.rclass == 1)[:, None, :] & rows(z_valid, P, 1)[:, :, None]
     if cfg.labeledMeasurements:
-        ok = ok & (z_label[None, :, None] == STATIC_MEASUREMENT)
+        ok = ok & (rows(z_label, P, 1)[:, :, None] == STATIC_MEASUREMENT)
     return torch.where(ok, lw, -math.inf)
 
 
@@ -151,8 +159,9 @@ def gather_selected(pre: PreUpdate, gm: Gaussian2DMixture, z_rb, f_sel,
     F = pre.r.shape[1]
     idx = f_sel.long()
     take = lambda a: torch.gather(a[:, None, :].expand(P, M, F), 2, idx)
-    ir = z_rb[None, :, None, 0] - take(pre.r)
-    ib = wrap_angle(z_rb[None, :, None, 1] - take(pre.bearing))
+    zp = rows(z_rb, P, 2)
+    ir = zp[:, :, None, 0] - take(pre.r)
+    ib = wrap_angle(zp[:, :, None, 1] - take(pre.bearing))
     mx = take(gm.mx) + take(pre.g00) * ir + take(pre.g01) * ib
     my = take(gm.my) + take(pre.g10) * ir + take(pre.g11) * ib
     lpw = (safe_log(take(pre.pd)) + safe_log(take(gm.w))
@@ -171,19 +180,22 @@ class UpdateResult(NamedTuple):
 
 
 def n_valid_of(z_valid):
-    """1 + the last valid measurement index, as a device int32 [1]."""
-    M = z_valid.shape[0]
+    """1 + the last valid measurement index, as a device int32 [1] (one
+    per set: [R] for z_valid [R, M])."""
+    M = z_valid.shape[-1]
     ar = torch.arange(1, M + 1, dtype=torch.int32, device=z_valid.device)
-    return torch.where(z_valid, ar, 0).max().reshape(1)
+    return torch.where(z_valid, ar, 0).amax(-1).reshape(-1)
 
 
 def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
                       cfg) -> UpdateResult:
     """Static-model PHD update of all particles. pose [P, 6]; gm [P, F]
-    channels; z_rb [M, 2]; z_label [M]; z_valid [M] bool."""
-    F = gm.w.shape[1]
-    M = z_rb.shape[0]
+    channels; z_rb [M, 2]; z_label [M]; z_valid [M] bool (or per run:
+    [R, M, 2], [R, M], [R, M])."""
+    P, F = gm.w.shape
+    M = z_rb.shape[-2]
     k1 = min(cfg.selectTopK or (4 if cfg.mergeMode == 1 else 8), F)
+    vp, lp = rows(z_valid, P, 1), rows(z_label, P, 1)      # [1 or P, M]
 
     pre = kalman_preupdate(pose, gm, cfg)
     nv = n_valid_of(z_valid) if cfg.dynamicMeasurementCount else None
@@ -199,16 +211,16 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
          compatible) = select.fused_update_select(z_rb, pre, gm, cfg, k1=k1,
                                                   n_valid=nv)
     if cfg.labeledMeasurements:
-        m_ok = z_valid & (z_label == STATIC_MEASUREMENT)
+        m_ok = vp & (lp == STATIC_MEASUREMENT)
     else:
-        m_ok = z_valid
-    sum_exp = torch.where(m_ok[None, :], sum_exp, 0.0)
-    w_sel = torch.where(m_ok[None, :, None], w_sel, 0.0)
+        m_ok = vp
+    sum_exp = torch.where(m_ok, sum_exp, 0.0)
+    w_sel = torch.where(m_ok[:, :, None], w_sel, 0.0)
 
     # per-measurement normalizers
     birth_w = cfg.birthWeight
     if cfg.labeledMeasurements:
-        birth_ok = (z_label == STATIC_MEASUREMENT)[None, :]
+        birth_ok = lp == STATIC_MEASUREMENT
     else:
         birth_ok = torch.ones((1, M), dtype=torch.bool, device=z_rb.device)
     normalizer = sum_exp + cfg.clutterDensity + birth_w
@@ -218,21 +230,20 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
     w_nondetect = torch.where(in_mask, gm.w * (1.0 - pre.pd), 0.0)
     if cfg.gateBirths:
         birth_ok = birth_ok & ~compatible
-    w_birth = torch.where(birth_ok & z_valid[None, :], birth_w / normalizer,
-                          0.0)
+    w_birth = torch.where(birth_ok & vp, birth_w / normalizer, 0.0)
 
     # particle weighting
-    mvalid = z_valid.to(gm.w.dtype)
-    sum_log_norm = (log_norm * mvalid[None, :]).sum(-1)
-    n_measure = mvalid.sum()
+    mvalid = vp.to(gm.w.dtype)                             # [1 or P, M]
+    sum_log_norm = (log_norm * mvalid).sum(-1)
+    n_measure = mvalid.sum(-1)
     if cfg.particleWeighting == 0:
         card_pred = (pre.pd * gm.w).sum(-1) + n_measure * birth_w
         dw = sum_log_norm - card_pred
     else:
         cn_predict = torch.where(in_mask, gm.w, 0.0).sum(-1)
         cn_update = (w_nondetect.sum(-1)
-                     + (sum_exp / normalizer * mvalid[None, :]).sum(-1)
-                     + (w_birth * mvalid[None, :]).sum(-1))
+                     + (sum_exp / normalizer * mvalid).sum(-1)
+                     + (w_birth * mvalid).sum(-1))
         dw = (n_measure * cfg.clutterDensity + cn_update - cn_predict
               - cfg.clutterRate)
 
@@ -250,9 +261,9 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
         map_out=map_out,
         log_weight_delta=dw,
         w_nondetect=w_nondetect,
-        w_detect=w_sel * mvalid[None, :, None],
-        w_birth=w_birth * mvalid[None, :],
-        det_mass=sum_exp / normalizer * mvalid[None, :],
+        w_detect=w_sel * mvalid[:, :, None],
+        w_birth=w_birth * mvalid,
+        det_mass=sum_exp / normalizer * mvalid,
         pre=pre,
     )
 
@@ -268,16 +279,17 @@ def pool_merge_static_sel(gm: Gaussian2DMixture, pre: PreUpdate, w_nd, sel,
     w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel = sel
     P, F = gm.w.shape
     M, k1 = w_sel.shape[1:]
+    zp = rows(z_rb, P, 2)
     minw = cfg.minFeatureWeight
     w_nd_p = torch.where(w_nd >= minw, w_nd, 0.0)
     w_b_p = torch.where(w_birth >= minw, w_birth, 0.0)
     w_sec1 = torch.where(pre.rclass == 1, w_nd_p, gm.w)
     w_sel = torch.where(w_sel >= minw, w_sel, 0.0)
 
-    theta_b = pose[:, None, 2] + z_rb[None, :, 1]
+    theta_b = pose[:, None, 2] + zp[:, :, 1]
     ct, st = torch.cos(theta_b), torch.sin(theta_b)
-    bdx = z_rb[None, :, 0] * ct
-    bdy = z_rb[None, :, 0] * st
+    bdx = zp[:, :, 0] * ct
+    bdy = zp[:, :, 0] * st
     var_rb = (cfg.stdRange * cfg.birthNoiseFactor) ** 2
     var_bb = (cfg.stdBearing * cfg.birthNoiseFactor) ** 2
 
@@ -338,10 +350,11 @@ def phd_variance(result: UpdateResult, z_valid):
     """Closed-form cardinality variance of the updated map per particle:
     sum_nd w + sum_{detect, birth} w (1 - w), with the squared tail beyond
     the stored top-k1 detection terms dropped. Feeds only the logs."""
-    mvalid = z_valid.to(result.w_nondetect.dtype)
+    mvalid = rows(z_valid, result.w_nondetect.shape[0], 1).to(
+        result.w_nondetect.dtype)
     var = result.w_nondetect.sum(-1)
     det_sq = (result.w_detect ** 2).sum(-1)
     var = var + (torch.clamp(result.det_mass - det_sq, min=0.0)
-                 * mvalid[None, :]).sum(-1)
+                 * mvalid).sum(-1)
     wb = result.w_birth
-    return var + (wb * (1.0 - wb) * mvalid[None, :]).sum(-1)
+    return var + (wb * (1.0 - wb) * mvalid).sum(-1)

@@ -13,6 +13,10 @@ normaliser per measurement, then a merge per map (``kernels/merge.py``,
 ``kernels/merge4.py``). Under ``select_by_index`` both selections run in
 their by-index modes and the payload is gathered here. On CPU tensors every
 kernel wrapper runs its plain PyTorch version.
+
+The measurements are one set for every particle or R per-run sets
+(``[R, M, 2]``, ``[R, M]``) for R runs blockwise on the particle axis
+(``filter/runs.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from phdslam_tpu_torch.config import DYNAMIC_MEASUREMENT, STATIC_MEASUREMENT
+from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.filter.state import Gaussian4DMixture
 from phdslam_tpu_torch.filter.update import (gather_selected,
                                              kalman_preupdate, n_valid_of)
@@ -176,23 +181,26 @@ def informed_birth_velocity(pose, z_rb, z_valid, zw_prev, zp_valid, dt: float,
     match within 3 sigma_p + birthVelMax dt gives the observation
     v_obs = (p_m - p_prev) / dt, var_obs = 2 sigma_p^2 / dt^2, fused with
     the zero-mean covVxBirth prior. dt is a host float. Returns (vx, vy,
-    var_v), each [P, M]; unmatched measurements get (0, 0, covVxBirth)."""
-    theta = pose[:, None, 2] + z_rb[None, :, 1]
-    px = pose[:, None, 0] + z_rb[None, :, 0] * torch.cos(theta)   # [P, M]
-    py = pose[:, None, 1] + z_rb[None, :, 0] * torch.sin(theta)
+    var_v), each [P, M]; unmatched measurements get (0, 0, covVxBirth).
+    Per run, z_rb, z_valid and zp_valid are [R, M, 2], [R, M], [R, Mp]."""
+    P = pose.shape[0]
+    zp, vp, vpp = rows(z_rb, P, 2), rows(z_valid, P, 1), rows(zp_valid, P, 1)
+    theta = pose[:, None, 2] + zp[:, :, 1]
+    px = pose[:, None, 0] + zp[:, :, 0] * torch.cos(theta)        # [P, M]
+    py = pose[:, None, 1] + zp[:, :, 0] * torch.sin(theta)
     dx = px[:, :, None] - zw_prev[:, None, :, 0]                  # [P,M,Mp]
     dy = py[:, :, None] - zw_prev[:, None, :, 1]
     d2 = dx * dx + dy * dy
-    d2 = torch.where(zp_valid[None, None, :], d2, torch.inf)
+    d2 = torch.where(vpp[:, None, :], d2, torch.inf)
     j = torch.argmin(d2, dim=-1)                                  # [P, M]
     dmin2 = torch.amin(d2, dim=-1)
-    var_p = cfg.stdRange ** 2 + (z_rb[None, :, 0] * cfg.stdBearing) ** 2
+    var_p = cfg.stdRange ** 2 + (zp[:, :, 0] * cfg.stdBearing) ** 2
     r_match = 3.0 * torch.sqrt(var_p) + cfg.birthVelMax * dt
     # a zero or negative dt makes the two-point velocity undefined: no
     # match (the zero-velocity prior birth), and no division by it
     dt_safe = max(dt, 1e-6)
-    matched = (dmin2 < r_match * r_match) & z_valid[None, :] \
-        & zp_valid.any() & (dt > 0.0)
+    matched = (dmin2 < r_match * r_match) & vp \
+        & vpp.any(-1, keepdim=True) & (dt > 0.0)
     take = lambda a: torch.gather(a, 1, j)                  # [P,Mp]->[P,M]
     var_obs = 2.0 * var_p / (dt_safe * dt_safe)
     gain = cfg.covVxBirth / (cfg.covVxBirth + var_obs)
@@ -209,10 +217,12 @@ def informed_birth_velocity(pose, z_rb, z_valid, zw_prev, zp_valid, dt: float,
 def prev_measurement_world(pose, z_prev_rb, z_prev_valid):
     """World-frame positions of the previous step's measurements at the
     pre-prediction pose: the anchors of ``informed_birth_velocity``.
-    pose [P, >=3]; returns [P, Mp, 2]."""
-    theta = pose[:, None, 2] + z_prev_rb[None, :, 1]
-    x = pose[:, None, 0] + z_prev_rb[None, :, 0] * torch.cos(theta)
-    y = pose[:, None, 1] + z_prev_rb[None, :, 0] * torch.sin(theta)
+    pose [P, >=3]; z_prev_rb [Mp, 2] (or [R, Mp, 2] per run); returns
+    [P, Mp, 2]."""
+    zp = rows(z_prev_rb, pose.shape[0], 2)
+    theta = pose[:, None, 2] + zp[:, :, 1]
+    x = pose[:, None, 0] + zp[:, :, 0] * torch.cos(theta)
+    y = pose[:, None, 1] + zp[:, :, 0] * torch.sin(theta)
     return torch.stack([x, y], dim=-1)
 
 
@@ -291,8 +301,9 @@ def gather_selected4(pre4: PreUpdate4, gm4: Gaussian4DMixture, z_rb, f_sel):
         return torch.gather(a[:, :, None, :].expand(P, C, M, F), 3,
                             idx[:, None].expand(P, C, M, k1))
 
-    ir = z_rb[None, :, None, 0] - take_sel(pre4.r)
-    ib = wrap_angle(z_rb[None, :, None, 1] - take_sel(pre4.bearing))
+    zp = rows(z_rb, P, 2)
+    ir = zp[:, :, None, 0] - take_sel(pre4.r)
+    ib = wrap_angle(zp[:, :, None, 1] - take_sel(pre4.bearing))
     gk = take_selc(pre4.gain)                                  # [P,8,M,k1]
     mean_f = take_selc(gm4.mean_channels)                      # [P,4,M,k1]
     mean_det = torch.stack(
@@ -309,14 +320,16 @@ def phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid, cfg,
     unlabeled), then a prune / pool / merge per map.
 
     pose [P, 6]; gm2 [P, F2] and gm4 [P, F4] channels; z_rb [M, 2];
-    z_label [M]; z_valid [M] bool. birth_vel: optional (vx, vy, var_v)
-    [P, M] from ``informed_birth_velocity``.
+    z_label [M]; z_valid [M] bool (or per run: [R, M, 2], [R, M], [R, M]).
+    birth_vel: optional (vx, vy, var_v) [P, M] from
+    ``informed_birth_velocity``.
 
     Returns (gm2_out, gm4_out, log_weight_delta [P])."""
-    F2 = gm2.w.shape[-1]
+    P, F2 = gm2.w.shape
     F4 = gm4.w.shape[-1]
-    M = z_rb.shape[0]
+    M = z_rb.shape[-2]
     dtype = gm2.w.dtype
+    vp, lp = rows(z_valid, P, 1), rows(z_label, P, 1)      # [1 or P, M]
     k1 = cfg.selectTopK or (4 if cfg.mergeMode == 1 else 8)
 
     # static map: the select kernel in raw mode (unnormalised detection
@@ -335,11 +348,11 @@ def phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid, cfg,
             with_compat=False, with_lpw=False)
         sum_exp2, e_sel2, sel2 = out2[0], out2[1], out2[2:7]
     if cfg.labeledMeasurements:
-        m_ok2 = z_valid & (z_label == STATIC_MEASUREMENT)
+        m_ok2 = vp & (lp == STATIC_MEASUREMENT)
     else:
-        m_ok2 = z_valid
-    sum_exp2 = torch.where(m_ok2[None, :], sum_exp2, 0.0)
-    e_sel2 = torch.where(m_ok2[None, :, None], e_sel2, 0.0)
+        m_ok2 = vp
+    sum_exp2 = torch.where(m_ok2, sum_exp2, 0.0)
+    e_sel2 = torch.where(m_ok2[:, :, None], e_sel2, 0.0)
 
     # dynamic map: the select4 kernel (raw, every column; masked here)
     pre4 = kalman_preupdate4(pose, gm4, cfg)
@@ -352,11 +365,11 @@ def phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid, cfg,
         sum_exp4, e_sel4, mean_sel4, cov_sel4 = \
             select4.fused_update_select4(z_rb, pre4, gm4, k1=k1d)
     if cfg.labeledMeasurements:
-        m_ok4 = z_valid & (z_label == DYNAMIC_MEASUREMENT)
+        m_ok4 = vp & (lp == DYNAMIC_MEASUREMENT)
     else:
-        m_ok4 = z_valid
-    sum_exp4 = torch.where(m_ok4[None, :], sum_exp4, 0.0)
-    e_sel4 = torch.where(m_ok4[None, :, None], e_sel4, 0.0)
+        m_ok4 = vp
+    sum_exp4 = torch.where(m_ok4, sum_exp4, 0.0)
+    e_sel4 = torch.where(m_ok4[:, :, None], e_sel4, 0.0)
 
     # joint per-measurement normaliser; birthWeightDynamic < 0 means the
     # symmetric births of the reference
@@ -365,28 +378,28 @@ def phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid, cfg,
         else cfg.birthWeight
     if cfg.labeledMeasurements:
         # one birth term per measurement: the labeled map's
-        birth_terms = torch.where(z_label == DYNAMIC_MEASUREMENT, bw_d,
-                                  bw_s).to(dtype)[None, :]
+        birth_terms = torch.where(lp == DYNAMIC_MEASUREMENT, bw_d,
+                                  bw_s).to(dtype)
     else:
         birth_terms = bw_s + bw_d
     normalizer = sum_exp2 + sum_exp4 + cfg.clutterDensity + birth_terms
     log_norm = safe_log(normalizer)
-    mvalid = z_valid.to(dtype)
-    n_measure = mvalid.sum()
+    mvalid = vp.to(dtype)                                  # [1 or P, M]
+    n_measure = mvalid.sum(-1)
 
     w_nd2 = torch.where(pre2.rclass == 1, gm2.w * (1.0 - pre2.pd), 0.0)
     w_nd4 = torch.where(pre4.rclass == 1, gm4.w * (1.0 - pre4.pd), 0.0)
     if cfg.labeledMeasurements:
-        b2_ok = (z_label == STATIC_MEASUREMENT)[None, :]
-        b4_ok = (z_label == DYNAMIC_MEASUREMENT)[None, :]
+        b2_ok = lp == STATIC_MEASUREMENT
+        b4_ok = lp == DYNAMIC_MEASUREMENT
     else:
         b2_ok = b4_ok = torch.ones((1, M), dtype=torch.bool,
                                    device=z_rb.device)
-    w_b2 = torch.where(b2_ok & z_valid[None, :], bw_s / normalizer, 0.0)
-    w_b4 = torch.where(b4_ok & z_valid[None, :], bw_d / normalizer, 0.0)
+    w_b2 = torch.where(b2_ok & vp, bw_s / normalizer, 0.0)
+    w_b4 = torch.where(b4_ok & vp, bw_d / normalizer, 0.0)
 
     # particle weights
-    sum_log_norm = (log_norm * mvalid[None, :]).sum(-1)
+    sum_log_norm = (log_norm * mvalid).sum(-1)
     if cfg.particleWeighting == 0:
         # the mixed kernel's cardinality: sum pd w over both maps only
         card_pred = (pre2.pd * gm2.w).sum(-1) + (pre4.pd * gm4.w).sum(-1)
@@ -397,9 +410,9 @@ def phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid, cfg,
                    + n_measure * cfg.birthWeight)
         det_mass = (sum_exp2 + sum_exp4) / normalizer
         cn_up = (w_nd2.sum(-1) + w_nd4.sum(-1)
-                 + (det_mass * mvalid[None, :]).sum(-1)
-                 + (w_b2 * mvalid[None, :]).sum(-1)
-                 + (w_b4 * mvalid[None, :]).sum(-1))
+                 + (det_mass * mvalid).sum(-1)
+                 + (w_b2 * mvalid).sum(-1)
+                 + (w_b4 * mvalid).sum(-1))
         dw = (n_measure * cfg.clutterDensity + cn_up - cn_pred
               - cfg.clutterRate)
 
@@ -431,7 +444,7 @@ def _pool_merge_dynamic_sel(gm4, w_nd, sel, w_birth, z_rb, pose, cfg,
     w_b_p = torch.where(w_birth >= minw, w_birth, 0.0)
     w_sel = torch.where(w_sel >= minw, w_sel, 0.0)
 
-    bm, bc = birth4_channels(pose[:, None, :], z_rb[None, :, :], cfg,
+    bm, bc = birth4_channels(pose[:, None, :], rows(z_rb, P, 2), cfg,
                              vel=birth_vel)
     mean_b = torch.stack(bm, dim=1)                             # [P, 4, M]
     cov_b = torch.stack(bc, dim=1)                              # [P, 10, M]

@@ -42,9 +42,9 @@ _F = ctypes.c_float
 # cut to 32 bits.
 SIGNATURES = {
     "phd_select_launch": [_P] * 16 + [_P, _P] + [_P] * 10
-    + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _P, _P],
+    + [_I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _P, _P],
     "phd_select4_launch": [_P] * 10 + [_P] + [_P] * 5
-    + [_I, _I, _I, _I, _I, _P, _P],
+    + [_I, _I, _I, _I, _I, _I, _P, _P],
     "phd_select_wide_floats": [_I, _I],
     "phd_merge_launch": [_P] * 6 + [_P] * 6
     + [_I, _I, _I, _F, _I, _P, _P],

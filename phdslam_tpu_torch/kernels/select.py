@@ -9,7 +9,11 @@ same function in plain PyTorch, on CPU tensors. The outputs have the
 layouts the JAX wrappers return after their transposes: ``sum_exp [P, M]``,
 then seven ``[P, M, k1]`` channels (w, mx, my, u00, u01, u11, lpw) or, by
 index, ``w [P, M, k1]`` and ``idx [P, M, k1]`` int32 (0 where w = 0), and
-``compat [P, M]`` bool. Columns at or past ``n_valid`` are zero. The kernels
+``compat [P, M]`` bool. Columns at or past ``n_valid`` are zero. The
+measurements are one set ``z [M, 2]`` with ``n_valid [1]``, or R per-run
+sets ``z [R, M, 2]`` with ``n_valid [R]`` for R runs of P / R particles
+each, blockwise (``filter/runs.py``): particle p reads run p // (P / R)'s
+set. One set launches as it always did (R = 1). The kernels
 keep a row of up to 1024 map slots in registers; a wider one runs their
 wide-row path, the row in device-memory scratch that the wrapper allocates
 (``_build.scratch``), so any F runs on both devices.
@@ -21,6 +25,7 @@ import math
 
 import torch
 
+from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.kernels import _build
 from phdslam_tpu_torch.ops.linalg import safe_log
 
@@ -46,11 +51,12 @@ def _wrap_round(x):
 def likelihoods(loop_chans, z):
     """The [P, M, F] terms e = exp(lpw - log 2pi - lds/2 - d2/2) and d2 of
     the kernels' inner loop, from the seven loop channels (r, b, lpw, si00,
-    si01, si11, lds) and z [M, 2]."""
+    si01, si11, lds) and z [M, 2] (or [R, M, 2], per run)."""
     r, b, lpw, si00, si01, si11, lds = loop_chans
     base = lpw - LOG_2PI - 0.5 * lds
-    ir = z[None, :, None, 0] - r[:, None, :]                  # [P, M, F]
-    ib = _wrap_round(z[None, :, None, 1] - b[:, None, :])
+    zp = rows(z, r.shape[0], 2)
+    ir = zp[:, :, None, 0] - r[:, None, :]                    # [P, M, F]
+    ib = _wrap_round(zp[:, :, None, 1] - b[:, None, :])
     d2 = (ir * ir * si00[:, None, :] + 2.0 * ir * ib * si01[:, None, :]
           + ib * ib * si11[:, None, :])
     d2 = torch.clamp(d2, min=0.0)
@@ -71,6 +77,24 @@ def top_k1(wrem, k1: int):
     return torch.where(w_sel > 0.0, w_sel, 0.0), f_sel
 
 
+def check_runs(P: int, z, n_valid=None):
+    """R of the measurement sets z [M, 2] (1) or [R, M, 2]; raise unless R
+    divides P and n_valid (when given) holds R int32s."""
+    if z.dim() not in (2, 3):
+        raise ValueError(f"z must be [M, 2] or [R, M, 2], got "
+                         f"{tuple(z.shape)}")
+    R = 1 if z.dim() == 2 else z.shape[0]
+    if R < 1 or P % R:
+        raise ValueError(f"{R} measurement sets do not split {P} particles "
+                         "into equal runs")
+    if n_valid is not None and (n_valid.dtype != torch.int32
+                                or n_valid.numel() != R
+                                or n_valid.device != z.device):
+        raise ValueError(f"n_valid must be {R} int32 on the channels' "
+                         "device")
+    return R
+
+
 def check_shape(F: int, k1: int):
     """Raise unless the select kernels take F slots and k1 picks."""
     if F < 1:
@@ -86,10 +110,11 @@ def select_plain(chans, z, n_valid, *, k1: int, clutter_birth: float,
     """The kernel's function in PyTorch ops: builds the [P, M, F] terms and
     picks with k1 argmax rounds. chans: the 16 [P, F] channels (r, b, lpw,
     si00, si01, si11, lds, mx, my, g00, g01, g10, g11, u00, u01, u11), or
-    the first seven by index; z [M, 2]; n_valid int32 [1]."""
+    the first seven by index; z [M, 2] and n_valid int32 [1], or per run
+    z [R, M, 2] and n_valid [R]."""
     r, b, lpw = chans[:3]
     P, F = r.shape
-    M = z.shape[0]
+    M = z.shape[-2]
     e, d2 = likelihoods(chans[:N_LOOP], z)
     s = e.sum(-1)                                             # [P, M]
     if with_compat:
@@ -104,7 +129,9 @@ def select_plain(chans, z, n_valid, *, k1: int, clutter_birth: float,
         wrem = torch.where(wrem >= min_weight, wrem, 0.0)
     del d2, e
     w_sel, f_sel = top_k1(wrem, k1)
-    live = (torch.arange(M, device=r.device) < n_valid.reshape(()))[None, :]
+    # [1 or P, M]: the columns below each particle's run's n_valid
+    live = torch.arange(M, device=r.device)[None, :] \
+        < rows(n_valid.reshape(-1, 1), P, 1)
     mask = lambda a: torch.where(live[..., None], a, 0)
     if by_index:
         idx = torch.where(w_sel > 0.0, f_sel, 0).to(torch.int32)
@@ -112,8 +139,9 @@ def select_plain(chans, z, n_valid, *, k1: int, clutter_birth: float,
                 compat & live)
     (mx, my, g00, g01, g10, g11, u00, u01, u11) = chans[N_LOOP:]
     take = lambda a: torch.gather(a[:, None, :].expand(P, M, F), 2, f_sel)
-    ir_s = z[None, :, None, 0] - take(r)
-    ib_s = _wrap_round(z[None, :, None, 1] - take(b))
+    zp = rows(z, P, 2)
+    ir_s = zp[:, :, None, 0] - take(r)
+    ib_s = _wrap_round(zp[:, :, None, 1] - take(b))
     sel = [w_sel,
            take(mx) + take(g00) * ir_s + take(g01) * ib_s,
            take(my) + take(g10) * ir_s + take(g11) * ib_s,
@@ -130,17 +158,15 @@ def select_cuda(chans, z, n_valid, *, k1: int, clutter_birth: float,
     global launches, launches_by_index
     r = chans[0]
     P, F = r.shape
-    M = z.shape[0]
+    M = z.shape[-2]
     dev = r.device
     if len(chans) != (N_LOOP if by_index else 16):
         raise ValueError(f"select kernel takes {N_LOOP if by_index else 16} "
                          f"channels here, got {len(chans)}")
     for c in chans:
         _build.check_tensor(c, (P, F), dev, "channel")
-    _build.check_tensor(z, (M, 2), dev, "z")
-    if n_valid.dtype != torch.int32 or n_valid.numel() != 1 \
-            or n_valid.device != dev:
-        raise ValueError("n_valid must be one int32 on the channels' device")
+    R = check_runs(P, z, n_valid)
+    _build.check_tensor(z, tuple(z.shape[:-2]) + (M, 2), dev, "z")
     check_shape(F, k1)
     lib, _ = _build.library()
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -158,7 +184,7 @@ def select_cuda(chans, z, n_valid, *, k1: int, clutter_birth: float,
     err = lib.phd_select_launch(
         *(c.data_ptr() for c in chans[:N_LOOP]), *ptrs_in, z.data_ptr(),
         n_valid.data_ptr(), sum_exp.data_ptr(), w_sel.data_ptr(), *ptrs_out,
-        compat.data_ptr(), P, F, M, k1, clutter_birth, min_weight,
+        compat.data_ptr(), P, P // R, F, M, k1, clutter_birth, min_weight,
         gate_threshold, int(raw), int(with_compat), int(with_lpw),
         int(by_index), _build.ptr(scratch),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -185,14 +211,15 @@ def select_channels(pre, gm):
 def _select(z_rb, pre, gm, cfg, k1, raw, n_valid, with_compat, with_lpw,
             by_index):
     dev = z_rb.device
+    R = 1 if z_rb.dim() == 2 else z_rb.shape[0]
     if n_valid is None:
-        n_valid = torch.full((1,), z_rb.shape[0], dtype=torch.int32,
+        n_valid = torch.full((R,), z_rb.shape[-2], dtype=torch.int32,
                              device=dev)
     chans = select_channels(pre, gm)[:N_LOOP if by_index else 16]
     run = _build.kernel_for(dev, select_cuda, select_plain, "select")
     return run(
         [c.contiguous() for c in chans], z_rb.contiguous(),
-        n_valid.reshape(1).to(torch.int32), k1=k1,
+        n_valid.reshape(R).to(torch.int32), k1=k1,
         clutter_birth=float(cfg.clutterDensity + cfg.birthWeight),
         min_weight=float(cfg.minFeatureWeight),
         gate_threshold=float(cfg.gateThreshold), raw=raw,
@@ -202,9 +229,9 @@ def _select(z_rb, pre, gm, cfg, k1, raw, n_valid, with_compat, with_lpw,
 def fused_update_select(z_rb, pre, gm, cfg, k1: int = 8, raw: bool = False,
                         n_valid=None, with_compat=None, with_lpw=None):
     """Counterpart of the JAX wrapper: returns (sum_exp, w_sel, mx_sel,
-    my_sel, u00_sel, u01_sel, u11_sel, lpw_sel, compat). n_valid is a
-    device int32 (1 + the last valid measurement index); None means all
-    M."""
+    my_sel, u00_sel, u01_sel, u11_sel, lpw_sel, compat). z_rb is [M, 2],
+    or [R, M, 2] per run; n_valid is a device int32 per set (1 + the last
+    valid measurement index); None means all M."""
     if with_compat is None:
         with_compat = bool(cfg.gateBirths)
     if with_lpw is None:

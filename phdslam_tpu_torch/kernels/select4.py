@@ -10,17 +10,20 @@ the values are raw (unnormalised, unpruned): the caller masks the columns
 and applies its normaliser. Outputs: ``sum_exp [P, M]``, ``w [P, M, k1]``
 and either ``mean [P, 4, M, k1]`` and ``cov [P, 10, M, k1]`` (the updated
 means and covariances of the picks) or ``idx [P, M, k1]`` int32 (0 where
-w = 0).
+w = 0). The measurements are one set ``z [M, 2]`` or R per-run sets
+``z [R, M, 2]`` for R runs of P / R particles each, blockwise
+(``filter/runs.py``), as in ``kernels/select.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.kernels import _build
 from phdslam_tpu_torch.kernels.select import (N_LOOP, _wrap_round,
-                                              check_shape, likelihoods,
-                                              loop_lpw, top_k1)
+                                              check_runs, check_shape,
+                                              likelihoods, loop_lpw, top_k1)
 
 #: launches of the payload kernel since the count was last set to 0
 launches = 0
@@ -48,7 +51,7 @@ def select4_plain(loop, gain, mean, cov, z, *, k1: int,
         return s, w_sel, torch.where(w_sel > 0.0, f_sel, 0).to(torch.int32)
     r, b = loop[:2]
     P, F = r.shape
-    M = z.shape[0]
+    M = z.shape[-2]
     take = lambda a: torch.gather(a[:, None, :].expand(P, M, F), 2, f_sel)
 
     def takec(a):                       # [P, C, F] -> [P, C, M, k1]
@@ -56,8 +59,9 @@ def select4_plain(loop, gain, mean, cov, z, *, k1: int,
         return torch.gather(a[:, :, None, :].expand(P, C, M, F), 3,
                             f_sel[:, None].expand(P, C, M, k1))
 
-    ir = z[None, :, None, 0] - take(r)
-    ib = _wrap_round(z[None, :, None, 1] - take(b))
+    zp = rows(z, P, 2)
+    ir = zp[:, :, None, 0] - take(r)
+    ib = _wrap_round(zp[:, :, None, 1] - take(b))
     gk = takec(gain)
     mf = takec(mean)
     mean_sel = torch.stack([mf[:, i] + gk[:, 2 * i] * ir
@@ -71,14 +75,15 @@ def select4_cuda(loop, gain, mean, cov, z, *, k1: int,
     global launches, launches_by_index
     r = loop[0]
     P, F = r.shape
-    M = z.shape[0]
+    M = z.shape[-2]
     dev = r.device
     if len(loop) != N_LOOP:
         raise ValueError(f"select4 kernel takes {N_LOOP} loop channels, got "
                          f"{len(loop)}")
     for c in loop:
         _build.check_tensor(c, (P, F), dev, "channel")
-    _build.check_tensor(z, (M, 2), dev, "z")
+    R = check_runs(P, z)
+    _build.check_tensor(z, tuple(z.shape[:-2]) + (M, 2), dev, "z")
     check_shape(F, k1)
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     sum_exp, w_sel = f32(P, M), f32(P, M, k1)
@@ -96,7 +101,7 @@ def select4_cuda(loop, gain, mean, cov, z, *, k1: int,
     scratch = _build.scratch(lib.phd_select_wide_floats(P, F), dev)
     err = lib.phd_select4_launch(
         *(c.data_ptr() for c in loop), *ptrs_in, z.data_ptr(),
-        sum_exp.data_ptr(), w_sel.data_ptr(), *ptrs_out, P, F, M, k1,
+        sum_exp.data_ptr(), w_sel.data_ptr(), *ptrs_out, P, P // R, F, M, k1,
         int(by_index), _build.ptr(scratch),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "select4 kernel")

@@ -170,10 +170,3 @@ def test_run_batch_harness_and_plots(scenario, tmp_path):
     from phdslam_tpu_torch.eval.plots import plot_error_curves
     out = plot_error_curves(agg, str(tmp_path / "errors.png"))
     assert os.path.exists(out)
-
-
-def test_run_batch_refuses_the_run_axis(scenario):
-    _, sc = scenario
-    cfg = load_config("cfg/ackerman_synth.cfg").replace(**TINY)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        TB.run_batch(cfg, sc, n_runs=2, vmapped=True, device="cpu")

@@ -389,6 +389,125 @@ def test_select4_kernel_matches_plain(dev, P, F, M, k1):
     assert torch.equal(idx_k[1], kern[1]) and torch.equal(idx_k[0], kern[0])
 
 
+def _per_run_z(z, R, seed, dev):
+    """R measurement sets [R, M, 2]: z, then R - 1 others of its range."""
+    rng = np.random.default_rng(seed)
+    M = z.shape[0]
+    other = np.stack([rng.uniform(0.5, 10, (R - 1, M)),
+                      rng.uniform(-1.6, 1.6, (R - 1, M))], -1)
+    return torch.cat([z[None], torch.as_tensor(other, dtype=torch.float32,
+                                               device=dev)]).contiguous()
+
+
+@pytest.mark.parametrize("P,F,M,k1,raw", [
+    (3 * 37, 45, 11, 3, False),
+    (4 * 16, 200, 19, 8, True),
+    (3 * 2, 1025, 8, 8, False),     # the wide-row kernel
+])
+def test_select_kernels_per_run_sets_match_single_runs(dev, P, F, M, k1,
+                                                       raw):
+    """R runs blockwise, each with its own measurement set (and, for
+    select, its own n_valid): one launch of each kernel, both modes,
+    equals R single-run launches on the particle slices bit for bit, and
+    the plain version on the same per-run inputs within tolerance."""
+    R = 3 if P % 3 == 0 else 4
+    n = P // R
+    cfg, chans, z1 = _select_inputs(P, F, M, P + F + 21, dev)
+    z = _per_run_z(z1, R, P + F, dev)
+    nv = torch.tensor([M, M - 3, 0, 1][:R], dtype=torch.int32, device=dev)
+    kw = dict(k1=k1, clutter_birth=float(cfg.clutterDensity
+                                         + cfg.birthWeight),
+              min_weight=float(cfg.minFeatureWeight),
+              gate_threshold=9.0, raw=raw, with_compat=True, with_lpw=True)
+    kwb = dict(kw, by_index=True)
+    del kwb["with_lpw"]
+    loop, gain, mean, cov, _ = _select4_inputs(P, F, M, P + F + 22, dev)
+    runs = dict(
+        select=(lambda zz, v, sl: S.select_cuda([c[sl] for c in chans], zz,
+                                                v, **kw)),
+        by_index=(lambda zz, v, sl: S.select_cuda(
+            [c[sl] for c in chans[:S.N_LOOP]], zz, v, **kwb)),
+        select4=(lambda zz, v, sl: S4.select4_cuda(
+            [c[sl] for c in loop], gain[sl].contiguous(),
+            mean[sl].contiguous(), cov[sl].contiguous(), zz, k1=k1)),
+        select4_by_index=(lambda zz, v, sl: S4.select4_cuda(
+            [c[sl] for c in loop], None, None, None, zz, k1=k1,
+            by_index=True)))
+    for name, run in runs.items():
+        before = (S.launches, S.launches_by_index, S4.launches,
+                  S4.launches_by_index)
+        got = run(z, nv, slice(None))
+        after = (S.launches, S.launches_by_index, S4.launches,
+                 S4.launches_by_index)
+        assert sum(after) == sum(before) + 1, name
+        for r in range(R):
+            sl = slice(r * n, (r + 1) * n)
+            one = run(z[r].contiguous(), nv[r:r + 1].contiguous(), sl)
+            for g, o in zip(got, one):
+                assert torch.equal(g[sl], o), (name, r)
+    plain = S.select_plain(chans, z, nv, **kw)
+    _assert_select_equal(S.select_cuda(chans, z, nv, **kw), plain)
+    assert not plain[1][2 * n:3 * n].any()          # run 2: n_valid 0
+    p4 = S4.select4_plain(loop, gain, mean, cov, z, k1=k1)
+    k4 = S4.select4_cuda(loop, gain, mean, cov, z, k1=k1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k4[0], p4[0], **TOL)
+    live = p4[1] > 0
+    for k, q in zip(k4[2:], p4[2:]):
+        lv = live[:, None].expand_as(q)
+        torch.testing.assert_close(k[lv], q[lv], **TOL)
+
+
+def test_select_kernels_refuse_sets_that_do_not_split_the_particles(dev):
+    cfg, chans, z1 = _select_inputs(10, 40, 5, 0, dev)
+    z = _per_run_z(z1, 3, 1, dev)
+    nv = torch.tensor([5, 5, 5], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                 # 3 sets, 10 particles
+        S.select_cuda(chans, z, nv, k1=8, clutter_birth=1.0,
+                      min_weight=1e-5, gate_threshold=9.0)
+    with pytest.raises(ValueError):                 # 2 counts for 3 sets
+        S.select_cuda([c[:9] for c in chans], z, nv[:2], k1=8,
+                      clutter_birth=1.0, min_weight=1e-5, gate_threshold=9.0)
+
+
+def test_batched_slam_step_cuda_matches_single_runs(dev):
+    """Two steps of R = 3 static runs in one batched step on the card
+    against each run stepped alone on the card, from the same states and
+    draws: the log-likelihoods within 1e-5 relative, the same resample
+    picks."""
+    R, n, M = 3, 64, 16
+    cfg = load_config("cfg/ackerman_synth.cfg").replace(
+        n_particles=n, maxFeatures=32, maxMeasurements=M, y0=0.0,
+        birthWeight=0.02, resampleThresh=2.0)
+    rng = np.random.default_rng(9)
+    batch = SlamState.create(cfg, dev, n_runs=R)
+    alone = [SlamState.create(cfg, dev) for _ in range(R)]
+    for t in range(2):
+        rb = np.stack([rng.uniform(0.5, 9, (R, M)),
+                       rng.uniform(-1.4, 1.4, (R, M))], -1).astype(np.float32)
+        valid = np.arange(M)[None, :] < np.array([[12], [16], [3]])
+        normals = torch.as_tensor(rng.normal(size=(1, R * n, 2)),
+                                  dtype=torch.float32, device=dev)
+        u = torch.as_tensor(rng.uniform(size=R * n), dtype=torch.float32,
+                            device=dev)
+        ctrl = torch.tensor([1.0, 0.8, 1.2], device=dev)
+        z = Measurements.from_numpy(rb, np.zeros((R, M), np.int32), valid,
+                                    dev)
+        batch, aux = slam_step(batch, (ctrl, ctrl * 0.05), z, 1.0, t > 0, cfg,
+                               noise=(normals, u))
+        for r in range(R):
+            sl = slice(r * n, (r + 1) * n)
+            zr = Measurements.from_numpy(rb[r], np.zeros(M, np.int32),
+                                         valid[r], dev)
+            alone[r], aux1 = slam_step(
+                alone[r], (float(ctrl[r]), float(ctrl[r] * 0.05)), zr, 1.0,
+                t > 0, cfg, noise=(normals[:, sl], u[sl]))
+            torch.testing.assert_close(aux.log_lik[r], aux1.log_lik,
+                                       rtol=1e-5, atol=0)
+            assert torch.equal(batch.resample_idx[sl], alone[r].resample_idx)
+            torch.testing.assert_close(batch.pose[sl], alone[r].pose, **TOL)
+
+
 def _pool(P, K, seed, dev):
     rng = np.random.default_rng(seed)
     w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
