@@ -138,6 +138,11 @@ code is not 0:
        run-step and peak device memory (with --profile, the busy share and
        the ops with the most device time); one step's draws for 20 and for
        256 runs, from a generator a run against one generator
+  6f. no host sync - 4 runs of the static cfg at the shipped shape stepped
+     together on the stress stream, run 1 without measurements at step 1
+     (the per-run update gate) and so without CPHD births at step 2, PHD
+     and CPHD: three steps under torch.cuda.set_sync_debug_mode "warn"
+     (every sync named by the port's line that made it) and then "error"
   6c. FastSLAM main path - scripts/fastslam_evidence.py's low-clutter cell
      (cfg/fastslam_synth.cfg at clutter 2, std_range 0.25, start pose 0;
      256 particles x 128 slots x 64 measurements, 150 steps of
@@ -172,6 +177,18 @@ code is not 0:
      into glue and the auction (its clamp, rounds and readout in the one
      launch) and the peak device memory of the steps; live slots and
      rounds per particle
+  9c. islands - the island model (parallel/island.py): the dense static
+     step as phase 7's at 8 islands of 1024, never exchanging (threshold
+     0) and always (1.1), each round after the plain dense step, two
+     rounds: the timing split, peak device memory, select and merge
+     against plain on the last step's inputs, the exchange alone with its
+     trigger on and off, one more step without a host sync; then
+     the runner with --islands 4 and --truth over phase 3's 330-step run,
+     loop and scan mode: the log contract, select and merge once per
+     step, the island weights normalised within 1e-5, the local (loop) or
+     global (scan) weights summing to 1 within 1e-3, finite poses; ms/step,
+     pose error and exchanges beside phase 3's plain run (not gated: the
+     reference's butterfly pool-mass defect applies here too)
  10. the card's name and power limit, the kernels' JSON line, then
      {"ok": true, "device": {...}} last
 
@@ -319,6 +336,14 @@ MC_PARTICLES, MC_FILL_PARTICLES = 256, 65536
 MC_STEP_RUNS, MC_STEP_AT, MC_LOG_LIK_RTOL = 8, 30, 1e-5
 MC_SIDE_RUNS, MC_SIDE_STEPS = 4, 20
 MC_FILL_STEPS = 50
+# the island model (parallel/island.py): the dense step at ISLANDS
+# islands, at thresholds that never and always exchange, ISLAND_ROUNDS
+# rounds of (plain, both thresholds); the static runner
+# over phase 3's run at RUNNER_ISLANDS islands, loop and scan; SYNC_RUNS
+# runs stepped together with a mixed gate under the sync debug mode
+ISLANDS, ISLAND_THRESHOLDS, RUNNER_ISLANDS = 8, (0.0, 1.1), 4
+ISLAND_ROUNDS = 2
+SYNC_RUNS = 4
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -1727,7 +1752,8 @@ def agree_on_every_launch(t, plain_fn, stats, what):
 
 def run_cli(args, tm):
     """runner.main(args) with every launch count set to 0 just before and
-    every timer on; returns (launch counts, run seconds)."""
+    every timer on; returns (launch counts, run seconds, runner.main's
+    result)."""
     from contextlib import ExitStack
 
     from phdslam_tpu_torch import runner
@@ -1736,8 +1762,18 @@ def run_cli(args, tm):
     with ExitStack() as stack:
         for t in tm.values():
             stack.enter_context(t)
-        runner.main(args)
-    return launch_counts(), time.perf_counter() - t_run
+        res = runner.main(args)
+    return launch_counts(), time.perf_counter() - t_run, res
+
+
+def runner_args(d, out, dev, seed=0, extra=()):
+    """The synth runner's arguments for d/run.cfg on the run files in d,
+    loop mode unless extra names another."""
+    return [str(Path(d, "run.cfg")), "synth", "--measurements",
+            str(Path(d, "measurements.txt")), "--controls",
+            str(Path(d, "controls.txt")), "--data-dir", str(d),
+            "--out-dir", str(out), "--mode", "loop", "--device", dev.type,
+            "--seed", str(seed), *extra]
 
 
 def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0, extra=(), out=None):
@@ -1746,12 +1782,7 @@ def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0, extra=(), out=None):
     counts, run seconds, out dir)."""
     Path(d, "run.cfg").write_text(cfg_text + steps_cfg)
     out = out or Path(d, f"out{len(list(Path(d).glob('out*')))}")
-    args = [str(Path(d, "run.cfg")), "synth", "--measurements",
-            str(Path(d, "measurements.txt")), "--controls",
-            str(Path(d, "controls.txt")), "--data-dir", str(d),
-            "--out-dir", str(out), "--mode", "loop", "--device", dev.type,
-            "--seed", str(seed), *extra]
-    launches, run_s = run_cli(args, tm)
+    launches, run_s, _ = run_cli(runner_args(d, out, dev, seed, extra), tm)
     return launches, run_s, out
 
 
@@ -1832,6 +1863,7 @@ def phase_main_path(dev, stats):
     for k in ("select", "merge"):
         stats[k]["launches"] = launches[k]
     stats["shipped_ms_per_step"] = float(loop_ms.mean())
+    stats["shipped_pose_err"] = float(errs.mean())
     log(f"phase main path: ok ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -2003,7 +2035,7 @@ def run_disparity(out, dev, tm, seed=0):
     return run_cli([str(ROOT / "cfg/disparity_synth.cfg"), "disparity",
                     "--data-dir", str(DISP_DATA), "--out-dir", str(out),
                     "--mode", "loop", "--device", dev.type, "--seed",
-                    str(seed)], tm)
+                    str(seed)], tm)[:2]
 
 
 def phase_disparity_main_path(dev, stats):
@@ -2658,26 +2690,38 @@ def stress_inputs(cfg, n_steps, seed=0):
     return rb, valid, controls
 
 
-def stress_stepper(shape, n_steps, dev, dense=True,
-                   cfg_file="cfg/ackerman_synth.cfg", **overrides):
-    """(cfg, state, step(state, t)) for a shipped cfg at a shape on the
-    stress stream; dense adds bench.py's dense_stress_config overrides,
-    then the given cfg overrides."""
-    import torch
+def stress_cfg(shape, dense=True, cfg_file="cfg/ackerman_synth.cfg",
+               **overrides):
+    """A shipped cfg at a shape; dense adds bench.py's dense_stress_config
+    overrides, then the given cfg overrides."""
     from phdslam_tpu_torch import load_config
-    from phdslam_tpu_torch.filter.state import Measurements, SlamState
-    from phdslam_tpu_torch.filter.step import slam_step
-
     cfg = load_config(str(ROOT / cfg_file)).replace(
         n_particles=shape["P"], maxFeatures=shape["F"],
         maxMeasurements=shape["M"])
     if dense:
         cfg = cfg.replace(y0=0.0, birthWeight=1e-3, clutterRate=50.0)
-    cfg = cfg.replace(**overrides)
+    return cfg.replace(**overrides)
+
+
+def stress_stream(cfg, n_steps, dev):
+    """stress_inputs as Measurements on dev, and the controls."""
+    from phdslam_tpu_torch.filter.state import Measurements
     rb, valid, controls = stress_inputs(cfg, n_steps)
     label = np.zeros((cfg.maxMeasurements,), np.int32)
-    zs = [Measurements.from_numpy(rb[t], label, valid[t], dev)
-          for t in range(n_steps)]
+    return [Measurements.from_numpy(rb[t], label, valid[t], dev)
+            for t in range(n_steps)], controls
+
+
+def stress_stepper(shape, n_steps, dev, dense=True,
+                   cfg_file="cfg/ackerman_synth.cfg", **overrides):
+    """(cfg, state, step(state, t)) for stress_cfg's cfg on the stress
+    stream."""
+    import torch
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import slam_step
+
+    cfg = stress_cfg(shape, dense, cfg_file, **overrides)
+    zs, controls = stress_stream(cfg, n_steps, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def step(state, t):
@@ -2850,6 +2894,249 @@ def phase_dense_fastslam(dev, stats, gpu):
     log(f"phase dense FastSLAM: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+# ------------------------------ phases 6f and 9c: no host sync, islands --
+
+def sync_free(fn, what):
+    """fn() under torch.cuda.set_sync_debug_mode "warn", every operation
+    that makes the host wait for the device recorded with the port's line
+    that called it, then under "error"; raises if either run waited."""
+    import traceback
+
+    import torch
+    seen = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            port = [f for f in traceback.extract_stack()
+                    if "phdslam_tpu_torch" in f.filename]
+            f = port[-1] if port else None
+            seen.append(f"{Path(f.filename).name}:{f.lineno}" if f
+                        else f"{Path(filename).name}:{lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if seen:
+        raise RuntimeError(f"{what}: the host waited for the device at "
+                           + ", ".join(sorted(set(seen))))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"{what}: no host sync (set_sync_debug_mode warn, then error)")
+
+
+def phase_sync_free_batch(dev, stats):
+    """6f: SYNC_RUNS runs of the static cfg at the shipped shape stepped
+    together on the stress stream, run 1 without measurements at step 1
+    (the per-run update gate) and so without CPHD births at step 2, PHD and
+    CPHD arms: the three steps, after a warm-up pass, under sync_free."""
+    import torch
+    from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.filter.state import Measurements, SlamState
+    from phdslam_tpu_torch.filter.step import slam_step
+    t0 = time.perf_counter()
+    R = SYNC_RUNS
+    for arm, over in MC_ARMS:
+        cfg = load_config(str(ROOT / "cfg/ackerman_synth.cfg")).replace(
+            n_particles=SHIPPED["P"], maxFeatures=SHIPPED["F"],
+            maxMeasurements=SHIPPED["M"], **over)
+        rb, valid, controls = stress_inputs(cfg, 3)
+        rb = np.repeat(rb[:, None], R, 1)
+        valid = np.repeat(valid[:, None], R, 1)
+        valid[1, 1] = False
+        lab = np.zeros(valid.shape[1:], np.int32)
+        zs = [Measurements.from_numpy(rb[t], lab, valid[t], dev)
+              for t in range(3)]
+        state0 = SlamState.create(cfg, dev, n_runs=R)
+        gens = [torch.Generator(device=dev).manual_seed(r) for r in range(R)]
+
+        def steps():
+            st, prev = state0, None
+            for t, z in enumerate(zs):
+                st, aux = slam_step(st, (float(controls[t, 0]),
+                                         float(controls[t, 1])), z,
+                                    float(cfg.dt), t > 0, cfg,
+                                    generator=gens, z_prev=prev)
+                prev = z
+            return aux
+
+        steps()
+        sync_free(steps, f"batched step, {arm}, {R} runs x "
+                  f"{cfg.n_particles} particles, run 1 without "
+                  "measurements at step 1")
+    log(f"phase no host sync: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def island_stepper(shape, n_steps, dev, n_islands, thresh):
+    """(cfg, state, step(state, t), run) of the island step: the static
+    cfg at a shape with bench.py's dense overrides on the stress stream,
+    as stress_stepper's; run holds the island log-weights and the last
+    IslandAux; step returns the state and an object whose neff is the
+    island nEff (timed_steps reads it)."""
+    import torch
+    from types import SimpleNamespace
+
+    from phdslam_tpu_torch.parallel.island import (init_islands,
+                                                   island_slam_step)
+    cfg = stress_cfg(shape)
+    zs, controls = stress_stream(cfg, n_steps, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, ilw = init_islands(cfg, n_islands, dev)
+    run = SimpleNamespace(ilw=ilw, aux=None)
+
+    def step(st, t):
+        st, run.ilw, run.aux = island_slam_step(
+            st, run.ilw, (float(controls[t, 0]), float(controls[t, 1])),
+            zs[t], float(cfg.dt), t > 0, cfg, n_islands, thresh=thresh,
+            generator=gen, z_prev=zs[t - 1] if t > 0 else None)
+        return st, SimpleNamespace(neff=run.aux.island_neff)
+
+    return cfg, state, step, run
+
+
+def phase_islands(dev, stats, gpu):
+    """9c: the island step at the dense shape, ISLANDS islands of DENSE's
+    P / ISLANDS particles, once never exchanging (threshold 0) and once
+    always (1.1), each after the plain dense step, the three in that order
+    ISLAND_ROUNDS times (host-bound times drift within a call): WARMUP
+    steps, TIMED timed with CUDA events and split into glue, select and
+    merge, the peak device memory, select and merge against plain on the
+    last step's inputs; for the island steps the exchange alone on that
+    step's state with its trigger on and off, and in the first round one
+    more step under sync_free."""
+    import torch
+    from phdslam_tpu_torch.parallel.island import (butterfly_exchange,
+                                                   draw_island_noise)
+    t0 = time.perf_counter()
+    shape = "x".join(str(DENSE[k]) for k in "PFM")
+    p = DENSE["P"] // ISLANDS
+    ms = {k: [] for k in ("plain",) + ISLAND_THRESHOLDS}
+    ex = {k: [] for k in ISLAND_THRESHOLDS}
+    for r in range(ISLAND_ROUNDS):
+        reset_peak_memory()
+        _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev)
+        ms["plain"].append(timed_steps(stats, state, step, WARMUP,
+                                       "plain dense step", shape,
+                                       peak=True)[1])
+        for thresh in ISLAND_THRESHOLDS:
+            reset_peak_memory()
+            what = f"dense island step ({ISLANDS} x {p}, threshold {thresh})"
+            cfg, state, step, run = island_stepper(
+                DENSE, WARMUP + TIMED + 1, dev, ISLANDS, thresh)
+            state, step_ms = timed_steps(stats, state, step, WARMUP, what,
+                                         shape, peak=True)
+            if bool(run.aux.exchanged) != (thresh > 1.0):
+                raise RuntimeError(
+                    f"{what}: exchanged {bool(run.aux.exchanged)} at island "
+                    f"nEff {float(run.aux.island_neff)}")
+            lse = float(torch.logsumexp(run.ilw, 0))
+            if abs(lse) > 1e-5:
+                raise RuntimeError(f"{what}: island weights' logsumexp "
+                                   f"{lse}")
+            u = draw_island_noise(cfg, ISLANDS, dev)[2]
+            alone = []
+            for trig in (True, False):
+                on = torch.tensor(trig, device=dev)
+                alone.append(cuda_ms(lambda: butterfly_exchange(
+                    state, run.ilw, u, on, ISLANDS), TIMED))
+            if r == 0:
+                sync_free(lambda: step(state, WARMUP + TIMED), what)
+            ms[thresh].append(step_ms)
+            ex[thresh].append(alone)
+            log(f"{what}, round {r + 1}: {step_ms:.3f} ms/step, the exchange"
+                f" alone (3 rounds, one gather of the state) "
+                f"{alone[0]:.4f} ms, its trigger off {alone[1]:.4f} ms; "
+                f"island nEff {float(run.aux.island_neff):.4f}")
+    fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)
+    log(f"dense timing on {gpu}, rounds of (plain, island threshold 0, "
+        f"island threshold 1.1): plain dense step {fmt(ms['plain'])} ms; "
+        f"island step ({ISLANDS} islands x {p}) never exchanging "
+        f"{fmt(ms[0.0])} ms, always {fmt(ms[1.1])} ms; the exchange alone "
+        + "; ".join(f"on the threshold-{k} state {fmt(sum(v, []))} ms "
+                    "(trigger on, off per round)" for k, v in ex.items())
+        + f" (phase 7: {stats['dense_ms_per_step']:.3f} ms)")
+    log(f"phase dense islands: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_island_runner(dev, stats):
+    """9c: the runner with --islands RUNNER_ISLANDS and --truth on the
+    shipped static cfg over phase 3's run, loop and scan mode, launch
+    counts from 0 before each: the log contract (a log, a loop time and
+    a metrics line with ospa per step; every particle in each log; finite
+    poses), select and merge once per update step, the island weights
+    normalised within 1e-5, each island's local weights (loop) or the
+    global weights (scan) summing to 1 within 1e-3; ms/step, mean pose
+    error and exchanges beside phase 3's plain run, the pose error not
+    gated (the reference's butterfly pool-mass defect applies here too)."""
+    import torch
+    t0 = time.perf_counter()
+    tm = timers()
+    n = RUNNER_ISLANDS
+    with tempfile.TemporaryDirectory() as d:
+        sc, n_steps, start = static_run_files(d)
+        Path(d, "run.cfg").write_text(
+            (ROOT / "cfg/ackerman_synth.cfg").read_text() + start)
+        truth = Path(d, "truth.txt")
+        np.savetxt(truth, sc.landmarks)
+        P = None
+        for mode in ("loop", "scan"):
+            out = Path(d, f"islands_{mode}")
+            launches, run_s, res = run_cli(runner_args(
+                d, out, dev, extra=("--mode", mode, "--islands", str(n),
+                                    "--truth", str(truth))), tm)
+            logs, errs = pose_errors(out, sc.traj, n_steps, 2)
+            loop_ms = np.loadtxt(out / "loopTime.log")
+            with open(out / "metrics.jsonl") as f:
+                metrics = [json.loads(line) for line in f]
+            P = logs[0]["weights"].shape[0]
+            if len(loop_ms) != n_steps or len(metrics) != n_steps \
+                    or not all("ospa" in m for m in metrics) \
+                    or any(lg["poses"].shape != (P, 6) for lg in logs):
+                raise RuntimeError(f"islands {mode}: log contract incomplete")
+            if not np.isfinite(errs).all():
+                raise RuntimeError(f"islands {mode}: a pose is not finite")
+            check_launches(launches, dict(select=n_steps, merge=n_steps,
+                                          select_by_index=0, select4=0,
+                                          select4_by_index=0, merge4=0,
+                                          merge3=0, esf=0, auction=0),
+                           f"islands {mode}")
+            if mode == "loop":
+                ilw = res["island_logw"][None]
+                sums = np.stack([np.exp(lg["weights"].astype(
+                    np.float64)).reshape(n, -1).sum(1) for lg in logs[1:]])
+                exchanges = sum(m["resampled"] for m in metrics)
+            else:
+                ilw = res["aux"].island_logw
+                sums = np.array([np.exp(lg["weights"].astype(
+                    np.float64)).sum() for lg in logs])
+                exchanges = sum(m["exchanged"] for m in metrics)
+            lse = float(torch.logsumexp(ilw, -1).abs().max())
+            if lse > 1e-5 or np.abs(sums - 1.0).max() > 1e-3:
+                raise RuntimeError(f"islands {mode}: island weights' "
+                                   f"logsumexp {lse}, weight sums off by "
+                                   f"{np.abs(sums - 1.0).max()}")
+            ospa = np.array([m["ospa"][0] for m in metrics])
+            log(f"islands {mode} ({n} x {P // n}): {n_steps} steps, "
+                f"launches {launches}, {loop_ms.mean():.3f} ms/step (median "
+                f"{np.median(loop_ms):.3f}; plain run, phase 3: "
+                f"{stats['shipped_ms_per_step']:.3f}), pose error mean "
+                f"{errs.mean():.3f} m max {errs.max():.3f} m (plain "
+                f"{stats['shipped_pose_err']:.3f}), exchanges {exchanges}, "
+                f"OSPA last half {ospa[n_steps // 2:].mean():.4f}, island "
+                f"weights' |logsumexp| <= {lse:.1e}, weight sums within "
+                f"{np.abs(sums - 1.0).max():.1e} of 1, run {run_s:.1f} s")
+    log(f"phase island runner: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ---------------------------------------------------- optional: --profile --
 
 def phase_profile(dev):
@@ -2977,6 +3264,7 @@ def main(argv=None):
     phase_seed_envelopes(dev, stats)
     phase_mc_envelope(dev, stats)
     phase_mc_one_step(dev, stats)
+    phase_sync_free_batch(dev, stats)
     phase_mc_fastslam_mixed(dev, stats)
     phase_mc_fill(dev, stats, args.profile)
     phase_fastslam_main_path(dev, stats)
@@ -2984,6 +3272,8 @@ def main(argv=None):
     phase_dense(dev, stats, gpu)
     phase_dense_cphd_disparity(dev, stats, gpu)
     phase_dense_fastslam(dev, stats, gpu)
+    phase_islands(dev, stats, gpu)
+    phase_island_runner(dev, stats)
     if args.profile:
         phase_profile(dev)
 

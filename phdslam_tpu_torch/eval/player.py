@@ -6,11 +6,14 @@ The port's copy of ``phdslam_tpu/eval/player.py``'s HTML player
 ``io/logs.py``; ``tests/test_torch_host.py`` holds the two equal). One
 HTML file embeds the run's data as JSON and draws it on a canvas: time
 slider, play/pause, arrow-key steps, particle cloud, MAP map with 3-sigma
-ellipses, expected-trajectory trail, optional ground truth. The JAX
-package's matplotlib window (``LogPlayer``) is not copied.
+ellipses, expected-trajectory trail, optional ground truth. With
+``--gui``, the JAX package's matplotlib window instead (``LogPlayer``, a
+copy; matplotlib is imported only there): play/pause, arrow-key steps and
+speed, the particle cloud, weights and cardinality panels.
 
     python -m phdslam_tpu_torch.eval.player <log_dir> [out.html]
-        [--truth simData.mat] [--stride N]
+        [--truth simData.mat] [--stride N] [--gui] [--fps F]
+        [--min-weight W]
 """
 
 from __future__ import annotations
@@ -258,6 +261,195 @@ def build_player(log_dir: str, out_path: str = None, truth_mat: str = None,
     return out_path
 
 
+class LogPlayer:
+    """Native matplotlib animated replay — the direct counterpart of the
+    reference's GUI player (python/plot_phdslam.py:35-256: play/pause
+    timer, estimated trajectory + 3-sigma feature ellipses over truth,
+    particle scatter, particle-weight and cardinality panels), driven by
+    the keyboard on any interactive backend: space = play/pause,
+    left/right = step, up/down = speed, escape = quit. Frame stepping
+    (`show_frame`) also works headlessly on Agg, which is how the tests
+    exercise it; the HTML `build_player` remains the zero-dependency
+    artifact for sharing runs.
+    """
+
+    def __init__(self, records, true_map=None, true_traj=None,
+                 min_weight: float = 0.33, fps: float = 10.0,
+                 max_ellipses: int = 256):
+        import matplotlib.pyplot as plt
+        from matplotlib.gridspec import GridSpec
+
+        self.records = [_project_disparity_record(dict(r)) for r in records]
+        self.n_steps = len(self.records)
+        self.min_weight = float(min_weight)
+        self.interval_ms = 1000.0 / float(fps)
+        self.frame = 0
+        self.playing = False
+        self._timer = None
+
+        self.est_traj_xy = np.stack(
+            [r["pose"][:2] for r in self.records])
+        # estimated map cardinality: CPHD pmf -> E[n], else intensity mass
+        # (same branch as build_player, so GUI and HTML replays agree)
+        self.card_est = np.array(
+            [_card_estimate(r) for r in self.records])
+
+        self.fig = plt.figure(figsize=(12, 6))
+        gs = GridSpec(2, 4, figure=self.fig)
+        self.ax = self.fig.add_subplot(gs[:, 0:2])
+        self.ax_particles = self.fig.add_subplot(gs[0, 2])
+        self.ax_weights = self.fig.add_subplot(gs[0, 3])
+        self.ax_cn = self.fig.add_subplot(gs[1, 2:])
+
+        # static background: truth (plot_phdslam.py:66-67)
+        if true_map is not None and len(true_map):
+            tm = np.asarray(true_map)
+            self.ax.plot(tm[:, 0], tm[:, 1], "k*", ms=7, label="true map")
+        if true_traj is not None:
+            tt = np.asarray(true_traj)
+            if tt.shape[0] in (2, 3) and tt.shape[1] > 3:
+                tt = tt.T
+            self.ax.plot(tt[:, 0], tt[:, 1], "k-", lw=1, alpha=0.5,
+                         label="true traj")
+        self.ax.set_aspect("equal")
+        self.ax.set_title("world")
+
+        # animated artists (the reference keeps a fixed pool of ellipse
+        # lines, plot_phdslam.py:91-97; same idea here)
+        (self.l_traj,) = self.ax.plot([], [], "r--", lw=1.2)
+        (self.l_pose,) = self.ax.plot([], [], "rd", ms=8, mfc="none")
+        (self.l_particles,) = self.ax.plot([], [], ",", color="tab:blue")
+        self.l_ellipses = [self.ax.plot([], [], "b-", lw=0.7)[0]
+                           for _ in range(max_ellipses)]
+        (self.l_particles2,) = self.ax_particles.plot(
+            [], [], ".", color="tab:blue", ms=2)
+        self.ax_particles.set_title("particle cloud")
+        (self.l_weights,) = self.ax_weights.plot([], [], "-",
+                                                 color="tab:orange")
+        self.ax_weights.set_title("particle weights")
+        self.ax_cn.plot(np.arange(self.n_steps), self.card_est,
+                        color="0.7", lw=0.8, label="all steps")
+        (self.l_cn,) = self.ax_cn.plot([], [], "b-", lw=1.2,
+                                       label="played")
+        (self.l_cn_now,) = self.ax_cn.plot([], [], "bo", ms=5)
+        self.ax_cn.set_title("estimated cardinality")
+        self.ax_cn.set_xlabel("step")
+        self.ax_cn.legend(loc="upper left", fontsize=8)
+        self.fig.suptitle(self._title(0))
+        self.fig.tight_layout()
+
+        self.fig.canvas.mpl_connect("key_press_event", self._on_key)
+        self.show_frame(0)
+
+    def _title(self, t):
+        state = "playing" if self.playing else "paused"
+        return (f"step {t + 1}/{self.n_steps}  [{state}]   "
+                "space=play/pause  arrows=step/speed  esc=quit")
+
+    def show_frame(self, t: int):
+        """Render step t onto the animated artists
+        (plot_phdslam.py:127-174 update_plot semantics)."""
+        t = int(np.clip(t, 0, self.n_steps - 1))
+        self.frame = t
+        r = self.records[t]
+
+        self.l_traj.set_data(self.est_traj_xy[: t + 1, 0],
+                             self.est_traj_xy[: t + 1, 1])
+        self.l_pose.set_data([r["pose"][0]], [r["pose"][1]])
+        poses = r["poses"]
+        self.l_particles.set_data(poses[:, 0], poses[:, 1])
+
+        static = r["static"]
+        keep = static[static[:, 0] >= self.min_weight] if len(static) \
+            else static
+        for i, line in enumerate(self.l_ellipses):
+            if i < len(keep):
+                row = keep[i]
+                cov = np.array([[row[3], row[4]], [row[4], row[6]]])
+                from phdslam_tpu_torch.eval.plots import _ellipse_points
+                ex, ey = _ellipse_points(row[1:3], cov)
+                line.set_data(ex, ey)
+            else:
+                line.set_data([], [])
+
+        self.l_particles2.set_data(poses[:, 0], poses[:, 1])
+        self.ax_particles.relim()
+        self.ax_particles.autoscale_view()
+
+        w = r["weights"]
+        self.l_weights.set_data(np.arange(w.size), w)
+        self.ax_weights.relim()
+        self.ax_weights.autoscale_view()
+
+        ts = np.arange(t + 1)
+        self.l_cn.set_data(ts, self.card_est[: t + 1])
+        self.l_cn_now.set_data([t], [self.card_est[t]])
+
+        self.fig.suptitle(self._title(t))
+        self.fig.canvas.draw_idle()
+
+    def _tick(self):
+        if not self.playing:
+            return
+        if self.frame + 1 >= self.n_steps:
+            self.pause()
+            return
+        self.show_frame(self.frame + 1)
+
+    def play(self):
+        self.playing = True
+        if self._timer is None:
+            self._timer = self.fig.canvas.new_timer(
+                interval=int(self.interval_ms))
+            self._timer.add_callback(self._tick)
+        self._timer.interval = int(self.interval_ms)
+        self._timer.start()
+        self.fig.suptitle(self._title(self.frame))
+
+    def pause(self):
+        self.playing = False
+        if self._timer is not None:
+            self._timer.stop()
+        self.fig.suptitle(self._title(self.frame))
+        self.fig.canvas.draw_idle()
+
+    def _on_key(self, event):
+        if event.key == " ":
+            self.pause() if self.playing else self.play()
+        elif event.key == "right":
+            self.pause()
+            self.show_frame(self.frame + 1)
+        elif event.key == "left":
+            self.pause()
+            self.show_frame(self.frame - 1)
+        elif event.key == "up":
+            self.interval_ms = max(10.0, self.interval_ms / 1.5)
+            if self.playing:
+                self.play()
+        elif event.key == "down":
+            self.interval_ms = min(2000.0, self.interval_ms * 1.5)
+            if self.playing:
+                self.play()
+        elif event.key == "escape":
+            import matplotlib.pyplot as plt
+            self.pause()
+            plt.close(self.fig)
+
+    def run(self):
+        """Block in the GUI event loop (the reference's app.exec_(),
+        plot_phdslam.py:252-256). Requires an interactive backend."""
+        import matplotlib.pyplot as plt
+        self.play()
+        plt.show()
+
+
+def _load_records(log_dir: str):
+    files = sorted(glob.glob(os.path.join(log_dir, "state_estimate*.log")))
+    if not files:
+        raise FileNotFoundError(f"no state_estimate logs in {log_dir}")
+    return [read_state_estimate_log(f) for f in files]
+
+
 def main(argv=None):
     import argparse
 
@@ -267,7 +459,30 @@ def main(argv=None):
     ap.add_argument("--truth", default=None,
                     help="simData .mat for ground-truth overlay")
     ap.add_argument("--stride", type=int, default=1)
+    ap.add_argument("--gui", action="store_true",
+                    help="open the native matplotlib animated player "
+                         "instead of writing an HTML bundle (needs an "
+                         "interactive backend / DISPLAY)")
+    ap.add_argument("--fps", type=float, default=10.0)
+    ap.add_argument("--min-weight", type=float, default=0.33)
     a = ap.parse_args(argv)
+    if a.gui:
+        import matplotlib
+        if matplotlib.get_backend().lower().startswith("agg"):
+            print("no interactive backend available (DISPLAY unset?); "
+                  "omit --gui to build the HTML player instead")
+            return 1
+        true_map = true_traj = None
+        if a.truth:
+            from scipy.io import loadmat
+            sim = loadmat(a.truth)["sim"][0, 0]
+            true_traj = sim["traj"][:2]
+            gt = sim["groundTruth"][0, -1]
+            true_map = gt[0, 0]["loc"][:2].T
+        LogPlayer(_load_records(a.log_dir), true_map=true_map,
+                  true_traj=true_traj, fps=a.fps,
+                  min_weight=a.min_weight).run()
+        return 0
     out = build_player(a.log_dir, a.out, truth_mat=a.truth, stride=a.stride)
     print(f"wrote {out}")
 

@@ -45,7 +45,7 @@ from phdslam_tpu_torch.models.camera import (camera_cv_predict,
                                              world_to_disparity)
 from phdslam_tpu_torch.ops.gm import (fast_prune_renormalize,
                                       greedy_merge_channels3, top_k)
-from phdslam_tpu_torch.ops.linalg import safe_log
+from phdslam_tpu_torch.ops.linalg import device_row, safe_log
 from phdslam_tpu_torch.ops.resample import neff, stratified_resample_indices
 
 LOG_2PI = 1.8378770664093453
@@ -153,8 +153,8 @@ def disparity_step(state: DisparityState, z: Measurements, dt: float,
     # ---- 1. camera prediction ----
     pose = state.pose
     if do_predict:
-        acc = pose.new_tensor([cfg.ax, cfg.ay, cfg.az, cfg.aroll,
-                               cfg.apitch, cfg.ayaw])
+        acc = device_row((cfg.ax, cfg.ay, cfg.az, cfg.aroll, cfg.apitch,
+                          cfg.ayaw), pose)
         pose = camera_cv_predict(pose, pose_normals * acc, cfg, dt)
 
     n_measure = z_valid.to(dtype).sum()

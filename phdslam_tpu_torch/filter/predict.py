@@ -15,6 +15,7 @@ from phdslam_tpu_torch.filter.runs import per_particle
 from phdslam_tpu_torch.filter.state import SlamState
 from phdslam_tpu_torch.filter.update4 import cv_predict4, jump_markov_scales
 from phdslam_tpu_torch.models.motion import ackerman_predict, cv_predict
+from phdslam_tpu_torch.ops.linalg import device_row
 
 
 def noise_dim(cfg) -> int:
@@ -41,11 +42,12 @@ def predict_pose(pose, control, std_normal_noise, cfg, dt):
     reference does: Ackerman by (stdEncoder, stdAlpha), CV by three times
     the configured acceleration sigmas."""
     if cfg.motionType == ACKERMAN_MOTION:
-        scale = pose.new_tensor([cfg.stdEncoder, cfg.stdAlpha])
+        scale = device_row((cfg.stdEncoder, cfg.stdAlpha), pose)
         return ackerman_predict(pose, control, std_normal_noise * scale, cfg,
                                 dt)
     if cfg.motionType == CV_MOTION:
-        scale = pose.new_tensor([3.0 * cfg.ax, 3.0 * cfg.ay, 3.0 * cfg.ayaw])
+        scale = device_row((3.0 * cfg.ax, 3.0 * cfg.ay, 3.0 * cfg.ayaw),
+                           pose)
         return cv_predict(pose, std_normal_noise * scale, dt)
     raise ValueError(f"unknown motionType {cfg.motionType}")
 

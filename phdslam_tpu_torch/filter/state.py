@@ -184,9 +184,10 @@ class Measurements(_TensorTree):
         return min(self.counts) > 0
 
     def run_mask(self) -> torch.Tensor:
-        """bool [R] on the device: the runs with a measurement."""
-        return torch.tensor([c > 0 for c in self.counts],
-                            device=self.rb.device)
+        """bool [R] on the device: the runs with a measurement, reduced
+        from ``valid`` where it lies (no copy from the host, so no stream
+        sync inside a step)."""
+        return self.valid.any(-1)
 
     @classmethod
     def from_numpy(cls, rb, label, valid, device=None) -> "Measurements":
@@ -205,8 +206,11 @@ class Measurements(_TensorTree):
     @classmethod
     def empty(cls, max_measurements: int, device=None,
               n_runs=None) -> "Measurements":
-        """No measurement: one set, or R sets with ``n_runs``."""
+        """No measurement: one set, or R sets with ``n_runs``; made on the
+        device (no copy from the host)."""
         lead = () if n_runs is None else (n_runs,)
-        m = max_measurements
-        return cls.from_numpy(np.zeros(lead + (m, 2)), np.zeros(lead + (m,)),
-                              np.zeros(lead + (m,)), device)
+        shape = lead + (max_measurements,)
+        return cls(rb=torch.zeros(shape + (2,), device=device),
+                   label=torch.zeros(shape, dtype=torch.int32, device=device),
+                   valid=torch.zeros(shape, dtype=torch.bool, device=device),
+                   count=0 if n_runs is None else (0,) * n_runs)

@@ -3,9 +3,23 @@
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+
+
+def device_row(values, like: torch.Tensor) -> torch.Tensor:
+    """The floats ``values`` as a row of ``like``'s dtype on its device,
+    copied there once and cached (read-only): building it each step
+    would copy from the host and make the host wait for the device."""
+    return _device_row(tuple(float(v) for v in values), like.device,
+                       like.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_row(values, device, dtype):
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def safe_log(x: torch.Tensor) -> torch.Tensor:

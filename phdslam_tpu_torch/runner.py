@@ -3,7 +3,7 @@
     python -m phdslam_tpu_torch.runner <config.cfg> synth [profile] \\
         --measurements M.txt --controls C.txt --out-dir OUT \\
         [--mode loop|scan] [--device cuda|cpu] [--seed N] [--truth T] \\
-        [--mat-export] [--predict-time] [--player] \\
+        [--mat-export] [--predict-time] [--player] [--islands N] \\
         [--checkpoint-every K] [--resume]
     python -m phdslam_tpu_torch.runner <config.cfg> disparity \\
         [--data-dir D] --out-dir OUT [--mode loop|scan] [--device cuda|cpu] \\
@@ -48,6 +48,16 @@ the resumed steps draw what a straight run draws; their logs are appended
 to those in OUT. As in JAX, the first resumed step has no previous
 measurements (``z_prev`` is not restored): a CPHD run skips that step's
 births and an informed mixed run its birth velocities.
+
+``--islands N`` (N > 1, a power of 2 that divides n_particles) runs the
+island model (``parallel/island.py``) on the one device: N blocks of
+n_particles / N particles, each resampled locally, with butterfly
+exchanges when the island nEff falls to 0.5. Loop mode logs as a plain
+run does (the local log-weights and their MAP particle; ``neff`` is the
+island nEff, ``resampled`` whether the exchange ran); a resume starts the
+island weights uniform again (a checkpoint holds none, as in JAX). Scan
+mode writes JAX's island scan logs (``_write_island_scan_log``).
+``--variance`` is not computed in island mode.
 """
 
 from __future__ import annotations
@@ -67,12 +77,18 @@ from phdslam_tpu_torch.config import CPHD_TYPE, load_config
 from phdslam_tpu_torch.filter.disparity import run_disparity
 from phdslam_tpu_torch.filter.estimate import eap_map_np
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
-from phdslam_tpu_torch.filter.step import (check_supported, draw_noise,
-                                           log_aux, predicted_state,
-                                           run_scan, slam_step)
+from phdslam_tpu_torch.filter.step import (StepAux, check_supported,
+                                           draw_noise, log_aux,
+                                           predicted_state, run_scan,
+                                           slam_step)
 from phdslam_tpu_torch.io import loaders, logs
 from phdslam_tpu_torch.io.matdump import write_particles_mat
 from phdslam_tpu_torch.ops.ospa import ospa_np
+from phdslam_tpu_torch.parallel.island import (check_islands,
+                                               draw_island_noise,
+                                               init_islands,
+                                               island_run_scan,
+                                               island_slam_step)
 
 
 def schedule_inputs(n_steps, meas_times, ctrl_times):
@@ -109,15 +125,6 @@ def schedule_inputs(n_steps, meas_times, ctrl_times):
                               predict=True))
             c_idx += 1
     return sched
-
-
-def check_run_supported(cfg, args):
-    """Raise NotImplementedError for what the port's runner does not do
-    yet, naming the ROADMAP item."""
-    check_supported(cfg)
-    if args.islands:
-        raise NotImplementedError(
-            "--islands is ROADMAP Queue 1 item 14 (sharding)")
 
 
 def load_truth_maps(path):
@@ -206,6 +213,35 @@ def _write_log(out_dir, t, exp_pose, la, repeat, cfg, est=None):
         max_cardinality=cfg.maxCardinality, is_cphd=is_cphd, repeat=repeat)
 
 
+def _write_island_scan_log(out_dir, t, pose, la, aux, cfg, ms,
+                           truth_maps=None):
+    """One step's log and metrics line of an island scan run, from host
+    copies of its IslandLogAux and IslandAux rows, as JAX's
+    ``_write_island_scan_logs`` writes them: the map of the island with the
+    largest ``best_score``; every particle's global log-weight, pose and
+    lineage; neff (the island nEff), exchanged, log_lik and card in the
+    metrics (no dynamic map and no cardinality line)."""
+    isl = int(np.argmax(la["best_score"]))
+    w = la["best_w"][isl]
+    sel = w > 0
+    mx, my = la["best_mx"][isl], la["best_my"][isl]
+    cov = np.zeros((int(sel.sum()), 2, 2), np.float32)
+    cov[:, 0, 0] = la["best_c00"][isl][sel]
+    cov[:, 0, 1] = cov[:, 1, 0] = la["best_c01"][isl][sel]
+    cov[:, 1, 1] = la["best_c11"][isl][sel]
+    logs.write_state_estimate_log(
+        out_dir, t, pose, w[sel], np.stack([mx[sel], my[sel]], axis=-1), cov,
+        particle_log_weights=la["log_weights"], particle_poses=la["poses"],
+        resample_idx=la["resample_idx"], max_cardinality=cfg.maxCardinality,
+        repeat=cfg.nPredictParticles if t == 0 else 1)
+    metrics = dict(t=t, ms=ms, neff=float(aux["island_neff"]),
+                   exchanged=bool(aux["exchanged"]),
+                   log_lik=float(aux["log_lik"]), card=float(w.sum()))
+    if truth_maps is not None:
+        metrics["ospa"] = _ospa_from_map(w, mx, my, truth_maps, t)
+    logs.append_metrics_jsonl(out_dir, metrics)
+
+
 def _host(la) -> dict:
     return {k: v.cpu().numpy() for k, v in la._asdict().items()}
 
@@ -232,7 +268,7 @@ def _estimates(view, cfg):
 
 
 def run_synth(cfg, args) -> dict:
-    check_run_supported(cfg, args)
+    check_supported(cfg)
     device = torch.device(args.device)
     data_dir = args.data_dir or cfg.dataDirectory
     meas_path = args.measurements or os.path.join(data_dir,
@@ -251,6 +287,10 @@ def run_synth(cfg, args) -> dict:
         # one particle driven along the given trajectory
         traj = loaders.load_trajectory(os.path.join(data_dir, "traj.txt"))
         cfg = cfg.replace(n_particles=1)
+    # island mode, as in JAX, from 2 islands up
+    n_isl = args.islands if args.islands > 1 else 0
+    if n_isl:
+        check_islands(cfg, n_isl)
 
     n_steps = len(meas_sets)
     if meas_times is not None:
@@ -265,7 +305,10 @@ def run_synth(cfg, args) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     truth_maps = load_truth_maps(args.truth) if args.truth else None
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    state = SlamState.create(cfg, device)
+    if n_isl:
+        state, island_logw = init_islands(cfg, n_isl, device)
+    else:
+        state = SlamState.create(cfg, device)
     sched = schedule_inputs(n_steps, meas_times, ctrl_times)
     steps = _step_inputs(sched, controls, rb, labels, valid, cfg, device)
     repeat0 = cfg.nPredictParticles
@@ -274,17 +317,22 @@ def run_synth(cfg, args) -> dict:
         if traj is not None:
             raise NotImplementedError(
                 "follow_trajectory runs in loop mode only")
+        ctrls, zs, dts = ([s[i] for s in steps] for i in range(3))
         _sync(device)
         t0 = time.perf_counter()
-        final, (auxs, las) = run_scan(
-            state, [s[0] for s in steps], [s[1] for s in steps],
-            [s[2] for s in steps], cfg, generator=generator,
-            with_log_state=True, with_variance=args.variance)
+        if n_isl:
+            final, _, auxs, las = island_run_scan(
+                state, island_logw, ctrls, zs, dts, cfg, n_isl,
+                generator=generator, with_log_state=True)
+        else:
+            final, (auxs, las) = run_scan(
+                state, ctrls, zs, dts, cfg, generator=generator,
+                with_log_state=True, with_variance=args.variance)
         poses = auxs.expected_pose.cpu().numpy()     # waits for the device
         elapsed = time.perf_counter() - t0
         t_len = len(steps)
         ms = elapsed / t_len * 1000
-        neffs = auxs.neff.cpu().numpy()
+        neffs = (auxs.island_neff if n_isl else auxs.neff).cpu().numpy()
         nan_steps = np.flatnonzero(~np.isfinite(neffs))
         t_valid = int(nan_steps[0]) if nan_steps.size else t_len
         if t_valid < t_len:
@@ -297,6 +345,11 @@ def run_synth(cfg, args) -> dict:
             if args.no_logs:
                 continue
             la_t = {k: v[t] for k, v in la_h.items()}
+            if n_isl:
+                _write_island_scan_log(out_dir, t, poses[t], la_t,
+                                       {k: v[t] for k, v in aux_h.items()},
+                                       cfg, ms, truth_maps)
+                continue
             _write_log(out_dir, t, poses[t], la_t,
                        repeat0 if t == 0 else 1, cfg)
             metrics = dict(
@@ -314,12 +367,17 @@ def run_synth(cfg, args) -> dict:
         return dict(state=final, poses=poses, aux=auxs, ms_per_step=ms,
                     nan_step=t_valid if t_valid < t_len else None)
 
+    if n_isl:
+        print(f"island mode: {n_isl} islands x {cfg.n_particles // n_isl} "
+              "particles")
     poses_out = []
     z_prev = None
     n_predicted = cfg.n_particles * max(int(cfg.nPredictParticles), 1)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     start_t = 0
     if args.resume:
+        # the island weights start uniform again: a checkpoint holds none
+        # (as in JAX)
         state, start_t = checkpoint.resume(ckpt_dir, device, generator,
                                            state)
     for t, (ctrl, z, dt, do_predict) in enumerate(steps):
@@ -332,8 +390,12 @@ def run_synth(cfg, args) -> dict:
         # the step's draws, made here once: the prediction written or timed
         # below is the one the step consumes, and the generator advances as
         # in a run without those outputs
-        noise = draw_noise(cfg, n_predicted, device, generator,
-                           state.log_weights.dtype)
+        if n_isl:
+            noise = draw_island_noise(cfg, n_isl, device, generator,
+                                      state.log_weights.dtype)
+        else:
+            noise = draw_noise(cfg, n_predicted, device, generator,
+                               state.log_weights.dtype)
         if cfg.savePrediction:
             pred = predicted_state(state, ctrl, dt, do_predict, cfg, noise)
             write_particles_mat(out_dir, t, host_view(pred),
@@ -351,9 +413,19 @@ def run_synth(cfg, args) -> dict:
             logs.append_predict_time(
                 out_dir, (time.perf_counter() - t_pred) * 1000)
         t0 = time.perf_counter()
-        state, aux = slam_step(state, ctrl, z, dt, do_predict, cfg,
-                               noise=noise, with_variance=args.variance,
-                               z_prev=z_prev)
+        if n_isl:
+            # the step log keeps the local log-weights and their argmax,
+            # as JAX's island loop does
+            state, island_logw, iaux = island_slam_step(
+                state, island_logw, ctrl, z, dt, do_predict, cfg, n_isl,
+                noise=noise, z_prev=z_prev)
+            aux = StepAux(expected_pose=iaux.expected_pose,
+                          neff=iaux.island_neff, resampled=iaux.exchanged,
+                          n_measure=z.count, log_lik=iaux.log_lik)
+        else:
+            state, aux = slam_step(state, ctrl, z, dt, do_predict, cfg,
+                                   noise=noise, with_variance=args.variance,
+                                   z_prev=z_prev)
         z_prev = z
         neff_val = float(aux.neff)                   # waits for the device
         elapsed_ms = (time.perf_counter() - t0) * 1000
@@ -388,7 +460,10 @@ def run_synth(cfg, args) -> dict:
         if args.verbose:
             print(f"step {t}/{len(steps)} ms={elapsed_ms:.1f} "
                   f"neff={neff_val:.3f}")
-    return dict(state=state, poses=np.asarray(poses_out))
+    res = dict(state=state, poses=np.asarray(poses_out))
+    if n_isl:
+        res["island_logw"] = island_logw
+    return res
 
 
 def run_profile(cfg, args):
@@ -456,8 +531,11 @@ def build_parser():
                     help="continue from the latest checkpoint in "
                          "out-dir/checkpoints (loop mode)")
     ap.add_argument("--verbose", action="store_true")
-    # a surface of phdslam_tpu.runner the port does not have yet
-    ap.add_argument("--islands", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--islands", type=int, default=0,
+                    help="run N > 1 islands of n_particles / N particles "
+                         "on the one device, with butterfly exchanges when "
+                         "the island nEff falls to 0.5 (parallel/island.py;"
+                         " loop and scan mode; --variance is not computed)")
     return ap
 
 

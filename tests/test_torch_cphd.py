@@ -211,9 +211,16 @@ def test_add_births_matches_jax(cfgs, rng, gate):
     np.testing.assert_allclose(tcb.numpy()[fin], jcb[fin], **TOL_C)
 
 
-@pytest.mark.parametrize("by_index", [False, True])
-def test_cphd_update_matches_jax_xla_branch(cfgs, rng, by_index):
-    jcfg, tcfg = (c.replace(n_particles=16, selectByIndex=by_index)
+@pytest.mark.parametrize("by_index,merge_mode", [
+    pytest.param(False, 0, id="False"), pytest.param(True, 0, id="True"),
+    pytest.param(False, 1, id="False-merge_mode1"),
+    pytest.param(True, 1, id="True-merge_mode1")])
+def test_cphd_update_matches_jax_xla_branch(cfgs, rng, by_index, merge_mode):
+    """The CPHD update against JAX's XLA branch; merge_mode 1 takes the
+    top-4 detection terms and prunes at merge_min_weight before the merge
+    (``filter/cphd.py``'s fast path)."""
+    fast = dict(mergeMode=1, mergeMinWeight=1e-2) if merge_mode else {}
+    jcfg, tcfg = (c.replace(n_particles=16, selectByIndex=by_index, **fast)
                   for c in cfgs)
     P, F, M = 16, 16, 8
     jm, tm = _map(rng, P, F)

@@ -1275,3 +1275,97 @@ def test_ospa_torch_cuda_matches_cpu(dev):
     for g, e, tol in zip(got, ref, (2e-2, 2e-2, 1e-4)):
         assert g.device.type == "cuda" and g.shape == ()
         assert abs(float(g) - float(e)) < tol
+
+
+def _no_sync(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any operation
+    that makes the host wait for the device raises. Inputs are put on the
+    card before; a warm-up call has built and loaded the kernels and
+    cached the step's constants on the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("filter_type", [0, 1])
+def test_batched_step_with_a_mixed_gate_never_syncs(dev, filter_type):
+    """Three runs stepped together, run 1 without measurements at step 1
+    (the per-run update gate) and so without CPHD births at step 2: every
+    step runs under set_sync_debug_mode("error") on the card and equals
+    the CPU's on the same draws."""
+    cfg = load_config("cfg/ackerman_synth.cfg").replace(
+        n_particles=32, maxFeatures=32, maxMeasurements=16, y0=0.0,
+        birthWeight=0.02, filterType=filter_type, maxCardinality=63,
+        resampleThresh=2.0)
+    R, M = 3, 16
+    rng = np.random.default_rng(8)
+    states = {d: SlamState.create(cfg, d, n_runs=R) for d in ("cpu", dev)}
+    prev = {d: None for d in states}
+    for t in range(3):
+        rb = np.stack([rng.uniform(0.5, 9, (R, M)),
+                       rng.uniform(-1.4, 1.4, (R, M))], -1).astype(np.float32)
+        valid = np.tile(np.arange(M) < 12, (R, 1))
+        if t == 1:
+            valid[1] = False
+        normals = torch.as_tensor(rng.normal(size=(1, R * 32, 2)),
+                                  dtype=torch.float32)
+        u = torch.as_tensor(rng.uniform(size=R * 32), dtype=torch.float32)
+        for d in states:
+            z = Measurements.from_numpy(rb, np.zeros((R, M), np.int32), valid,
+                                        d)
+            noise = (normals.to(d), u.to(d))
+            step = lambda: slam_step(states[d], (1.0, 0.05), z, 1.0, t > 0,
+                                     cfg, noise=noise, z_prev=prev[d])
+            states[d], aux = _no_sync(step) if d != "cpu" else step()
+            prev[d] = z
+    cpu, gpu = states["cpu"], states[dev].to("cpu")
+    torch.testing.assert_close(gpu.pose, cpu.pose, **TOL)
+    torch.testing.assert_close(gpu.log_weights, cpu.log_weights,
+                               rtol=2e-4, atol=1e-3)
+    assert torch.equal(gpu.resample_idx, cpu.resample_idx)
+
+
+def test_island_step_cuda_matches_cpu_without_sync(dev):
+    """Three island steps (4 islands of 8, the exchange forced) on the card
+    under set_sync_debug_mode("error") and on the CPU, from the same state
+    with the same draws."""
+    from phdslam_tpu_torch.parallel import island as I
+    cfg = load_config("cfg/ackerman_synth.cfg").replace(
+        n_particles=32, maxFeatures=32, maxMeasurements=16, y0=0.0,
+        birthWeight=0.02)
+    n = 4
+    rng = np.random.default_rng(9)
+    runs = {d: I.init_islands(cfg, n, d) for d in ("cpu", dev)}
+    prev = {d: None for d in runs}
+    for t in range(3):
+        rb = np.stack([rng.uniform(0.5, 9, 16), rng.uniform(-1.4, 1.4, 16)],
+                      1).astype(np.float32)
+        valid = np.arange(16) < 12
+        noise = (torch.as_tensor(rng.normal(size=(1, 32, 2)),
+                                 dtype=torch.float32),
+                 torch.as_tensor(rng.uniform(size=32), dtype=torch.float32),
+                 torch.as_tensor(rng.uniform(size=(2, 32)),
+                                 dtype=torch.float32))
+        for d in runs:
+            z = Measurements.from_numpy(rb, np.zeros(16, np.int32), valid, d)
+            on_d = tuple(x.to(d) for x in noise)
+            step = lambda: I.island_slam_step(
+                *runs[d], (1.0, 0.05), z, 1.0, t > 0, cfg, n, thresh=1.1,
+                noise=on_d, z_prev=prev[d])
+            st, ilw, aux = _no_sync(step) if d != "cpu" else step()
+            runs[d] = (st, ilw)
+            prev[d] = z
+        assert bool(aux.exchanged)
+    (cpu, cilw), (gpu, gilw) = runs["cpu"], runs[dev]
+    gpu = gpu.to("cpu")
+    torch.testing.assert_close(gpu.pose, cpu.pose, **TOL)
+    torch.testing.assert_close(gilw.cpu(), cilw, **TOL)
+    assert torch.equal(gpu.resample_idx, cpu.resample_idx)
+    for name in ("w", "mx", "my", "c00", "c01", "c11"):
+        torch.testing.assert_close(getattr(gpu.map_static, name),
+                                   getattr(cpu.map_static, name),
+                                   rtol=2e-4, atol=1e-4)

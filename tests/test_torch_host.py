@@ -2,7 +2,8 @@
 ``simdata.py``, ``io/loaders.py``, ``io/logs.py``, ``ops/jcbb.py``,
 ``io/matdump.py``, ``ops/gm.py::reduce_mixture_np``,
 ``filter/estimate.py::eap_map_np``, ``ops/ospa.py::ospa_np``,
-``eval/player.py::build_player``, ``eval/plots.py``) against the originals: the same cfg
+``eval/player.py::build_player`` and ``LogPlayer``, ``eval/plots.py``)
+against the originals: the same cfg
 fields, the same arrays from one seed, the same parsed files, the same log
 bytes, the same associations, maps, metrics, .mat fields and HTML. Exact
 comparisons where the copies run the same numpy code; the EAP map to rtol
@@ -326,6 +327,62 @@ def test_build_player_matches_jax(tmp_path):
     pages = [open(p).read() for p in out]
     assert pages[0] == pages[1] and pages[2] == pages[3]
     assert pages[0] != pages[2]
+
+
+def test_matplotlib_logplayer(tmp_path):
+    """The port's LogPlayer (tests/test_aux.py::test_matplotlib_logplayer
+    on the copy): headless on Agg it steps frames and takes the key
+    events; on the same logs its trajectory, cardinality curve and drawn
+    artists equal the JAX package's LogPlayer's."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from phdslam_tpu.eval import player as JPL
+    from phdslam_tpu_torch.eval import player as TPL
+
+    for t in range(3):
+        TLG.write_state_estimate_log(
+            str(tmp_path), t, np.array([float(t), 1.0, 0.1, 0, 0, 0]),
+            np.array([1.0, 0.5]), np.array([[1.0, 2.0], [3.0, 4.0]]),
+            np.tile(np.eye(2) * 0.1, (2, 1, 1)),
+            particle_log_weights=np.full(4, -np.log(4)),
+            particle_poses=np.zeros((4, 6)), resample_idx=np.arange(4),
+            max_cardinality=255)
+    player = TPL.LogPlayer(TPL._load_records(str(tmp_path)),
+                           true_map=np.array([[1.0, 2.0]]))
+    ref = JPL.LogPlayer(JPL._load_records(str(tmp_path)),
+                        true_map=np.array([[1.0, 2.0]]))
+    assert player.n_steps == 3
+    assert np.allclose(player.card_est, 1.5)      # intensity mass
+    player.show_frame(2)
+    ref.show_frame(2)
+    assert player.frame == 2
+    assert np.allclose(player.l_pose.get_xdata(), [2.0])
+    # both features above min_weight = 0.33: two live ellipse artists
+    live = [ln for ln in player.l_ellipses if len(ln.get_xdata())]
+    assert len(live) == 2
+    np.testing.assert_array_equal(player.est_traj_xy, ref.est_traj_xy)
+    np.testing.assert_array_equal(player.card_est, ref.card_est)
+    for a, b in zip(player.l_ellipses, ref.l_ellipses):
+        np.testing.assert_array_equal(a.get_xydata(), b.get_xydata())
+
+    class _Evt:
+        def __init__(self, key):
+            self.key = key
+
+    # keyboard contract: left steps back, space toggles play
+    player._on_key(_Evt("left"))
+    assert player.frame == 1
+    player._on_key(_Evt(" "))
+    assert player.playing
+    player._on_key(_Evt("escape"))
+    assert not player.playing
+    plt.close("all")
+    # --gui refuses a non-interactive backend and writes nothing
+    assert TPL.main([str(tmp_path), "--gui", "--fps", "5",
+                     "--min-weight", "0.5"]) == 1
+    assert not (tmp_path / "player.html").exists()
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -30,6 +30,7 @@ print(json.dumps(dict(
                            if m.split(".")[0] == "phdslam_tpu"),
     jax=sorted(m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax")),
+    loaded_top=sorted({m.split(".")[0] for m in sys.modules}),
     tf32=[torch.backends.cuda.matmul.allow_tf32,
           torch.backends.cudnn.allow_tf32],
     built="phdslam_tpu_torch.kernels._build" in sys.modules
@@ -59,8 +60,9 @@ def test_import_without_jax():
         "kernels.merge3", "kernels.esf", "kernels._build",
         "kernels.sweep", "kernels.auction", "filter.fastslam", "ops.jcbb",
         "ops.ospa", "io.matdump", "eval.player", "checkpoint", "eval.batch",
-        "eval.plots")}
+        "eval.plots", "parallel", "parallel.island", "filter.runs")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
+    assert "matplotlib" not in out["loaded_top"]   # the player's, lazily
     assert out["tf32"] == [False, False]
     assert not out["built"]          # importing builds no kernel

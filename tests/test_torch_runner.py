@@ -80,24 +80,178 @@ def test_runner_log_contract_and_tracking(dataset, tmp_path, mode):
     assert log["static"][:, 0].sum() > 0.5
 
 
+def _traj_rows(n):
+    return [f"{0.5 * t} {0.25 * t} 0.1 0 0 0" for t in range(n)]
+
+
 @pytest.mark.parametrize("extra_cfg,extra_args,match", [
-    ("", ("--mat-export", "--islands", "2"), "item 14"),
-    ("map_estimate = 3", ("--islands", "4"), "item 14"),
-    ("", ("--islands", "4"), "item 14"),
+    ("follow_trajectory = 1", ("--mode", "scan"), "loop mode only"),
 ])
 def test_uncovered_branches_raise(dataset, tmp_path, extra_cfg, extra_args,
                                   match):
-    """A branch the port does not cover yet raises NotImplementedError
-    naming the ROADMAP item that ports it, whatever else the run asks for
-    (the .mat outputs, the EAP map); nothing else runs in its place."""
+    """A branch the port refuses raises NotImplementedError, whatever else
+    the run asks for, and nothing else runs in its place: follow_trajectory
+    in scan mode (JAX's scan mode runs its one particle without reading
+    traj.txt, a condition on the reference side that the port does not
+    copy)."""
     _, d = dataset
     cfg = tmp_path / "x.cfg"
     cfg.write_text((d / "tiny.cfg").read_text() + "\n" + extra_cfg + "\n")
-    args = _args(d, tmp_path / "out", *extra_args)
+    (tmp_path / "traj.txt").write_text(
+        "% traj\n" + "\n".join(_traj_rows(T)) + "\n")
+    args = _args(d, tmp_path / "out", "--data-dir", str(tmp_path),
+                 *extra_args)
     args[0] = str(cfg)
     with pytest.raises(NotImplementedError, match=match):
         runner.main(args)
     assert not (tmp_path / "out" / "loopTime.log").exists()
+
+
+def test_follow_trajectory_pins_one_particle(dataset, tmp_path):
+    """follow_trajectory = 1 in loop mode pins a single particle to
+    traj.txt (tests/test_round2.py::test_follow_trajectory_mode on the
+    port's runner): one particle per log, the logged pose the trajectory's
+    at every step."""
+    _, d = dataset
+    cfg = tmp_path / "ft.cfg"
+    cfg.write_text((d / "tiny.cfg").read_text()
+                   + "\nfollow_trajectory = 1\nn_steps = 6\n")
+    (tmp_path / "traj.txt").write_text(
+        "% traj\n" + "\n".join(_traj_rows(6)) + "\n")
+    out = tmp_path / "out"
+    args = _args(d, out, "--data-dir", str(tmp_path))
+    args[0] = str(cfg)
+    runner.main(args)
+    for t, lg in enumerate(_logs(out, 6)):
+        assert lg["poses"].shape[0] == 1
+        assert abs(lg["pose"][0] - 0.5 * t) < 1e-4, (t, lg["pose"])
+        assert abs(lg["pose"][1] - 0.25 * t) < 1e-4
+
+
+ISLAND_T = 12
+
+
+def _island_run(d, tmp_path, name, extra_cfg, *extra):
+    cfg = tmp_path / f"{name}.cfg"
+    cfg.write_text((d / "tiny.cfg").read_text()
+                   + f"\nn_steps = {ISLAND_T}\n{extra_cfg}\n")
+    out = tmp_path / name
+    args = _args(d, out, "--seed", "2", *extra)
+    args[0] = str(cfg)
+    res = runner.main(args)
+    with open(out / "metrics.jsonl") as f:
+        metrics = [json.loads(line) for line in f]
+    assert [m["t"] for m in metrics] == list(range(ISLAND_T))
+    assert len((out / "loopTime.log").read_text().split()) == ISLAND_T
+    assert all(np.isfinite(m["neff"]) for m in metrics)
+    return res, out, metrics
+
+
+def test_islands_loop_mat_export(dataset, tmp_path, capsys):
+    """--islands 2 with --mat-export in loop mode: JAX's island loop
+    contract (the island-mode line; logs of every particle's local
+    log-weight, normalised within each island; neff the island nEff in
+    (0, 1]; resampled whether the butterfly ran) and a particlesXXXXX.mat
+    of all 8 particles every step."""
+    from phdslam_tpu_torch.io.matdump import read_particles_mat
+    _, d = dataset
+    _, out, metrics = _island_run(d, tmp_path, "isl2", "", "--islands", "2",
+                                  "--mat-export")
+    assert "island mode: 2 islands x 4 particles" in capsys.readouterr().out
+    assert all(0.0 < m["neff"] <= 1.0 + 1e-6 for m in metrics)
+    assert all(isinstance(m["resampled"], bool) for m in metrics)
+    for t, lg in enumerate(_logs(out, ISLAND_T)):
+        assert lg["weights"].shape == (8,) and lg["poses"].shape == (8, 6)
+        assert np.isfinite(lg["pose"]).all()
+        if t > 0:
+            # local weights: each island's sum to 1
+            np.testing.assert_allclose(
+                np.exp(lg["weights"].reshape(2, 4)).sum(1), 1.0, atol=1e-3)
+        m = read_particles_mat(str(out / f"particles{t:05d}.mat"))
+        assert m["states"].shape == (6, 8)
+        np.testing.assert_allclose(m["states"].T, lg["poses"], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_islands_loop_eap_map(dataset, tmp_path):
+    """map_estimate = 3 with --islands 4: the logs hold the EAP map of all
+    particles (their local log-weights, as JAX's _write_step_log weighs
+    them), the run tracks and maps."""
+    _, d = dataset
+    _, out, metrics = _island_run(d, tmp_path, "eap", "map_estimate = 3",
+                                  "--islands", "4")
+    lg = _logs(out, ISLAND_T)[-1]
+    assert lg["static"].shape[0] > 0 and lg["static"][:, 0].sum() > 0.5
+    assert max(m["card"] for m in metrics) > 0
+
+
+def test_islands_scan_mode_log_contract(dataset, tmp_path):
+    """--islands 4 in scan mode with --truth, tests/test_round2.py::
+    test_island_scan_mode_writes_logs's assertions: a state_estimate log
+    per step, all 8 particles with global log-weights (island + local)
+    summing to 1 within 1e-3, a finite pose, ospa, exchanged and the
+    island neff in every metrics line. The loop mode on the same seed
+    draws the same numbers: the same expected pose every step."""
+    sc, d = dataset
+    truth = tmp_path / "truth.txt"
+    np.savetxt(truth, sc.landmarks)
+    res, out, metrics = _island_run(d, tmp_path, "scan", "", "--islands",
+                                    "4", "--mode", "scan", "--truth",
+                                    str(truth))
+    est = sorted(p for p in os.listdir(out) if p.startswith("state_est"))
+    assert len(est) == ISLAND_T
+    for lg in _logs(out, ISLAND_T):
+        assert lg["pose"].shape == (6,) and np.isfinite(lg["pose"]).all()
+        assert lg["weights"].shape == (8,)
+        assert abs(np.exp(lg["weights"]).sum() - 1.0) < 1e-3
+    assert all("ospa" in m and isinstance(m["exchanged"], bool)
+               and 0.0 < m["neff"] <= 1.0 + 1e-6 for m in metrics)
+    np.testing.assert_allclose(
+        torch.logsumexp(res["aux"].island_logw, -1).numpy(), 0.0, atol=1e-5)
+    _, loop_out, _ = _island_run(d, tmp_path, "loop", "", "--islands", "4")
+    for a, b in zip(_logs(out, ISLAND_T), _logs(loop_out, ISLAND_T)):
+        np.testing.assert_array_equal(a["pose"], b["pose"])
+
+
+def test_islands_resume(dataset, tmp_path):
+    """--resume in island mode restores the state and the generator and
+    starts the island weights uniform again (a checkpoint holds none, as in
+    JAX's runner): with no exchange in either run, the resumed steps'
+    particles and local weights equal the straight run's."""
+    _, d = dataset
+    _, out, metrics = _island_run(d, tmp_path, "straight", "", "--islands",
+                                  "2", "--checkpoint-every", "5")
+    resumed = tmp_path / "resumed"
+    (resumed / "checkpoints").mkdir(parents=True)
+    ck = "ckpt_000005.npz"
+    (resumed / "checkpoints" / ck).write_bytes(
+        (out / "checkpoints" / ck).read_bytes())
+    args = _args(d, resumed, "--seed", "2", "--islands", "2", "--resume")
+    args[0] = str(tmp_path / "straight.cfg")
+    runner.main(args)
+    with open(resumed / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["t"] for r in rows] == list(range(6, ISLAND_T))
+    assert not any(m["resampled"] for m in metrics + rows)
+    for t in range(6, ISLAND_T):
+        a, b = (read_state_estimate_log(str(o / f"state_estimate{t:05d}.log"))
+                for o in (out, resumed))
+        np.testing.assert_array_equal(a["poses"], b["poses"])
+        np.testing.assert_array_equal(a["weights"], b["weights"])
+
+
+def test_islands_cphd_loop(dataset, tmp_path):
+    """CPHD (filter_type = 1) in island mode, loop
+    (tests/test_cli.py::test_cli_islands_cphd): births from the previous
+    measurements through the island step, a metrics line a step with a
+    finite neff, every cardinality line a log-pmf."""
+    _, d = dataset
+    _, out, _ = _island_run(d, tmp_path, "cphd",
+                            "filter_type = 1\nmax_cardinality = 31",
+                            "--islands", "4")
+    for lg in _logs(out, ISLAND_T):
+        assert lg["cardinality"].shape == (32,)
+        assert abs(np.log(np.exp(lg["cardinality"]).sum())) < 1e-3
 
 
 RESUME_T, RESUME_EVERY, RESUME_FROM = 20, 5, 10
