@@ -189,6 +189,30 @@ code is not 0:
      global (scan) weights summing to 1 within 1e-3, finite poses; ms/step,
      pose error and exchanges beside phase 3's plain run (not gated: the
      reference's butterfly pool-mass defect applies here too)
+  9d. mesh - particle-axis sharding across processes (parallel/mesh.py):
+     (a) one NCCL rank on this card, in this process: the dense static
+     step (phase 7's shape and stream) through sharded_step against
+     slam_step on the same draws, MESH_STEPS steps with the resample
+     forced, every aux value and state leaf bit for bit, launch counts
+     from 0 (select and merge once a step); then timed beside the plain
+     step, ISLAND_ROUNDS rounds, with the split, the peak, the kernels
+     against plain on the last step's inputs, the bytes a step moves
+     through gather_rows, and one step without a host sync; (b)
+     MESH_RANKS gloo ranks spawned from this script, all on this card (a
+     file rendezvous in a temporary directory; a failure in any rank fails
+     the phase): the dense static step at MESH_RANKS x P / MESH_RANKS bit
+     for bit against the single process, launches per rank, then timed
+     with its peak per rank and the kernels against plain on the last
+     step's inputs (two processes sharing one card through gloo: not a
+     multi-GPU figure); CPHD at 1024 x 128 x 64, the shipped mixed and
+     FastSLAM cfgs and cfg/disparity_synth.cfg, MESH_SIDE_STEPS steps
+     each, bit for bit, launches equal to the single process's;
+     sharded_run_scan over phase 3's run at 256 particles against
+     run_scan, bit for bit, mean pose error below 1.5 m; (c) the runner
+     with --islands 4 --truth --dist-backend gloo on those ranks over
+     phase 3's run, loop and scan: every file of phase 9c's one-card run
+     byte for byte (metrics.jsonl apart from its ms, loopTime.log a line
+     a step), select and merge once a step in each rank
  10. the card's name and power limit, the kernels' JSON line, then
      {"ok": true, "device": {...}} last
 
@@ -344,6 +368,9 @@ MC_FILL_STEPS = 50
 ISLANDS, ISLAND_THRESHOLDS, RUNNER_ISLANDS = 8, (0.0, 1.1), 4
 ISLAND_ROUNDS = 2
 SYNC_RUNS = 4
+# the mesh (phase 9d): MESH_STEPS dense steps held bit for bit; MESH_RANKS
+# gloo ranks sharing the card; MESH_SIDE_STEPS steps of the other filters
+MESH_STEPS, MESH_RANKS, MESH_SIDE_STEPS = 4, 2, 20
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -390,8 +417,11 @@ KERNELS = (                         # name, source, the TPU kernel replaced
 )
 
 
+LOG_PREFIX = ""                      # a mesh rank's "[rank r/W] "
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(LOG_PREFIX + msg, flush=True)
 
 
 def gpu_line():
@@ -2713,12 +2743,15 @@ def stress_stream(cfg, n_steps, dev):
 
 
 def stress_stepper(shape, n_steps, dev, dense=True,
-                   cfg_file="cfg/ackerman_synth.cfg", **overrides):
+                   cfg_file="cfg/ackerman_synth.cfg", mesh=None,
+                   **overrides):
     """(cfg, state, step(state, t)) for stress_cfg's cfg on the stress
-    stream."""
+    stream; with a mesh, the sharded step on the rank's rows (the same
+    draws: every rank draws the global step's)."""
     import torch
     from phdslam_tpu_torch.filter.state import SlamState
     from phdslam_tpu_torch.filter.step import slam_step
+    from phdslam_tpu_torch.parallel.mesh import shard_state
 
     cfg = stress_cfg(shape, dense, cfg_file, **overrides)
     zs, controls = stress_stream(cfg, n_steps, dev)
@@ -2728,9 +2761,10 @@ def stress_stepper(shape, n_steps, dev, dense=True,
         return slam_step(state, (float(controls[t, 0]),
                                  float(controls[t, 1])), zs[t],
                          float(cfg.dt), t > 0, cfg, generator=gen,
-                         z_prev=zs[t - 1] if t > 0 else None)
+                         z_prev=zs[t - 1] if t > 0 else None, mesh=mesh)
 
-    return cfg, SlamState.create(cfg, dev), step
+    state = SlamState.create(cfg, dev)
+    return cfg, state if mesh is None else shard_state(state, mesh), step
 
 
 def timed_steps(stats, state, step, warmup, what, shape, tm=None,
@@ -2760,6 +2794,8 @@ def timed_steps(stats, state, step, warmup, what, shape, tm=None,
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / TIMED
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if peak:
+        stats.setdefault("peak_gib", {})[what] = peak_gib
     k_ms = {k: t.ms() / TIMED for k, t in tm.items() if t.pairs}
     glue_ms = step_ms - sum(k_ms.values())
     neff = float(aux.neff)
@@ -2802,16 +2838,18 @@ def phase_dense(dev, stats, gpu):
     log(f"phase dense mixed: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-def disparity_stepper(shape, n_steps, dev):
+def disparity_stepper(shape, n_steps, dev, mesh=None):
     """(state, step(state, t)) of the disparity cfg widened to shape on the
     shipped measurement stream (data/disparity_synth/), with the runner's
-    initial roll and yaw jitter."""
+    initial roll and yaw jitter; with a mesh, the sharded step on the
+    rank's rows."""
     import torch
     from phdslam_tpu_torch import load_config
     from phdslam_tpu_torch.filter.disparity import (DisparityState,
                                                     disparity_step)
     from phdslam_tpu_torch.filter.state import Measurements
     from phdslam_tpu_torch.io import loaders
+    from phdslam_tpu_torch.parallel.mesh import shard_state
 
     cfg = load_config(str(ROOT / "cfg/disparity_synth.cfg")).replace(
         n_particles=shape["P"], maxFeatures=shape["F"],
@@ -2832,9 +2870,10 @@ def disparity_stepper(shape, n_steps, dev):
 
     def step(st, t):
         return disparity_step(st, zs[t], float(cfg.dt), t > 0, cfg,
-                              generator=gen)
+                              generator=gen, mesh=mesh)
 
-    return state.replace(pose=pose), step
+    state = state.replace(pose=pose)
+    return state if mesh is None else shard_state(state, mesh), step
 
 
 def phase_dense_cphd_disparity(dev, stats, gpu):
@@ -3067,7 +3106,7 @@ def phase_islands(dev, stats, gpu):
     log(f"phase dense islands: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_island_runner(dev, stats):
+def phase_island_runner(dev, stats, d):
     """9c: the runner with --islands RUNNER_ISLANDS and --truth on the
     shipped static cfg over phase 3's run, loop and scan mode, launch
     counts from 0 before each: the log contract (a log, a loop time and
@@ -3076,65 +3115,398 @@ def phase_island_runner(dev, stats):
     normalised within 1e-5, each island's local weights (loop) or the
     global weights (scan) summing to 1 within 1e-3; ms/step, mean pose
     error and exchanges beside phase 3's plain run, the pose error not
-    gated (the reference's butterfly pool-mass defect applies here too)."""
+    gated (the reference's butterfly pool-mass defect applies here too).
+    The run files and the runs' outputs (islands_loop, islands_scan) stay
+    in d for phase 9d."""
     import torch
     t0 = time.perf_counter()
     tm = timers()
     n = RUNNER_ISLANDS
-    with tempfile.TemporaryDirectory() as d:
-        sc, n_steps, start = static_run_files(d)
-        Path(d, "run.cfg").write_text(
-            (ROOT / "cfg/ackerman_synth.cfg").read_text() + start)
-        truth = Path(d, "truth.txt")
-        np.savetxt(truth, sc.landmarks)
-        P = None
-        for mode in ("loop", "scan"):
-            out = Path(d, f"islands_{mode}")
-            launches, run_s, res = run_cli(runner_args(
-                d, out, dev, extra=("--mode", mode, "--islands", str(n),
-                                    "--truth", str(truth))), tm)
-            logs, errs = pose_errors(out, sc.traj, n_steps, 2)
-            loop_ms = np.loadtxt(out / "loopTime.log")
-            with open(out / "metrics.jsonl") as f:
-                metrics = [json.loads(line) for line in f]
-            P = logs[0]["weights"].shape[0]
-            if len(loop_ms) != n_steps or len(metrics) != n_steps \
-                    or not all("ospa" in m for m in metrics) \
-                    or any(lg["poses"].shape != (P, 6) for lg in logs):
-                raise RuntimeError(f"islands {mode}: log contract incomplete")
-            if not np.isfinite(errs).all():
-                raise RuntimeError(f"islands {mode}: a pose is not finite")
-            check_launches(launches, dict(select=n_steps, merge=n_steps,
-                                          select_by_index=0, select4=0,
-                                          select4_by_index=0, merge4=0,
-                                          merge3=0, esf=0, auction=0),
-                           f"islands {mode}")
-            if mode == "loop":
-                ilw = res["island_logw"][None]
-                sums = np.stack([np.exp(lg["weights"].astype(
-                    np.float64)).reshape(n, -1).sum(1) for lg in logs[1:]])
-                exchanges = sum(m["resampled"] for m in metrics)
-            else:
-                ilw = res["aux"].island_logw
-                sums = np.array([np.exp(lg["weights"].astype(
-                    np.float64)).sum() for lg in logs])
-                exchanges = sum(m["exchanged"] for m in metrics)
-            lse = float(torch.logsumexp(ilw, -1).abs().max())
-            if lse > 1e-5 or np.abs(sums - 1.0).max() > 1e-3:
-                raise RuntimeError(f"islands {mode}: island weights' "
-                                   f"logsumexp {lse}, weight sums off by "
-                                   f"{np.abs(sums - 1.0).max()}")
-            ospa = np.array([m["ospa"][0] for m in metrics])
-            log(f"islands {mode} ({n} x {P // n}): {n_steps} steps, "
-                f"launches {launches}, {loop_ms.mean():.3f} ms/step (median "
-                f"{np.median(loop_ms):.3f}; plain run, phase 3: "
-                f"{stats['shipped_ms_per_step']:.3f}), pose error mean "
-                f"{errs.mean():.3f} m max {errs.max():.3f} m (plain "
-                f"{stats['shipped_pose_err']:.3f}), exchanges {exchanges}, "
-                f"OSPA last half {ospa[n_steps // 2:].mean():.4f}, island "
-                f"weights' |logsumexp| <= {lse:.1e}, weight sums within "
-                f"{np.abs(sums - 1.0).max():.1e} of 1, run {run_s:.1f} s")
+    sc, n_steps, start = static_run_files(d)
+    Path(d, "run.cfg").write_text(
+        (ROOT / "cfg/ackerman_synth.cfg").read_text() + start)
+    truth = Path(d, "truth.txt")
+    np.savetxt(truth, sc.landmarks)
+    P = None
+    for mode in ("loop", "scan"):
+        out = Path(d, f"islands_{mode}")
+        launches, run_s, res = run_cli(runner_args(
+            d, out, dev, extra=("--mode", mode, "--islands", str(n),
+                                "--truth", str(truth))), tm)
+        logs, errs = pose_errors(out, sc.traj, n_steps, 2)
+        loop_ms = np.loadtxt(out / "loopTime.log")
+        with open(out / "metrics.jsonl") as f:
+            metrics = [json.loads(line) for line in f]
+        P = logs[0]["weights"].shape[0]
+        if len(loop_ms) != n_steps or len(metrics) != n_steps \
+                or not all("ospa" in m for m in metrics) \
+                or any(lg["poses"].shape != (P, 6) for lg in logs):
+            raise RuntimeError(f"islands {mode}: log contract incomplete")
+        if not np.isfinite(errs).all():
+            raise RuntimeError(f"islands {mode}: a pose is not finite")
+        check_launches(launches, dict(select=n_steps, merge=n_steps,
+                                      select_by_index=0, select4=0,
+                                      select4_by_index=0, merge4=0,
+                                      merge3=0, esf=0, auction=0),
+                       f"islands {mode}")
+        if mode == "loop":
+            ilw = res["island_logw"][None]
+            sums = np.stack([np.exp(lg["weights"].astype(
+                np.float64)).reshape(n, -1).sum(1) for lg in logs[1:]])
+            exchanges = sum(m["resampled"] for m in metrics)
+        else:
+            ilw = res["aux"].island_logw
+            sums = np.array([np.exp(lg["weights"].astype(
+                np.float64)).sum() for lg in logs])
+            exchanges = sum(m["exchanged"] for m in metrics)
+        lse = float(torch.logsumexp(ilw, -1).abs().max())
+        if lse > 1e-5 or np.abs(sums - 1.0).max() > 1e-3:
+            raise RuntimeError(f"islands {mode}: island weights' "
+                               f"logsumexp {lse}, weight sums off by "
+                               f"{np.abs(sums - 1.0).max()}")
+        ospa = np.array([m["ospa"][0] for m in metrics])
+        log(f"islands {mode} ({n} x {P // n}): {n_steps} steps, "
+            f"launches {launches}, {loop_ms.mean():.3f} ms/step (median "
+            f"{np.median(loop_ms):.3f}; plain run, phase 3: "
+            f"{stats['shipped_ms_per_step']:.3f}), pose error mean "
+            f"{errs.mean():.3f} m max {errs.max():.3f} m (plain "
+            f"{stats['shipped_pose_err']:.3f}), exchanges {exchanges}, "
+            f"OSPA last half {ospa[n_steps // 2:].mean():.4f}, island "
+            f"weights' |logsumexp| <= {lse:.1e}, weight sums within "
+            f"{np.abs(sums - 1.0).max():.1e} of 1, run {run_s:.1f} s")
     log(f"phase island runner: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+# ------------------------------------------------ phase 9d: the mesh --
+
+def tree_tensors(obj, prefix=""):
+    """Every tensor of a tree of NamedTuples, dataclasses, tuples and
+    lists, keyed by its path."""
+    import dataclasses
+
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    out = {}
+    if dataclasses.is_dataclass(obj):
+        items = [(f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj)]
+    elif hasattr(obj, "_asdict"):
+        items = list(obj._asdict().items())
+    elif isinstance(obj, (tuple, list)):
+        items = list(enumerate(obj))
+    else:
+        items = []
+    for k, v in items:
+        out.update(tree_tensors(v, f"{prefix}.{k}"))
+    return out
+
+
+def same_bits(ref, got, what):
+    """Raise unless every tensor of got has ref's shape, dtype and bits
+    (float32 compared as int32, so NaNs and signed zeros count)."""
+    import torch
+    a, b = tree_tensors(ref), tree_tensors(got)
+    if sorted(a) != sorted(b):
+        raise RuntimeError(f"{what}: outputs differ in their fields")
+    bits = lambda t: t.contiguous().view(torch.int32) \
+        if t.dtype == torch.float32 else t
+    for k in a:
+        if a[k].shape != b[k].shape or a[k].dtype != b[k].dtype \
+                or not torch.equal(bits(a[k]), bits(b[k])):
+            raise RuntimeError(f"{what}: {k} differs from the single "
+                               "process")
+
+
+def mesh_pair(make, n_steps, mesh, what):
+    """make(mesh) -> (state, step(state, t)). The sharded run (launch
+    counts from 0), then the single-process run (make(None)), n_steps steps
+    each from step 0: every aux and the final global state bit for bit,
+    and the same launches, some kernel launched. Returns the launches."""
+    import torch
+    from phdslam_tpu_torch.parallel.mesh import unshard_state
+
+    def run(m):
+        state, step = make(m)
+        zero_launch_counts()
+        auxs = []
+        for t in range(n_steps):
+            state, aux = step(state, t)
+            auxs.append(aux)
+        torch.cuda.synchronize()
+        return state, auxs, launch_counts()
+
+    state, auxs, launches = run(mesh)
+    state = unshard_state(state, mesh)
+    p_state, p_auxs, p_launches = run(None)
+    same_bits((p_auxs, p_state), (auxs, state), what)
+    if launches != p_launches or not any(launches.values()):
+        raise RuntimeError(f"{what}: launches {launches}, the single "
+                           f"process's {p_launches}")
+    log(f"{what}: {n_steps} steps bit for bit with the single process "
+        "(every aux value and state leaf), launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return launches
+
+
+def gathered_bytes(state):
+    """Bytes a sharded step's gathers return on each rank: every leaf of
+    the global state once (the resample), the [P] weights twice and the
+    [P, 6] poses once (normalisation, nEff and the expected pose)."""
+    leaves = tree_tensors(state).values()
+    P = state.log_weights.shape[0]
+    return sum(t.numel() * t.element_size() for t in leaves) \
+        + P * 4 * (2 + 6)
+
+
+def mesh_scan(dev, mesh, run_dir):
+    """sharded_run_scan over phase 3's run (the files in run_dir) at its
+    256 particles against run_scan on the same draws, bit for bit; the
+    mean pose error below POSE_BAR_M. Returns (launches, the error)."""
+    import torch
+    from phdslam_tpu_torch import load_config, runner, simdata
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import run_scan
+    from phdslam_tpu_torch.io import loaders
+    from phdslam_tpu_torch.parallel.mesh import (shard_state,
+                                                 sharded_run_scan,
+                                                 unshard_state)
+    cfg = load_config(str(Path(run_dir, "run.cfg")))
+    sets = loaders.load_measurements(str(Path(run_dir, "measurements.txt")))
+    controls = loaders.load_controls(str(Path(run_dir, "controls.txt")))
+    rb, labels, valid = loaders.pad_measurement_sets(sets,
+                                                     cfg.maxMeasurements)
+    steps = runner._step_inputs(runner.schedule_inputs(len(sets), None,
+                                                       None),
+                                controls, rb, labels, valid, cfg, dev)
+    ctrls, zs, dts = ([s[i] for s in steps] for i in range(3))
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    what = (f"sharded_run_scan ({mesh.world_size} {mesh.backend} ranks x "
+            f"{cfg.n_particles // mesh.world_size})")
+    zero_launch_counts()
+    state, auxs = sharded_run_scan(cfg, mesh)(
+        shard_state(SlamState.create(cfg, dev), mesh), ctrls, zs, dts,
+        generator=gen())
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    state = unshard_state(state, mesh)
+    p_state, p_auxs = run_scan(SlamState.create(cfg, dev), ctrls, zs, dts,
+                               cfg, generator=gen())
+    same_bits((p_auxs, p_state), (auxs, state), what)
+    traj = simdata.make_scenario(np.random.default_rng(0),
+                                 n_steps=RUN_STEPS).traj
+    poses = auxs.expected_pose.cpu().numpy()
+    err = float(np.linalg.norm(poses[:, :2] - traj[:len(poses), :2],
+                               axis=1).mean())
+    log(f"{what} over phase 3's {len(zs)} steps: bit for bit with run_scan "
+        f"(every aux value and the final state), launches select "
+        f"{launches['select']} merge {launches['merge']}, mean pose error "
+        f"{err:.3f} m")
+    if launches["select"] != len(zs) or launches["merge"] != len(zs) \
+            or not err < POSE_BAR_M:
+        raise RuntimeError(f"{what}: launches {launches}, pose error {err}")
+    return launches, err
+
+
+def mesh_side_paths(dev, mesh):
+    """The other filters through the mesh, MESH_SIDE_STEPS steps each, bit
+    for bit against the single process: {path: launches}."""
+    cphd = dict(filterType=1, maxCardinality=127, gateBirths=True,
+                gateThreshold=9.0)
+    cases = (
+        ("CPHD", DENSE_CPHD, lambda m: stress_stepper(
+            DENSE_CPHD, MESH_SIDE_STEPS, dev, mesh=m, **cphd)[1:]),
+        ("mixed", SHIPPED, lambda m: stress_stepper(
+            SHIPPED, MESH_SIDE_STEPS, dev, False, "cfg/mixed_synth.cfg",
+            mesh=m)[1:]),
+        ("FastSLAM", SHIPPED, lambda m: stress_stepper(
+            SHIPPED, MESH_SIDE_STEPS, dev, False, "cfg/fastslam_synth.cfg",
+            mesh=m)[1:]),
+        ("disparity", None, lambda m: disparity_stepper(
+            dict(P=64, F=64, M=48), MESH_SIDE_STEPS, dev, mesh=m)))
+    out = {}
+    for name, shape, make in cases:
+        dims = "cfg/disparity_synth.cfg" if shape is None \
+            else "x".join(str(shape[k]) for k in "PFM")
+        out[name] = mesh_pair(make, MESH_SIDE_STEPS, mesh,
+                              f"sharded {name} step {dims} "
+                              f"({mesh.world_size} {mesh.backend} ranks)")
+    return out
+
+
+def _mesh_rank(rank, world, device, tmp, run_dir, ports):
+    """Phase 9d (b) and (c) in one of MESH_RANKS spawned processes, all on
+    the parent's device; writes its readings to tmp/rank<r>.json."""
+    import os
+
+    import torch
+    from phdslam_tpu_torch.parallel.mesh import make_mesh
+    global LOG_PREFIX
+    LOG_PREFIX = f"[rank {rank}/{world}] "
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    stats, out = {}, dict(rank=rank)
+    mesh = make_mesh("gloo", dev, rank=rank, world_size=world,
+                     init_method=f"file://{Path(tmp, 'rdv_gloo')}")
+    try:
+        shape = "x".join(str(DENSE[k]) for k in "PFM")
+        what = (f"dense sharded step ({world} gloo ranks x "
+                f"{DENSE['P'] // world})")
+        out["dense_launches"] = mesh_pair(
+            lambda m: stress_stepper(DENSE, MESH_STEPS, dev, mesh=m,
+                                     resampleThresh=1.1)[1:],
+            MESH_STEPS, mesh, what)
+        reset_peak_memory()
+        _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev,
+                                        mesh=mesh)
+        what += ", two processes sharing one card through gloo, not a " \
+            "multi-GPU figure"
+        _, out["dense_ms"] = timed_steps(stats, state, step, WARMUP, what,
+                                         shape, peak=True)
+        out["dense_peak_gib"] = stats["peak_gib"][what]
+        out["side"] = mesh_side_paths(dev, mesh)
+        out["scan_launches"], out["scan_err"] = mesh_scan(dev, mesh,
+                                                          run_dir)
+    finally:
+        mesh.close()
+    truth = str(Path(run_dir, "truth.txt"))
+    for mode, port in zip(("loop", "scan"), ports):
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        launches, run_s, _ = run_cli(runner_args(
+            run_dir, Path(run_dir, f"mesh_{mode}"), dev, extra=(
+                "--mode", mode, "--islands", str(RUNNER_ISLANDS), "--truth",
+                truth, "--dist-backend", "gloo")), timers())
+        log(f"runner --islands {RUNNER_ISLANDS} --mode {mode} on {world} "
+            f"gloo ranks: launches {launches}, run {run_s:.1f} s")
+        out[f"runner_{mode}"] = dict(launches=launches, run_s=run_s)
+    out["max_abs_err"] = {k: v["max_abs_err"] for k, v in stats.items()
+                          if "max_abs_err" in v}
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def free_ports(n):
+    """n distinct free TCP ports on localhost."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("localhost", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def same_run_outputs(one, two, what):
+    """Every file of the run in one is in two with the same bytes,
+    metrics.jsonl apart from its ms column and loopTime.log (times) in its
+    line count."""
+    names = sorted(p.name for p in Path(one).iterdir())
+    if names != sorted(p.name for p in Path(two).iterdir()):
+        raise RuntimeError(f"{what}: the runs wrote different files")
+    for name in names:
+        a, b = Path(one, name), Path(two, name)
+        if name == "loopTime.log":
+            ok = len(a.read_text().split()) == len(b.read_text().split())
+        elif name == "metrics.jsonl":
+            rows = [[{k: v for k, v in json.loads(line).items()
+                      if k != "ms"} for line in p.read_text().splitlines()]
+                    for p in (a, b)]
+            ok = rows[0] == rows[1]
+        else:
+            ok = a.read_bytes() == b.read_bytes()
+        if not ok:
+            raise RuntimeError(f"{what}: {name} differs from the one-card "
+                               "run")
+    return len(names)
+
+
+def phase_mesh(dev, stats, gpu, run_dir):
+    """9d: (a) in this process, (b) and (c) in MESH_RANKS spawned
+    processes (``_mesh_rank``); then (c)'s outputs against phase 9c's."""
+    import torch
+    import torch.multiprocessing as mp
+    from phdslam_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    shape = "x".join(str(DENSE[k]) for k in "PFM")
+    what = "dense sharded step (1 NCCL rank)"
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = make_mesh(device=dev, rank=0, world_size=1,
+                         init_method=f"file://{Path(tmp, 'rdv_nccl')}")
+        try:
+            if mesh.backend != ("nccl" if dev.type == "cuda" else "gloo"):
+                raise RuntimeError(f"{what}: backend {mesh.backend}")
+            launches = mesh_pair(
+                lambda m: stress_stepper(DENSE, MESH_STEPS, dev, mesh=m,
+                                         resampleThresh=1.1)[1:],
+                MESH_STEPS, mesh, what)
+            check_launches(launches, dict(select=MESH_STEPS,
+                                          merge=MESH_STEPS), what)
+            ms = {"plain": [], "mesh": []}
+            for r in range(ISLAND_ROUNDS):
+                reset_peak_memory()
+                _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev)
+                ms["plain"].append(timed_steps(
+                    stats, state, step, WARMUP, "plain dense step", shape,
+                    peak=True)[1])
+                reset_peak_memory()
+                _, state, step = stress_stepper(DENSE, WARMUP + TIMED + 1,
+                                                dev, mesh=mesh)
+                state, step_ms = timed_steps(stats, state, step, WARMUP,
+                                             what, shape, peak=True)
+                ms["mesh"].append(step_ms)
+                if r == 0:
+                    sync_free(lambda: step(state, WARMUP + TIMED), what)
+            moved = gathered_bytes(state)
+        finally:
+            mesh.close()
+        fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)
+        log(f"dense timing on {gpu}, rounds of (plain, sharded): plain "
+            f"dense step {fmt(ms['plain'])} ms; {what} {fmt(ms['mesh'])} "
+            f"ms; gather_rows returns {moved / 1e6:.1f} MB a step (the "
+            f"state once, the weights twice, the poses)")
+        stats["mesh_nccl_ms"] = ms["mesh"]
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        mp.spawn(_mesh_rank, args=(MESH_RANKS, str(dev), tmp, str(run_dir),
+                                   free_ports(2)),
+                 nprocs=MESH_RANKS, join=True)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    n_steps = len(np.loadtxt(Path(run_dir, "islands_loop", "loopTime.log")))
+    for r in ranks:
+        for k, err in r["max_abs_err"].items():
+            _new_stats(stats, k)
+            _err(stats, k, err)
+        check_launches(r["dense_launches"], dict(select=MESH_STEPS,
+                                                 merge=MESH_STEPS),
+                       f"rank {r['rank']} dense")
+        for mode in ("loop", "scan"):
+            check_launches(r[f"runner_{mode}"]["launches"],
+                           dict(select=n_steps, merge=n_steps,
+                                select_by_index=0, select4=0,
+                                select4_by_index=0, merge4=0, merge3=0,
+                                esf=0, auction=0),
+                           f"rank {r['rank']} runner {mode}")
+    for mode in ("loop", "scan"):
+        n_files = same_run_outputs(Path(run_dir, f"islands_{mode}"),
+                                   Path(run_dir, f"mesh_{mode}"),
+                                   f"runner --islands {mode} on "
+                                   f"{MESH_RANKS} gloo ranks")
+        log(f"runner --islands {RUNNER_ISLANDS} --mode {mode} on "
+            f"{MESH_RANKS} gloo ranks: its {n_files} files equal phase "
+            "9c's one-card run's (every state_estimate log byte for byte)")
+    log(f"mesh timing on {gpu}: {what} {fmt(stats['mesh_nccl_ms'])} ms; "
+        f"{MESH_RANKS} gloo ranks sharing the card (not a multi-GPU "
+        "figure): dense sharded step "
+        + ", ".join(f"rank {r['rank']} {r['dense_ms']:.3f} ms, peak "
+                    f"{r['dense_peak_gib']:.2f} GiB" for r in ranks)
+        + f"; ranks' phase {time.perf_counter() - t1:.1f} s")
+    log(f"phase mesh: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------- optional: --profile --
@@ -3273,7 +3645,9 @@ def main(argv=None):
     phase_dense_cphd_disparity(dev, stats, gpu)
     phase_dense_fastslam(dev, stats, gpu)
     phase_islands(dev, stats, gpu)
-    phase_island_runner(dev, stats)
+    with tempfile.TemporaryDirectory() as d:
+        phase_island_runner(dev, stats, d)
+        phase_mesh(dev, stats, gpu, d)
     if args.profile:
         phase_profile(dev)
 

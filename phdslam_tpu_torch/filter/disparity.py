@@ -23,6 +23,12 @@ three keys), or from a ``torch.Generator``. Whether to predict and whether
 the step has measurements are host bools; the resample trigger stays on the
 device (``torch.where``), so a step never reads the device.
 
+With a ``mesh`` (``parallel/mesh.py``) the state holds the rank's P/W
+rows: the update runs on them, and the logsumexp, the expected pose, nEff
+and the resample read the gathered weights, poses and clouds, as
+``filter/step.py``'s sharded step does; every rank draws the global
+step's draws and uses its rows.
+
 Top-k ties: ``ops/gm.py::top_k`` keeps ``jax.lax.top_k``'s order (the lower
 index first among equal values), so empty slots (w = 0) carry the same
 clouds as in JAX.
@@ -47,6 +53,8 @@ from phdslam_tpu_torch.ops.gm import (fast_prune_renormalize,
                                       greedy_merge_channels3, top_k)
 from phdslam_tpu_torch.ops.linalg import device_row, safe_log
 from phdslam_tpu_torch.ops.resample import neff, stratified_resample_indices
+from phdslam_tpu_torch.parallel.mesh import (everywhere, gather_rows,
+                                             global_row)
 
 LOG_2PI = 1.8378770664093453
 
@@ -128,10 +136,12 @@ class DispAux(NamedTuple):
     n_measure: torch.Tensor       # scalar
 
 
-def draw_noise(state: DisparityState, generator=None):
+def draw_noise(state: DisparityState, generator=None, n_particles=None):
     """One step's draws: (pose_normals [P, 6], cloud_normals [P, F, Npp, 3],
-    resample_uniforms [P])."""
+    resample_uniforms [P]); P the state's particles unless given (a
+    sharded step draws the global count)."""
     P, F, npp = state.px.shape
+    P = P if n_particles is None else n_particles
     kw = dict(generator=generator, device=state.pose.device,
               dtype=state.pose.dtype)
     return (torch.randn((P, 6), **kw), torch.randn((P, F, npp, 3), **kw),
@@ -139,14 +149,21 @@ def draw_noise(state: DisparityState, generator=None):
 
 
 def disparity_step(state: DisparityState, z: Measurements, dt: float,
-                   do_predict: bool, cfg, *, generator=None, noise=None):
+                   do_predict: bool, cfg, *, generator=None, noise=None,
+                   mesh=None):
     """One SC-PHD step; returns (state', DispAux). z holds the (u, v) image
-    measurements in ``rb``; ``z.count`` (host int) gates the update."""
-    P = state.px.shape[0]
+    measurements in ``rb``; ``z.count`` (host int) gates the update. With
+    a mesh the state holds the rank's rows, ``noise`` is the global
+    step's and the aux values are global."""
+    n_ranks = 1 if mesh is None else mesh.world_size
+    P = state.px.shape[0] * n_ranks
     dev, dtype = state.w.device, state.w.dtype
     if noise is None:
-        noise = draw_noise(state, generator)
+        noise = draw_noise(state, generator, P)
     pose_normals, cloud_normals, uniforms = noise
+    every, own = everywhere(mesh)
+    if mesh is not None:
+        pose_normals, cloud_normals = own(pose_normals), own(cloud_normals)
     z_uv, z_valid = z.rb, z.valid
     clutter_density = cfg.clutterRate / (cfg.imageWidth * cfg.imageHeight)
 
@@ -165,11 +182,13 @@ def disparity_step(state: DisparityState, z: Measurements, dt: float,
         new_w, new_px, new_py, new_pz, dw = _update(
             state, pose, cloud_normals, z_uv, z_valid, n_measure,
             clutter_density, cfg)
-        lw_new = state.log_weights + dw
+        lw_new = every(state.log_weights + dw)
         lw_new = lw_new - torch.logsumexp(lw_new, 0)
+    else:
+        lw_new = every(lw_new)
 
-    # ---- expected pose + resample ----
-    exp_pose = (torch.exp(lw_new)[:, None] * pose).sum(0)
+    # ---- expected pose + resample (global) ----
+    exp_pose = (torch.exp(lw_new)[:, None] * every(pose)).sum(0)
     n_eff = neff(lw_new)
     arange = torch.arange(P, dtype=torch.int32, device=dev)
     if has_z:
@@ -181,7 +200,8 @@ def disparity_step(state: DisparityState, z: Measurements, dt: float,
                                lw_new)
     else:
         idx, lw_final = arange, lw_new
-    take = lambda x: x.index_select(0, idx)
+    idx, lw_final = own(idx), own(lw_final)
+    take = lambda x: every(x).index_select(0, idx)
     state = DisparityState(pose=take(pose), log_weights=lw_final,
                            w=take(new_w), px=take(new_px), py=take(new_py),
                            pz=take(new_pz), resample_idx=idx)
@@ -329,35 +349,44 @@ def _update(state, pose, cloud_normals, z_uv, z_valid, n_measure,
             pick(nz, state.pz), dw)
 
 
-def map_summary(state: DisparityState):
+def map_summary(state: DisparityState, mesh=None):
     """The MAP particle's feature summary on the device: (w [F], cloud
-    means [F, 3], cloud covariances [F, 3, 3], divided by Npp - 1)."""
-    idx = torch.argmax(state.log_weights).reshape(1)
-    pts = torch.stack([state.px.index_select(0, idx)[0],
-                       state.py.index_select(0, idx)[0],
-                       state.pz.index_select(0, idx)[0]], -1)   # [F, Npp, 3]
+    means [F, 3], cloud covariances [F, 3, 3], divided by Npp - 1); with a
+    mesh the global MAP particle's, on every rank."""
+    if mesh is None:
+        idx = torch.argmax(state.log_weights).reshape(1)
+        row = lambda t: t.index_select(0, idx)[0]
+    else:
+        idx = torch.argmax(gather_rows(state.log_weights, mesh))
+        row = lambda t: global_row(t, idx, mesh)
+    pts = torch.stack([row(state.px), row(state.py), row(state.pz)],
+                      -1)                                         # [F, Npp, 3]
     mean = pts.mean(1)
     dlt = pts - mean[:, None]
     cov = torch.einsum("fni,fnj->fij", dlt, dlt) / max(pts.shape[1] - 1, 1)
-    return state.w.index_select(0, idx)[0], mean, cov
+    return row(state.w), mean, cov
 
 
 def run_disparity_scan(state: DisparityState, zs, dt: float, cfg, *,
                        generator=None, noises=None,
-                       with_map_log: bool = False):
+                       with_map_log: bool = False, mesh=None):
     """``disparity_step`` over a whole dataset without reading the device.
     zs: T Measurements. Returns (final_state, (stacked DispAux, stacked
     (log_weights, poses, resample_idx)[, stacked (map_w, map_mean,
-    map_cov)])); the map log is the MAP particle's ``map_summary``."""
+    map_cov)])); the map log is the MAP particle's ``map_summary``. With
+    a mesh the state holds the rank's rows and the stacked values are
+    global."""
+    every = everywhere(mesh)[0]
     auxs, parts, maps = [], [], []
     for t, z in enumerate(zs):
         state, aux = disparity_step(
             state, z, dt, t > 0, cfg, generator=generator,
-            noise=None if noises is None else noises[t])
+            noise=None if noises is None else noises[t], mesh=mesh)
         auxs.append(aux)
-        parts.append((state.log_weights, state.pose, state.resample_idx))
+        parts.append((every(state.log_weights), every(state.pose),
+                      every(state.resample_idx)))
         if with_map_log:
-            maps.append(map_summary(state))
+            maps.append(map_summary(state, mesh))
     stack = lambda rows: tuple(torch.stack(f) for f in zip(*rows))
     outs = (DispAux(*stack(auxs)), stack(parts))
     if with_map_log:

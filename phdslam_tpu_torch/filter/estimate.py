@@ -16,8 +16,13 @@ from phdslam_tpu_torch.ops.gm import reduce_mixture_np
 def expected_pose(state: SlamState, n_runs=None):
     """Weighted mean of the particle poses: [6], or [R, 6] for each of
     ``n_runs`` runs (``filter/runs.py``)."""
-    w = torch.exp(state.log_weights)
-    wp = w[:, None] * state.pose
+    return weighted_pose(state.log_weights, state.pose, n_runs)
+
+
+def weighted_pose(log_weights, pose, n_runs=None):
+    """``expected_pose`` of log weights [P] and poses [P, 6] (a sharded
+    step passes the gathered ones)."""
+    wp = torch.exp(log_weights)[:, None] * pose
     if n_runs is None:
         return wp.sum(0)
     return wp.reshape(n_runs, -1, wp.shape[-1]).sum(1)

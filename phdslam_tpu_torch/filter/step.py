@@ -27,6 +27,16 @@ the update runs when any run has a measurement, and a run without one
 keeps its pre-update state (``runs.select_runs``); so do the CPHD births.
 Run r draws its noise from its own generator in the single run's order,
 so it filters the draws it would filter alone.
+
+Particle-axis sharding (``parallel/mesh.py``, JAX's ``pmesh``): with a
+``mesh`` the state holds this rank's P/W rows. Everything up to the
+normalisation runs on them alone. The normalisation, nEff, the expected
+pose, the resample (and its shotgun contraction) and ``log_aux``'s MAP
+particle read the gathered [P] weights and poses and compute exactly what
+the single process computes, and the resample takes the rank's rows of
+the gathered state. Every rank draws the global step's draws and uses its
+rows of the pose normals, so a sharded step equals the single-process step
+bit for bit. A mesh steps one run: it has no run axis.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from phdslam_tpu_torch.config import (CPHD_TYPE, DYNAMIC_MODEL,
                                       FASTSLAM_TYPE, MIXED_MODEL,
                                       STATIC_MODEL)
 from phdslam_tpu_torch.filter import cphd
-from phdslam_tpu_torch.filter.estimate import expected_pose
+from phdslam_tpu_torch.filter.estimate import weighted_pose
 from phdslam_tpu_torch.filter.fastslam import fastslam_update
 from phdslam_tpu_torch.filter.predict import (noise_dim, predict,
                                               shotgun_expand)
@@ -53,6 +63,8 @@ from phdslam_tpu_torch.filter.update4 import (informed_birth_velocity,
                                               phd_update_mixed,
                                               prev_measurement_world)
 from phdslam_tpu_torch.ops.resample import neff, stratified_resample_indices
+from phdslam_tpu_torch.parallel.mesh import (everywhere, gather_rows,
+                                             global_row, unshard_state)
 
 
 class StepAux(NamedTuple):
@@ -136,17 +148,24 @@ def predicted_state(state: SlamState, control, dt: float, do_predict: bool,
     return state
 
 
-def gather_particles(state: SlamState, idx, new_log_w,
-                     lineage) -> SlamState:
+def gather_particles(state: SlamState, idx, new_log_w, lineage,
+                     mesh=None) -> SlamState:
     """The particles at idx, with resample_idx = lineage (``_lineage``:
-    idx, or for R runs each run's own indices)."""
+    idx, or for R runs each run's own indices). With a mesh, idx,
+    new_log_w and lineage are global [P]: the rank takes its slice of each
+    and its rows of the gathered state."""
+    if mesh is not None:
+        state = unshard_state(state, mesh)
+        idx, new_log_w, lineage = (mesh.local(t)
+                                   for t in (idx, new_log_w, lineage))
     new = state.map(lambda t: t.index_select(0, idx))
     return new.replace(log_weights=new_log_w, resample_idx=lineage)
 
 
 def slam_step(state: SlamState, control, z: Measurements, dt: float,
               do_predict: bool, cfg, *, generator=None, noise=None,
-              with_variance: bool = False, z_prev: Measurements = None):
+              with_variance: bool = False, z_prev: Measurements = None,
+              mesh=None):
     """One SLAM time step; returns (state', StepAux).
 
     control     (v_encoder, alpha), floats or 0-d tensors; per run [R]
@@ -164,10 +183,18 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     z_prev      the previous step's Measurements: under birthVelocityInit
                 the dynamic births take their velocity from them, and the
                 CPHD births come from them (None: no births)
+    mesh        a ``parallel.mesh.ParticleMesh``: the state holds the
+                rank's P/W rows; noise (given or drawn) is the global
+                step's; the aux values are global
     """
     check_supported(cfg)
     is_cphd = cfg.filterType == CPHD_TYPE
     n_runs = z.n_runs
+    every, own = everywhere(mesh)
+    n_ranks = 1 if mesh is None else mesh.world_size
+    if mesh is not None and n_runs is not None:
+        raise ValueError("a sharded step (mesh) has no run axis: per-run "
+                         "measurement sets need the single process")
     n_target = cfg.n_particles * (n_runs or 1)
     n_copies = max(int(cfg.nPredictParticles), 1)
     dtype = state.log_weights.dtype
@@ -179,9 +206,11 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
                          f"{cfg.n_particles} particles, the state holds "
                          f"{state.n_particles}")
     if noise is None:
-        noise = draw_noise(cfg, state.n_particles * n_copies, dev, generator,
-                           dtype)
+        noise = draw_noise(cfg, state.n_particles * n_ranks * n_copies, dev,
+                           generator, dtype)
     uniforms = noise[1]
+    if mesh is not None:
+        noise = (mesh.local(noise[0], 1), uniforms)
 
     # ---- informed 4-D birth anchors: the previous measurements in the
     # world frame at the poses before this step's prediction ----
@@ -214,13 +243,15 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     if z.any_run and cfg.filterType == FASTSLAM_TYPE:
         gm_out, dw = fastslam_update(state.pose, state.map_static, z.rb,
                                      z.valid, cfg)
-        lw, log_lik = normalise(state.log_weights + dw, n_runs)
+        lw, log_lik = normalise(every(state.log_weights + dw), n_runs)
+        lw = own(lw)
         state = state.replace(map_static=gm_out, log_weights=lw)
     elif z.any_run and is_cphd:
         map_out, cn_update, dw = cphd.cphd_update(
             state.pose, state.map_static, state.cardinality, z.rb, z.label,
             z.valid, cfg, consts)
-        lw, log_lik = normalise(state.log_weights + dw, n_runs)
+        lw, log_lik = normalise(every(state.log_weights + dw), n_runs)
+        lw = own(lw)
         state = state.replace(map_static=map_out, log_weights=lw,
                               cardinality=cn_update)
     elif z.any_run and mixed:
@@ -232,14 +263,16 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
         gm2, gm4, dw = phd_update_mixed(state.pose, state.map_static,
                                         state.map_dynamic, z.rb, z.label,
                                         z.valid, cfg, birth_vel=birth_vel)
-        lw, log_lik = normalise(state.log_weights + dw, n_runs)
+        lw, log_lik = normalise(every(state.log_weights + dw), n_runs)
+        lw = own(lw)
         state = state.replace(map_static=gm2, map_dynamic=gm4,
                               log_weights=lw)
     elif z.any_run:
         res = phd_update_static(state.pose, state.map_static, z.rb, z.label,
                                 z.valid, cfg)
-        lw, log_lik = normalise(state.log_weights + res.log_weight_delta,
-                                n_runs)
+        lw, log_lik = normalise(
+            every(state.log_weights + res.log_weight_delta), n_runs)
+        lw = own(lw)
         var = phd_variance(res, z.valid) if with_variance \
             else state.variances
         state = state.replace(map_static=res.map_out, log_weights=lw,
@@ -252,10 +285,11 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
         state = select_runs(has_z, state, before)
         log_lik = torch.where(has_z, log_lik, 0.0)
 
-    exp_pose = expected_pose(state, n_runs)
-    n_eff = neff(state.log_weights, n_runs)
+    lw_all = every(state.log_weights)
+    exp_pose = weighted_pose(lw_all, every(state.pose), n_runs)
+    n_eff = neff(lw_all, n_runs)
     if cfg.debug:
-        lw_runs = run_view(state.log_weights, n_runs)
+        lw_runs = run_view(lw_all, n_runs)
         print(f"[debug] log_lik={log_lik.tolist()} neff={n_eff.tolist()}"
               f" lw[min,max]=[{lw_runs.amin(-1).tolist()},"
               f"{lw_runs.amax(-1).tolist()}] "
@@ -266,29 +300,30 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     arange = torch.arange(n_target, dtype=torch.int32, device=dev)
     uniform_lw = torch.full((n_target,), -math.log(float(cfg.n_particles)),
                             dtype=dtype, device=dev)
-    n_in = state.n_particles
+    n_in = state.n_particles * n_ranks
     if n_in != n_target:
         # shotgun-expanded step: always contract back to n_particles
-        idx = stratified_resample_indices(state.log_weights, uniforms,
+        idx = stratified_resample_indices(lw_all, uniforms,
                                           cfg.n_particles, n_runs)
         state = gather_particles(state, idx, uniform_lw,
-                                 _lineage(idx, n_runs, n_in))
+                                 _lineage(idx, n_runs, n_in), mesh)
         resampled = torch.ones(run_shape, dtype=torch.bool, device=dev)
     elif z.any_run:
         trigger = n_eff <= cfg.resampleThresh
         if has_z is not None:
             trigger = trigger & has_z
-        idx = stratified_resample_indices(state.log_weights, uniforms,
+        idx = stratified_resample_indices(lw_all, uniforms,
                                           cfg.n_particles, n_runs)
         trig = trigger if n_runs is None \
             else per_particle(trigger, n_target)
         idx = torch.where(trig, idx, arange)
         state = gather_particles(
-            state, idx, torch.where(trig, uniform_lw, state.log_weights),
-            _lineage(idx, n_runs, n_in))
+            state, idx, torch.where(trig, uniform_lw, lw_all),
+            _lineage(idx, n_runs, n_in), mesh)
         resampled = trigger
     else:
-        state = state.replace(resample_idx=_lineage(arange, n_runs, n_in))
+        state = state.replace(
+            resample_idx=own(_lineage(arange, n_runs, n_in)))
         resampled = torch.zeros(run_shape, dtype=torch.bool, device=dev)
 
     return state, StepAux(expected_pose=exp_pose, neff=n_eff,
@@ -306,10 +341,17 @@ def _lineage(idx, n_runs, n_in: int):
     return (idx.reshape(n_runs, -1) - off[:, None]).reshape(-1)
 
 
-def log_aux(state: SlamState, n_runs=None) -> LogAux:
+def log_aux(state: SlamState, n_runs=None, mesh=None) -> LogAux:
     """The MAP particle's maps and the per-particle values; with
-    ``n_runs`` each run's, on a leading [R]."""
-    if n_runs is None:
+    ``n_runs`` each run's, on a leading [R]; with a mesh the global ones
+    on every rank (the MAP particle's rows from the rank that holds it,
+    the first of equal weights as in the single process)."""
+    if mesh is not None:
+        gather = lambda t: gather_rows(t, mesh)
+        idx = torch.argmax(gather(state.log_weights))
+        row = lambda t: global_row(t, idx, mesh)
+        each = gather
+    elif n_runs is None:
         idx = torch.argmax(state.log_weights).reshape(1)
         row = lambda t: t.index_select(0, idx)[0]
         each = lambda t: t
@@ -336,7 +378,7 @@ def log_aux(state: SlamState, n_runs=None) -> LogAux:
 
 def run_scan(state: SlamState, controls, zs, dts, cfg, *, generator=None,
              noises: Optional[list] = None, with_log_state: bool = False,
-             with_variance: bool = False):
+             with_variance: bool = False, mesh=None):
     """Run ``slam_step`` over a whole dataset without reading the device.
 
     controls [T, 2] (host); zs: T Measurements on the state's device;
@@ -361,11 +403,11 @@ def run_scan(state: SlamState, controls, zs, dts, cfg, *, generator=None,
             state, control, z, float(dts[t]), t > 0, cfg,
             generator=generator,
             noise=None if noises is None else noises[t],
-            with_variance=with_variance, z_prev=z_prev)
+            with_variance=with_variance, z_prev=z_prev, mesh=mesh)
         z_prev = z
         auxs.append(aux)
         if with_log_state:
-            logs.append(log_aux(state, n_runs))
+            logs.append(log_aux(state, n_runs, mesh))
     stacked = StepAux(*(torch.stack(f) for f in zip(*auxs)))
     if with_log_state:
         return state, (stacked, LogAux(*(torch.stack(f) for f in zip(*logs))))

@@ -37,6 +37,17 @@ The draws come from one generator (``draw_island_noise``): pose normals
 [sub, P, d], the islands' resample uniforms [P] and the butterfly's
 uniforms [rounds, P], island k's in its block of each. ``noise=`` replays
 given draws (the tests replay JAX's per-island keys).
+
+Across ranks (``mesh``, ``parallel/mesh.py``; JAX puts one island on each
+mesh device): W ranks, W dividing n, rank r holding islands [r n/W,
+(r + 1) n/W). Each rank runs its local ``slam_step`` over its n/W
+islands; the island weights, the island nEff, the global log-likelihood
+and the expected pose come from the gathered [n] log-likelihoods and
+[n, 6] expected poses, the same on every rank (every rank keeps all n
+island weights); the butterfly runs on the gathered state, its rounds
+composed as on one device, and each rank keeps its block. Every rank draws
+the global draws and uses its islands' rows, so the step equals the
+one-device step bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +61,8 @@ from phdslam_tpu_torch.filter.predict import noise_dim
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
 from phdslam_tpu_torch.filter.step import slam_step
 from phdslam_tpu_torch.ops.resample import stratified_resample_indices
+from phdslam_tpu_torch.parallel.mesh import (everywhere, shard_state,
+                                             unshard_state)
 
 
 class IslandAux(NamedTuple):
@@ -86,11 +99,13 @@ def butterfly_strides(n_islands: int) -> list:
     return out
 
 
-def check_islands(cfg, n_islands: int):
+def check_islands(cfg, n_islands: int, mesh=None):
     """JAX's preconditions, as ValueError: n a power of 2 that divides the
     global particle count, and no shotgun expansion (it would change the
-    islands' shapes)."""
+    islands' shapes); with a mesh, its ranks dividing n."""
     n = int(n_islands)
+    if mesh is not None:
+        mesh.check_divides(n, "n_islands")
     if n < 1 or n & (n - 1):
         raise ValueError(f"n_islands must be a power of 2, got {n}")
     if cfg.n_particles % n:
@@ -200,83 +215,102 @@ def island_slam_step(state: SlamState, island_logw, control,
                      z: Measurements, dt: float, do_predict: bool, cfg,
                      n_islands: int, *, thresh: float = 0.5, generator=None,
                      noise=None, z_prev: Measurements = None,
-                     with_log_state: bool = False):
+                     with_log_state: bool = False, mesh=None):
     """One island-model SLAM step; returns (state', island_logw',
     IslandAux), and an IslandLogAux last with ``with_log_state``.
 
-    state        P = cfg.n_particles rows, island k in block k
-    island_logw  [n] normalised island log-weights
+    state        P = cfg.n_particles rows, island k in block k; with a
+                 mesh the rank's P/W rows (its n/W islands)
+    island_logw  [n] normalised island log-weights (all n on every rank)
     control, z, dt, do_predict: as ``slam_step``'s (one shared set)
     thresh       the exchange runs when the island nEff is at or below it
     noise        ``draw_island_noise``'s triple, to replay given draws;
                  otherwise drawn from ``generator``
     z_prev       the previous step's measurements (None: an empty set, as
                  JAX's island step passes)
+    mesh         a ``parallel.mesh.ParticleMesh`` whose ranks divide n;
+                 noise (given or drawn) is the global step's and the aux
+                 values are global
     """
-    check_islands(cfg, n_islands)
+    check_islands(cfg, n_islands, mesh)
     n = n_islands
     P = cfg.n_particles
     p = P // n
+    every, own = everywhere(mesh)
+    n_own = n if mesh is None else n // mesh.world_size
     dev, dtype = state.device, state.log_weights.dtype
     if noise is None:
         noise = draw_island_noise(cfg, n, dev, generator, dtype)
     normals, uniforms, bfly_u = noise
+    if mesh is not None:
+        normals, uniforms = mesh.local(normals, 1), own(uniforms)
     if z_prev is None:
         z_prev = Measurements.empty(z.rb.shape[-2], dev)
-    state, aux = slam_step(state, control, _per_island(z, n), dt,
+    state, aux = slam_step(state, control, _per_island(z, n_own), dt,
                            do_predict, cfg.replace(n_particles=p),
                            noise=(normals, uniforms),
-                           z_prev=_per_island(z_prev, n))
+                           z_prev=_per_island(z_prev, n_own))
 
     # the local normaliser is the island's likelihood increment; normalise
     # across islands as JAX does (max, then the log of the shifted sum)
-    ilw = island_logw + aux.log_lik
+    ilw = island_logw + every(aux.log_lik)
     lse = ilw.max()
     shift = ilw - lse
     norm = torch.log(torch.exp(shift).sum())
     ilw = shift - norm
     log_lik = lse + norm
     island_neff = 1.0 / (torch.exp(2.0 * ilw).sum() * n)
-    exp_pose = (torch.exp(ilw)[:, None] * aux.expected_pose).sum(0)
+    exp_pose = (torch.exp(ilw)[:, None] * every(aux.expected_pose)).sum(0)
 
     exchanged = island_neff <= thresh
-    state, ilw = butterfly_exchange(state, ilw, bfly_u, exchanged, n)
+    if mesh is None:
+        state, ilw = butterfly_exchange(state, ilw, bfly_u, exchanged, n)
+    else:
+        full, ilw = butterfly_exchange(unshard_state(state, mesh), ilw,
+                                       bfly_u, exchanged, n)
+        state = shard_state(full, mesh)
 
     out = (state, ilw, IslandAux(expected_pose=exp_pose, island_logw=ilw,
                                  island_neff=island_neff,
                                  exchanged=exchanged, log_lik=log_lik))
     if with_log_state:
-        out = out + (island_log_aux(state, ilw, n),)
+        out = out + (island_log_aux(state, ilw, n, mesh),)
     return out
 
 
-def island_log_aux(state: SlamState, island_logw, n_islands: int):
+def island_log_aux(state: SlamState, island_logw, n_islands: int,
+                   mesh=None):
     """Each island's local MAP particle's static map and score, and every
-    particle's global log-weight."""
-    n = n_islands
+    particle's global log-weight; with a mesh each rank's islands', then
+    gathered (every field leads with the island or particle axis)."""
+    every, own = everywhere(mesh)
+    island_logw = own(island_logw)
+    n = n_islands if mesh is None else n_islands // mesh.world_size
     p = state.n_particles // n
     lw = state.log_weights
     best = torch.argmax(lw.reshape(n, p), 1) \
         + torch.arange(n, device=lw.device) * p
-    row = lambda t: t.index_select(0, best)
+    row = lambda t: every(t.index_select(0, best))
     ms = state.map_static
     return IslandLogAux(
-        best_score=island_logw + row(lw), best_w=row(ms.w),
-        best_mx=row(ms.mx), best_my=row(ms.my), best_c00=row(ms.c00),
-        best_c01=row(ms.c01), best_c11=row(ms.c11),
-        log_weights=torch.repeat_interleave(island_logw, p) + lw,
-        poses=state.pose, resample_idx=state.resample_idx)
+        best_score=every(island_logw + lw.index_select(0, best)),
+        best_w=row(ms.w), best_mx=row(ms.mx), best_my=row(ms.my),
+        best_c00=row(ms.c00), best_c01=row(ms.c01), best_c11=row(ms.c11),
+        log_weights=every(torch.repeat_interleave(island_logw, p) + lw),
+        poses=every(state.pose), resample_idx=every(state.resample_idx))
 
 
 def island_run_scan(state: SlamState, island_logw, controls, zs, dts, cfg,
                     n_islands: int, *, thresh: float = 0.5, generator=None,
-                    noises=None, with_log_state: bool = False):
+                    noises=None, with_log_state: bool = False, mesh=None):
     """``island_slam_step`` over a whole dataset without reading the device
     (``filter/step.py::run_scan``'s island counterpart): controls [T, 2]
     and dts [T] on the host, zs T Measurements on the state's device; step
     0 skips prediction and has an empty previous set, every later step
     gets its predecessor's. Returns (state', island_logw', stacked
-    IslandAux), and a stacked IslandLogAux last with ``with_log_state``."""
+    IslandAux), and a stacked IslandLogAux last with ``with_log_state``;
+    with a mesh the state holds the rank's islands and the stacked values
+    are global."""
     dev = state.device
     z_prev = Measurements.empty(zs[0].rb.shape[-2], dev)
     auxs, logs = [], []
@@ -286,7 +320,7 @@ def island_run_scan(state: SlamState, island_logw, controls, zs, dts, cfg,
                                  float(controls[t][1])),
             z, float(dts[t]), t > 0, cfg, n_islands, thresh=thresh,
             generator=generator, noise=None if noises is None else noises[t],
-            z_prev=z_prev, with_log_state=with_log_state)
+            z_prev=z_prev, with_log_state=with_log_state, mesh=mesh)
         state, island_logw = out[0], out[1]
         auxs.append(out[2])
         if with_log_state:

@@ -58,6 +58,23 @@ island nEff, ``resampled`` whether the exchange ran); a resume starts the
 island weights uniform again (a checkpoint holds none, as in JAX). Scan
 mode writes JAX's island scan logs (``_write_island_scan_log``).
 ``--variance`` is not computed in island mode.
+
+Under torchrun (``WORLD_SIZE`` > 1) ``--islands N`` spreads the islands
+over the ranks (``parallel/mesh.py``; W ranks dividing N, rank r holding
+islands [r N/W, (r + 1) N/W)), in loop and scan mode:
+
+    torchrun --nproc-per-node W -m phdslam_tpu_torch.runner CFG synth \
+        ... --islands N [--mode scan] [--dist-backend gloo]
+
+The backend follows ``--device``: NCCL on cuda (rank r on cuda:LOCAL_RANK
+unless the device names an index), gloo on cpu; ranks that share one card
+(``--device cuda:0``) need ``--dist-backend gloo``, since NCCL refuses
+two ranks on one device. Every rank loads the same data and draws the
+same draws; rank 0 writes every output the one-process run writes, with
+the same bytes (the times aside), and the other ranks write nothing. The
+run types and flags without a multi-rank form raise by name: the plain
+(non-island) runner, ``disparity``, ``profile``, ``--checkpoint-every``
+and ``--resume``. ``--predict-time`` times the rank's own prediction.
 """
 
 from __future__ import annotations
@@ -89,6 +106,8 @@ from phdslam_tpu_torch.parallel.island import (check_islands,
                                                init_islands,
                                                island_run_scan,
                                                island_slam_step)
+from phdslam_tpu_torch.parallel.mesh import (make_mesh, shard_state,
+                                             unshard_state)
 
 
 def schedule_inputs(n_steps, meas_times, ctrl_times):
@@ -267,9 +286,14 @@ def _estimates(view, cfg):
     return est
 
 
-def run_synth(cfg, args) -> dict:
+def run_synth(cfg, args, mesh=None) -> dict:
+    """The synth run; with a mesh (``main`` under torchrun) the island
+    run across its ranks, rank 0 writing the outputs."""
     check_supported(cfg)
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
+    every = (lambda s: s) if mesh is None else \
+        (lambda s: unshard_state(s, mesh))
     data_dir = args.data_dir or cfg.dataDirectory
     meas_path = args.measurements or os.path.join(data_dir,
                                                   "measurements.txt")
@@ -290,7 +314,7 @@ def run_synth(cfg, args) -> dict:
     # island mode, as in JAX, from 2 islands up
     n_isl = args.islands if args.islands > 1 else 0
     if n_isl:
-        check_islands(cfg, n_isl)
+        check_islands(cfg, n_isl, mesh)
 
     n_steps = len(meas_sets)
     if meas_times is not None:
@@ -302,11 +326,14 @@ def run_synth(cfg, args) -> dict:
     rb, labels, valid = loaders.pad_measurement_sets(meas_sets,
                                                      cfg.maxMeasurements)
     out_dir = args.out_dir
-    os.makedirs(out_dir, exist_ok=True)
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     truth_maps = load_truth_maps(args.truth) if args.truth else None
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if n_isl:
         state, island_logw = init_islands(cfg, n_isl, device)
+        if mesh is not None:
+            state = shard_state(state, mesh)
     else:
         state = SlamState.create(cfg, device)
     sched = schedule_inputs(n_steps, meas_times, ctrl_times)
@@ -323,7 +350,7 @@ def run_synth(cfg, args) -> dict:
         if n_isl:
             final, _, auxs, las = island_run_scan(
                 state, island_logw, ctrls, zs, dts, cfg, n_isl,
-                generator=generator, with_log_state=True)
+                generator=generator, with_log_state=True, mesh=mesh)
         else:
             final, (auxs, las) = run_scan(
                 state, ctrls, zs, dts, cfg, generator=generator,
@@ -340,7 +367,7 @@ def run_synth(cfg, args) -> dict:
                   "truncating outputs...")
         aux_h = {k: v.cpu().numpy() for k, v in auxs._asdict().items()}
         la_h = _host(las)
-        for t in range(t_valid):
+        for t in range(t_valid if writer else 0):
             logs.append_loop_time(out_dir, ms)
             if args.no_logs:
                 continue
@@ -363,13 +390,16 @@ def run_synth(cfg, args) -> dict:
                     la_t["map_w"], la_t["map_mx"], la_t["map_my"],
                     truth_maps, t)
             logs.append_metrics_jsonl(out_dir, metrics)
-        print(f"scan: {t_len} steps in {elapsed:.3f}s ({ms:.2f} ms/step)")
+        if writer:
+            print(f"scan: {t_len} steps in {elapsed:.3f}s ({ms:.2f} "
+                  "ms/step)")
         return dict(state=final, poses=poses, aux=auxs, ms_per_step=ms,
                     nan_step=t_valid if t_valid < t_len else None)
 
-    if n_isl:
+    if n_isl and writer:
         print(f"island mode: {n_isl} islands x {cfg.n_particles // n_isl} "
-              "particles")
+              "particles" + ("" if mesh is None else
+                             f" on {mesh.world_size} ranks"))
     poses_out = []
     z_prev = None
     n_predicted = cfg.n_particles * max(int(cfg.nPredictParticles), 1)
@@ -396,29 +426,37 @@ def run_synth(cfg, args) -> dict:
         else:
             noise = draw_noise(cfg, n_predicted, device, generator,
                                state.log_weights.dtype)
+        # the rank's rows of the pose normals (all of them on one rank)
+        own_noise = noise if mesh is None \
+            else (mesh.local(noise[0], 1),) + tuple(noise[1:])
         if cfg.savePrediction:
-            pred = predicted_state(state, ctrl, dt, do_predict, cfg, noise)
-            write_particles_mat(out_dir, t, host_view(pred),
-                                prefix="particles_predict")
+            pred = every(predicted_state(state, ctrl, dt, do_predict, cfg,
+                                         own_noise))
+            if writer:
+                write_particles_mat(out_dir, t, host_view(pred),
+                                    prefix="particles_predict")
         if t == 100 and args.checkpoint:
-            with open(os.path.join(out_dir, "state100.pkl"), "wb") as f:
-                pickle.dump(dict(state=state_to_numpy(state), z=dict(
-                    rb=z.rb.cpu().numpy(), label=z.label.cpu().numpy(),
-                    valid=z.valid.cpu().numpy())), f)
+            full = state_to_numpy(every(state))
+            if writer:
+                with open(os.path.join(out_dir, "state100.pkl"), "wb") as f:
+                    pickle.dump(dict(state=full, z=dict(
+                        rb=z.rb.cpu().numpy(), label=z.label.cpu().numpy(),
+                        valid=z.valid.cpu().numpy())), f)
         if args.predict_time and do_predict:
             _sync(device)
             t_pred = time.perf_counter()
-            predicted_state(state, ctrl, dt, True, cfg, noise)
+            predicted_state(state, ctrl, dt, True, cfg, own_noise)
             _sync(device)
-            logs.append_predict_time(
-                out_dir, (time.perf_counter() - t_pred) * 1000)
+            if writer:
+                logs.append_predict_time(
+                    out_dir, (time.perf_counter() - t_pred) * 1000)
         t0 = time.perf_counter()
         if n_isl:
             # the step log keeps the local log-weights and their argmax,
             # as JAX's island loop does
             state, island_logw, iaux = island_slam_step(
                 state, island_logw, ctrl, z, dt, do_predict, cfg, n_isl,
-                noise=noise, z_prev=z_prev)
+                noise=noise, z_prev=z_prev, mesh=mesh)
             aux = StepAux(expected_pose=iaux.expected_pose,
                           neff=iaux.island_neff, resampled=iaux.exchanged,
                           n_measure=z.count, log_lik=iaux.log_lik)
@@ -429,35 +467,36 @@ def run_synth(cfg, args) -> dict:
         z_prev = z
         neff_val = float(aux.neff)                   # waits for the device
         elapsed_ms = (time.perf_counter() - t0) * 1000
-        logs.append_loop_time(out_dir, elapsed_ms)
         exp_pose = aux.expected_pose.cpu().numpy()
-        la = _host(log_aux(state))
+        la = _host(log_aux(state, mesh=mesh))
         mat = args.mat_export or cfg.saveAllMaps
         view = est = None
         if mat or cfg.mapEstimate & 2 and not args.no_logs:
             # every particle's map on the host, its estimates once a step
-            view = host_view(state)
-            est = _estimates(view, cfg)
-        if not args.no_logs:
-            _write_log(out_dir, t, exp_pose, la, repeat0 if t == 0 else 1,
-                       cfg, est)
-        metrics = dict(
-            t=t, ms=elapsed_ms, neff=neff_val, n_measure=z.count,
-            resampled=bool(aux.resampled), log_lik=float(aux.log_lik),
-            card=float(la["map_w"].sum()))
-        if truth_maps is not None:
-            metrics["ospa"] = _ospa_from_map(la["map_w"], la["map_mx"],
-                                            la["map_my"], truth_maps, t)
-        logs.append_metrics_jsonl(out_dir, metrics)
-        if mat:
-            write_particles_mat(out_dir, t, view, **est)
+            view = host_view(every(state))
+            est = _estimates(view, cfg) if writer else None
+        if writer:
+            logs.append_loop_time(out_dir, elapsed_ms)
+            if not args.no_logs:
+                _write_log(out_dir, t, exp_pose, la,
+                           repeat0 if t == 0 else 1, cfg, est)
+            metrics = dict(
+                t=t, ms=elapsed_ms, neff=neff_val, n_measure=z.count,
+                resampled=bool(aux.resampled), log_lik=float(aux.log_lik),
+                card=float(la["map_w"].sum()))
+            if truth_maps is not None:
+                metrics["ospa"] = _ospa_from_map(la["map_w"], la["map_mx"],
+                                                la["map_my"], truth_maps, t)
+            logs.append_metrics_jsonl(out_dir, metrics)
+            if mat:
+                write_particles_mat(out_dir, t, view, **est)
         poses_out.append(exp_pose)
         if args.checkpoint_every and t > 0 and t % args.checkpoint_every == 0:
             checkpoint.save_checkpoint(ckpt_dir, t, state, generator)
         if np.isnan(neff_val):
             print("nan weights detected! exiting...")
             break
-        if args.verbose:
+        if args.verbose and writer:
             print(f"step {t}/{len(steps)} ms={elapsed_ms:.1f} "
                   f"neff={neff_val:.3f}")
     res = dict(state=state, poses=np.asarray(poses_out))
@@ -533,10 +572,30 @@ def build_parser():
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--islands", type=int, default=0,
                     help="run N > 1 islands of n_particles / N particles "
-                         "on the one device, with butterfly exchanges when "
-                         "the island nEff falls to 0.5 (parallel/island.py;"
+                         "on the one device, or spread over the ranks under "
+                         "torchrun, with butterfly exchanges when the "
+                         "island nEff falls to 0.5 (parallel/island.py;"
                          " loop and scan mode; --variance is not computed)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="under torchrun: the process group's backend "
+                         "(default nccl on cuda, gloo on cpu; gloo for "
+                         "ranks sharing one card, --device cuda:0)")
     return ap
+
+
+def _multi_rank_refusals(args):
+    """NotImplementedError for what has no multi-rank form."""
+    for refused, what in (
+            (args.run_type == "disparity", "the disparity run type"),
+            (args.profile == "profile", "synth profile"),
+            (args.checkpoint_every, "--checkpoint-every"),
+            (args.resume, "--resume"),
+            (args.islands <= 1, "the plain (non-island) runner; pass "
+                                "--islands N")):
+        if refused:
+            raise NotImplementedError(
+                f"{what} runs in one process only, not under torchrun "
+                "(WORLD_SIZE > 1)")
 
 
 def main(argv=None):
@@ -547,7 +606,19 @@ def main(argv=None):
             f"--device {args.device}: CUDA is not available; pass --device "
             "cpu to run the kernels' plain versions on the CPU")
     cfg = load_config(args.config)
-    if args.run_type == "disparity":
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        _multi_rank_refusals(args)
+        mesh = make_mesh(args.dist_backend, args.device)
+        try:
+            res = run_synth(cfg, args, mesh)
+        finally:
+            mesh.close()
+        if mesh.rank:
+            return res
+    elif args.dist_backend:
+        raise ValueError("--dist-backend applies under torchrun "
+                         "(WORLD_SIZE > 1) only")
+    elif args.run_type == "disparity":
         res = run_disparity(cfg, args)
     elif args.profile == "profile":
         res = run_profile(cfg, args)

@@ -1369,3 +1369,45 @@ def test_island_step_cuda_matches_cpu_without_sync(dev):
         torch.testing.assert_close(getattr(gpu.map_static, name),
                                    getattr(cpu.map_static, name),
                                    rtol=2e-4, atol=1e-4)
+
+
+def test_sharded_step_on_one_nccl_rank_matches_slam_step(dev, tmp_path):
+    """The sharded step on a one-rank NCCL mesh (``parallel/mesh.py``) at
+    the shipped static shape (256 x 128 x 64), 3 steps with the resample
+    forced, equals ``slam_step`` on the same draws bit for bit: every state
+    leaf and aux value; the steps run under set_sync_debug_mode("error")."""
+    from phdslam_tpu_torch.parallel import mesh as PM
+    cfg = load_config("cfg/ackerman_synth.cfg").replace(
+        n_particles=256, maxFeatures=128, maxMeasurements=64, y0=0.0,
+        birthWeight=0.02, resampleThresh=1.1)
+    rng = np.random.default_rng(12)
+    mesh = PM.make_mesh(device=dev, rank=0, world_size=1,
+                        init_method=f"file://{tmp_path / 'rdv'}")
+    try:
+        assert mesh.backend == "nccl"
+        step = PM.sharded_step(cfg, mesh)
+        plain = SlamState.create(cfg, dev)
+        sharded = PM.shard_state(SlamState.create(cfg, dev), mesh)
+        for t in range(3):
+            rb = np.stack([rng.uniform(0.5, 9, 64), rng.uniform(-1.4, 1.4,
+                                                                64)],
+                          1).astype(np.float32)
+            z = Measurements.from_numpy(rb, np.zeros(64, np.int32),
+                                        np.arange(64) < 48, dev)
+            noise = (torch.randn((1, 256, 2), device=dev),
+                     torch.rand((256,), device=dev))
+            plain, paux = slam_step(plain, (1.0, 0.05), z, 1.0, t > 0, cfg,
+                                    noise=noise)
+            sharded, saux = _no_sync(lambda: step(sharded, (1.0, 0.05), z,
+                                                  1.0, t > 0, noise=noise))
+            for a, b in zip(paux, saux):
+                assert torch.equal(a, b)
+        got = PM.unshard_state(sharded, mesh)
+        for name in ("pose", "log_weights", "resample_idx", "variances"):
+            assert torch.equal(getattr(got, name), getattr(plain, name))
+        for name in ("w", "mx", "my", "c00", "c01", "c11"):
+            assert torch.equal(getattr(got.map_static, name),
+                               getattr(plain.map_static, name))
+        assert bool(paux.resampled)
+    finally:
+        mesh.close()

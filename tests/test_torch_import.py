@@ -60,9 +60,42 @@ def test_import_without_jax():
         "kernels.merge3", "kernels.esf", "kernels._build",
         "kernels.sweep", "kernels.auction", "filter.fastslam", "ops.jcbb",
         "ops.ospa", "io.matdump", "eval.player", "checkpoint", "eval.batch",
-        "eval.plots", "parallel", "parallel.island", "filter.runs")}
+        "eval.plots", "parallel", "parallel.island", "parallel.mesh",
+        "filter.runs")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert "matplotlib" not in out["loaded_top"]   # the player's, lazily
     assert out["tf32"] == [False, False]
     assert not out["built"]          # importing builds no kernel
+
+
+RANK_PROBE = r"""
+import json, sys, tempfile
+sys.path.insert(0, "tests")
+import torch_mesh_ranks as R
+if __name__ == "__main__":
+    with tempfile.TemporaryDirectory() as d:
+        res = R.run_ranks({"static": dict(kind="static", thresh=1.1)}, 2, d)
+    print(json.dumps(dict(rank=res["__reference_modules__"],
+                          parent=R.loaded_reference_modules(),
+                          keys=len(res["static"]))))
+"""
+
+
+def test_rank_process_loads_no_jax(tmp_path):
+    """A gloo rank of the mesh (``tests/torch_mesh_ranks.py``, spawned two
+    at a time, one sharded step each) loads neither JAX nor any module of
+    ``phdslam_tpu/``, by name or by file; nor does the process that
+    spawns them."""
+    env = dict(os.environ, PYTHONWARNINGS="ignore")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    probe = tmp_path / "probe.py"
+    probe.write_text(RANK_PROBE)
+    proc = subprocess.run([sys.executable, str(probe)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["rank"] == [] and out["parent"] == []
+    assert out["keys"] > 0
