@@ -213,6 +213,17 @@ code is not 0:
      phase 3's run, loop and scan: every file of phase 9c's one-card run
      byte for byte (metrics.jsonl apart from its ms, loopTime.log a line
      a step), select and merge once a step in each rank
+ 9e. the measuring entry points, each with the launch counts from 0:
+     python3 -m phdslam_tpu_torch.bench as a user runs it (its JSON line:
+     metric ms_per_slam_step_8192p_cuda, the three modes' ms per step,
+     vs_baseline from the pinned CPU anchor; select and merge once a
+     step), then python3 -m phdslam_tpu_torch.stage_profile at both
+     shapes (its stage lines and JSON line; select, select by index,
+     select4, merge, merge4, merge3 and esf launched); then the dense
+     step of each of the bench's modes (exact; merge_mode 1; merge_mode 1
+     with select_top_k 2) through phase 7's timing: select at k1 = 8, 4,
+     2 and merge on pools of 1088, 832 and 704 candidates, both against
+     plain on the last step's inputs
  10. the card's name and power limit, the kernels' JSON line, then
      {"ok": true, "device": {...}} last
 
@@ -230,7 +241,6 @@ from __future__ import annotations
 import functools
 import gc
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -371,6 +381,12 @@ SYNC_RUNS = 4
 # the mesh (phase 9d): MESH_STEPS dense steps held bit for bit; MESH_RANKS
 # gloo ranks sharing the card; MESH_SIDE_STEPS steps of the other filters
 MESH_STEPS, MESH_RANKS, MESH_SIDE_STEPS = 4, 2, 20
+# the measuring entry points (phase 9e): the stage profile's stage count
+# (10 at each of its 2 shapes, and the disparity step) and the kernels its
+# stages launch
+PROFILE_STAGES = 21
+PROFILE_KERNELS = ("select", "select_by_index", "select4", "merge",
+                   "merge4", "merge3", "esf")
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -422,16 +438,6 @@ LOG_PREFIX = ""                      # a mesh rank's "[rank r/W] "
 
 def log(msg):
     print(LOG_PREFIX + msg, flush=True)
-
-
-def gpu_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0].strip()
 
 
 def reset_peak_memory():
@@ -1701,13 +1707,13 @@ def timers():
 
 def agree_on_last_args(tm, stats, what):
     """Run every kernel the timers saw, and its plain version, again on the
-    arguments of its last launch."""
+    arguments of its last launch; returns the names of the kernels held."""
     S, S4, G, G4, G3, E = _mods()
     plain_of = dict(select=S.select_plain, select4=S4.select4_plain,
                     merge=G.merge_plain, merge4=G4.merge4_plain,
                     merge3=G3.merge3_plain, esf=E.esf_all_plain,
                     auction=_auction().auction_assign_plain)
-    parts = []
+    parts, held = [], set()
     for name, t in tm.items():
         if t.last_args is None:
             continue
@@ -1734,10 +1740,12 @@ def agree_on_last_args(tm, stats, what):
         _limit(n_bad, P, f"{key} ({what} inputs)")
         _new_stats(stats, key)
         _err(stats, key, err)
+        held.add(key)
         parts.append(f"{key} {'x'.join(map(str, kern[1].shape))} "
                      f"{n_bad}/{P} (max_abs_err {err:.3e})")
     log(f"{what} inputs, kernels against plain, particles differing: "
         + "; ".join(parts))
+    return held
 
 
 def float64_sides(out, plain, bad, plain_fn, a, kw):
@@ -2702,41 +2710,27 @@ def phase_fastslam_runner(dev, stats):
 
 # ------------------------------------------------ phases 7-9: dense steps --
 
-def stress_inputs(cfg, n_steps, seed=0):
-    """bench.py's clutter-heavy stream (make_stress_inputs), same seed and
-    formula: 90 % of the slots hold uniform clutter each step."""
-    rng = np.random.default_rng(seed)
-    m = cfg.maxMeasurements
-    rb = np.zeros((n_steps, m, 2), np.float32)
-    valid = np.zeros((n_steps, m), bool)
-    k = int(m * 0.9)
-    rb[:, :k, 0] = rng.uniform(0.5, cfg.maxRange, (n_steps, k))
-    rb[:, :k, 1] = rng.uniform(-cfg.maxBearing, cfg.maxBearing,
-                               (n_steps, k))
-    valid[:, :k] = True
-    controls = np.zeros((n_steps, 2), np.float32)
-    controls[:, 0] = 1.5
-    controls[:, 1] = 0.1 * np.sin(np.arange(n_steps) / 10.0)
-    return rb, valid, controls
-
-
 def stress_cfg(shape, dense=True, cfg_file="cfg/ackerman_synth.cfg",
                **overrides):
-    """A shipped cfg at a shape; dense adds bench.py's dense_stress_config
-    overrides, then the given cfg overrides."""
+    """A shipped cfg at a shape; dense adds the benchmark's dense-stress
+    scene (phdslam_tpu_torch.bench.dense_overrides), then the given cfg
+    overrides."""
     from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.bench import dense_overrides
     cfg = load_config(str(ROOT / cfg_file)).replace(
         n_particles=shape["P"], maxFeatures=shape["F"],
         maxMeasurements=shape["M"])
     if dense:
-        cfg = cfg.replace(y0=0.0, birthWeight=1e-3, clutterRate=50.0)
+        cfg = dense_overrides(cfg)
     return cfg.replace(**overrides)
 
 
 def stress_stream(cfg, n_steps, dev):
-    """stress_inputs as Measurements on dev, and the controls."""
+    """The benchmark's stress stream (phdslam_tpu_torch.bench.
+    make_stress_inputs) as Measurements on dev, and the controls."""
+    from phdslam_tpu_torch.bench import make_stress_inputs
     from phdslam_tpu_torch.filter.state import Measurements
-    rb, valid, controls = stress_inputs(cfg, n_steps)
+    rb, valid, controls = make_stress_inputs(cfg, n_steps)
     label = np.zeros((cfg.maxMeasurements,), np.int32)
     return [Measurements.from_numpy(rb[t], label, valid[t], dev)
             for t in range(n_steps)], controls
@@ -2980,6 +2974,7 @@ def phase_sync_free_batch(dev, stats):
     CPHD arms: the three steps, after a warm-up pass, under sync_free."""
     import torch
     from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.bench import make_stress_inputs
     from phdslam_tpu_torch.filter.state import Measurements, SlamState
     from phdslam_tpu_torch.filter.step import slam_step
     t0 = time.perf_counter()
@@ -2988,7 +2983,7 @@ def phase_sync_free_batch(dev, stats):
         cfg = load_config(str(ROOT / "cfg/ackerman_synth.cfg")).replace(
             n_particles=SHIPPED["P"], maxFeatures=SHIPPED["F"],
             maxMeasurements=SHIPPED["M"], **over)
-        rb, valid, controls = stress_inputs(cfg, 3)
+        rb, valid, controls = make_stress_inputs(cfg, 3)
         rb = np.repeat(rb[:, None], R, 1)
         valid = np.repeat(valid[:, None], R, 1)
         valid[1, 1] = False
@@ -3509,6 +3504,101 @@ def phase_mesh(dev, stats, gpu, run_dir):
     log(f"phase mesh: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+# --------------------------------- phase 9e: the measuring entry points --
+
+def finite_positive(values, what):
+    bad = {k: v for k, v in values.items()
+           if not (np.isfinite(v) and v > 0)}
+    if bad:
+        raise RuntimeError(f"{what}: not a finite positive time: {bad}")
+
+
+def phase_bench(dev, stats, gpu):
+    """The port's measuring entry points as a user runs them, each with
+    every launch count set to 0 just before and read just after: bench.main
+    in full (three modes x 5 windows at the dense shape; the pinned CPU
+    anchor) and stage_profile.main at both shapes. Then the stage profile
+    once more under the timers, every kernel of each stage held against
+    plain on that stage's last inputs; and one timed_steps round of each of
+    the bench's modes, which holds select (k1 8, 4, 2) and merge (pools
+    1088, 832, 704) against plain on the last step's own inputs."""
+    from contextlib import ExitStack
+
+    import torch
+
+    from phdslam_tpu_torch import bench, stage_profile
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    rec = bench.main([])
+    launches = launch_counts()
+    n = len(bench.MODES) * (bench.WARMUP + bench.WINDOWS
+                            * (bench.N_STEPS - bench.WARMUP))
+    check_launches(launches, dict(select=n, merge=n), "bench")
+    log("bench launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if v))
+    P = bench.dense_stress_config().n_particles
+    if (rec["metric"] != f"ms_per_slam_step_{P}p_cuda"
+            or rec["cpu_anchor"] != "pinned"
+            or rec["device"] != torch.cuda.get_device_name(0)):
+        raise RuntimeError(f"bench line: {rec}")
+    finite_positive({k: rec[k] for k in ("value", "ms_fast_merge",
+                                         "ms_fast_k2", "vs_baseline")},
+                    "bench")
+    stats["bench"] = rec
+    log(f"phase bench main: ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    prof = stage_profile.main([])
+    launches = launch_counts()
+    log("stage profile launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if v))
+    missing = [k for k in PROFILE_KERNELS if not launches[k]]
+    if missing or len(prof["stages"]) != PROFILE_STAGES:
+        raise RuntimeError(f"stage profile: kernels never launched "
+                           f"{missing}, {len(prof['stages'])} stages")
+    finite_positive(prof["stages"], "stage profile")
+    stats["stage_profile"] = prof
+    log(f"phase stage profile: ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    tm, held = timers(), set()
+
+    def hold(name):
+        held.update(agree_on_last_args(tm, stats, f"stage profile {name}"))
+        for t in tm.values():
+            t.last_args = t.last_out = None
+
+    with ExitStack() as stack:
+        for t in tm.values():
+            stack.enter_context(t)
+        stage_profile.profile_stages(dev, reps=1, log=lambda s: None,
+                                     after=hold)
+    missing = set(PROFILE_KERNELS) - held
+    if missing:
+        raise RuntimeError(f"stage profile: never held against plain "
+                           f"{sorted(missing)}")
+    log(f"phase stage profile against plain: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    shape = f"{DENSE['P']}x{DENSE['F']}x{DENSE['M']}"
+    for (name, over), k1 in zip(bench.MODES, (8, 4, 2)):
+        pool = DENSE["F"] + DENSE["M"] * (k1 + 1)   # map, detections, births
+        _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev, **over)
+        tm = timers()
+        _, ms = timed_steps(stats, state, step, WARMUP,
+                            f"bench {name} step", shape, tm)
+        got = (tm["select"].last_out[1].shape[-1],
+               tm["merge"].last_args[0][0].shape[1])
+        if got != (k1, pool):
+            raise RuntimeError(f"bench {name} step: k1 and merge pool {got},"
+                               f" expected {(k1, pool)}")
+        log(f"bench {name} step on {gpu}: {ms:.3f} ms, select k1 {k1}, "
+            f"merge pool [{DENSE['P']}, {pool}] -> {DENSE['F']}")
+    log(f"phase bench modes: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ---------------------------------------------------- optional: --profile --
 
 def phase_profile(dev):
@@ -3600,6 +3690,7 @@ def main(argv=None):
               " run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from phdslam_tpu_torch.bench import gpu_line
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     gpu = gpu_line()
@@ -3648,6 +3739,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as d:
         phase_island_runner(dev, stats, d)
         phase_mesh(dev, stats, gpu, d)
+    phase_bench(dev, stats, gpu)
     if args.profile:
         phase_profile(dev)
 

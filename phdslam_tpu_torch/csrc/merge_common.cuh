@@ -273,6 +273,14 @@ __device__ __forceinline__ int pick_loop(Test& test, int L, int cap,
     n += k;
     from = __shfl_sync(kFull, myq, k - 1) + 1;
   }
+  // The scan that ends the loop (g == 0) reads owner after the last
+  // batch's barrier; link_members rewrites owner. Without this barrier a
+  // warp that has left the loop relinks owner while a slower warp still
+  // scans it, and that warp then sees a free position, runs a batch of its
+  // own and leaves the member lists cyclic or out of range: an illegal
+  // address in moments, in about one launch of a few hundred on pools
+  // whose picks absorb most candidates (a long final scan).
+  __syncthreads();
   return n;
 }
 

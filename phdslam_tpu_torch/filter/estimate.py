@@ -1,15 +1,16 @@
 """State estimates (``phdslam_tpu/filter/estimate.py``): expected pose, the
-MAP particle's map and its expected landmark count, on the device; the EAP
-map (every particle's mixture scaled by its weight, then greedily reduced)
-on the host, in NumPy, since its length depends on the data and it only
-feeds the logs."""
+MAP particle's static and dynamic maps and its expected landmark count, on
+the device; the EAP map (every particle's mixture scaled by its weight,
+then greedily reduced) on the host, in NumPy, since its length depends on
+the data and it only feeds the logs."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from phdslam_tpu_torch.filter.state import Gaussian2DMixture, SlamState
+from phdslam_tpu_torch.filter.state import (Gaussian2DMixture,
+                                            Gaussian4DMixture, SlamState)
 from phdslam_tpu_torch.ops.gm import reduce_mixture_np
 
 
@@ -32,6 +33,12 @@ def map_map_static(state: SlamState) -> Gaussian2DMixture:
     """MAP map: the highest-weight particle's static map ([F] channels)."""
     idx = torch.argmax(state.log_weights).reshape(1)
     return state.map_static.map(lambda t: t.index_select(0, idx)[0])
+
+
+def map_map_dynamic(state: SlamState) -> Gaussian4DMixture:
+    """MAP dynamic map: the highest-weight particle's dynamic map."""
+    idx = torch.argmax(state.log_weights).reshape(1)
+    return state.map_dynamic.map(lambda t: t.index_select(0, idx)[0])
 
 
 def expected_cardinality(state: SlamState):

@@ -17,6 +17,21 @@ def predict_measurement(pose, feature_xy):
     return r, bearing, dx, dy, r2
 
 
+def measurement_jacobian(dx, dy, r, r2):
+    """Jacobian of (range, bearing) with respect to the feature's (x, y):
+    [..., 2, 2], rows (dr/dx, dr/dy) and (db/dx, db/dy)."""
+    row_r = torch.stack([dx / r, dy / r], dim=-1)
+    row_b = torch.stack([-dy / r2, dx / r2], dim=-1)
+    return torch.stack([row_r, row_b], dim=-2)
+
+
+def detection_probability(r, bearing, cfg):
+    """pd inside the field of view (r <= maxRange, |bearing| <=
+    maxBearing), 0 outside; no minRange test, as in the reference."""
+    inside = (r <= cfg.maxRange) & (bearing.abs() <= cfg.maxBearing)
+    return torch.where(inside, cfg.pd, 0.0).to(r.dtype)
+
+
 def range_class(r, bearing, cfg):
     """1 = in range, 2 = nearly in range (0.8 minRange .. 1.2 maxRange,
     1.2 maxBearing), 0 = out of range; int32."""
@@ -46,3 +61,16 @@ def birth_gaussian(pose, z_rb, cfg):
     cov = torch.stack([torch.stack([c00, c01], dim=-1),
                        torch.stack([c01, c11], dim=-1)], dim=-2)
     return mean, cov
+
+
+def birth_gaussian_4d(pose, z_rb, cfg):
+    """4-D dynamic-feature birth: the 2-D birth's position block, zero
+    velocity mean and diag(covVxBirth, covVyBirth) velocity covariance.
+    Returns (mean [..., 4], cov [..., 4, 4])."""
+    mean2, cov2 = birth_gaussian(pose, z_rb, cfg)
+    mean4 = torch.cat([mean2, torch.zeros_like(mean2)], dim=-1)
+    cov4 = cov2.new_zeros(mean2.shape[:-1] + (4, 4))
+    cov4[..., :2, :2] = cov2
+    cov4[..., 2, 2] = cfg.covVxBirth
+    cov4[..., 3, 3] = cfg.covVyBirth
+    return mean4, cov4

@@ -1411,3 +1411,107 @@ def test_sharded_step_on_one_nccl_rank_matches_slam_step(dev, tmp_path):
         assert bool(paux.resampled)
     finally:
         mesh.close()
+
+
+def test_bench_and_stage_profile_on_the_card(dev):
+    """The port's measuring entry points on the card: bench_many's three
+    modes at the --quick shape (512 x 128 x 64), one window each, launching
+    select and merge every step; the stage profile at the typical shape
+    (256 x 128 x 32) and its disparity step, every stage a finite time."""
+    from phdslam_tpu_torch import bench as B
+    from phdslam_tpu_torch import stage_profile as SP
+    quick = B.dense_stress_config().replace(n_particles=512, maxFeatures=128)
+    S.launches = G.launches = 0
+    ms = B.bench_many([quick.replace(**over) for _, over in B.MODES], dev,
+                      n_windows=1)
+    assert len(ms) == 3 and all(np.isfinite(m) and m > 0 for m in ms)
+    assert S.launches == G.launches == 3 * B.N_STEPS
+    rec = SP.profile_stages(dev, SP.SHAPES[1:], reps=2, log=lambda s: None)
+    assert len(rec) == 11
+    assert all(np.isfinite(v) and v > 0 for v in rec.values())
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_greedy_merge_batch_cuda_matches_cpu(dev, d):
+    """ops/gm.py::greedy_merge_batch on CUDA tensors (the merge or merge3
+    kernel, leading dims [4, 64] flattened) against the same call on CPU
+    tensors (the plain version)."""
+    from phdslam_tpu_torch.ops.gm import greedy_merge_batch
+    rng = np.random.default_rng(40 + d)
+    w = rng.uniform(0.05, 1.0, (4, 64, 96)) * (rng.uniform(size=(4, 64, 96))
+                                                < 0.8)
+    mean = rng.uniform(-4, 4, (4, 64, 96, d))
+    a = rng.normal(size=(4, 64, 96, d, d))
+    cov = a @ np.swapaxes(a, -1, -2) / d + 0.3 * np.eye(d)
+    args = [np.asarray(x, np.float32) for x in (w, mean, cov)]
+    launches = (G if d == 2 else G3).launches
+    cpu = greedy_merge_batch(*map(torch.as_tensor, args), 4.0, 40)
+    got = greedy_merge_batch(*(torch.as_tensor(x, device=dev)
+                               for x in args), 4.0, 40)
+    assert (G if d == 2 else G3).launches == launches + 1
+    for k, p in zip(got, cpu):
+        torch.testing.assert_close(k.cpu(), p, **TOL)
+
+
+def _merge_down_pools(dev):
+    """Pools whose picks absorb most candidates, so that the pick loop ends
+    in a long scan of merged positions: the dense update's own pool on
+    stage_profile.make_problem's overlapping maps (2-D, [8192, 1088] ->
+    512), and 4-D and 3-D pools of 2048 particles x 1088 and 560
+    candidates in boxes a few covariances wide."""
+    from phdslam_tpu_torch.filter import update as U
+    from phdslam_tpu_torch.kernels.merge3 import PAIRS
+    from phdslam_tpu_torch.stage_profile import make_problem
+    cfg = load_config("cfg/ackerman_synth.cfg").replace(
+        n_particles=8192, maxFeatures=512, maxMeasurements=64,
+        clutterRate=40.0, gateBirths=True, gateThreshold=9.0)
+    pose, gm, z = make_problem(np.random.default_rng(1), cfg, 8192, 512, 64,
+                               dev)
+    seen = []
+    real = G.merge_cuda
+    try:
+        G.merge_cuda = lambda *a: seen.append(a) or real(*a)
+        U.phd_update_static(pose, gm, z.rb, z.label, z.valid, cfg)
+    finally:
+        G.merge_cuda = real
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    P = 2048
+    w4 = (rng.uniform(size=(P, 1088)) < 0.8) * rng.uniform(0.01, 2, (P, 1088))
+    a = rng.normal(size=(4, 4, P, 1088)).astype(np.float32) * 0.5
+    c4 = np.stack([(a[i] * a[j]).sum(0) + (0.2 if i == j else 0.0)
+                   for i in range(4) for j in range(i, 4)], 1)
+    mean4 = np.concatenate([rng.uniform(-3, 3, (P, 2, 1088)),
+                            rng.normal(0, 0.3, (P, 2, 1088))], 1)
+    pool4 = (t(w4), t(mean4), t(c4))
+    w3 = (rng.uniform(size=(P, 560)) < 0.8) * rng.uniform(0.01, 2, (P, 560))
+    b = rng.normal(size=(3, 3, P, 560)).astype(np.float32) * 2.0
+    c3 = [(b[i] * b[j]).sum(0) + (4.0 if i == j else 0.0) for i, j in PAIRS]
+    pool3 = [t(w3), t(rng.uniform(300, 310, (P, 560))),
+             t(rng.uniform(200, 210, (P, 560))),
+             t(rng.uniform(100, 110, (P, 560)))] + [t(c) for c in c3]
+    return ((G.merge_cuda, G.merge_plain, seen[0], 512, TOL),
+            (G4.merge4_cuda, G4.merge4_plain, (*pool4, 1.0, 512), 512, TOL),
+            (G3.merge3_cuda, G3.merge3_plain, (*pool3, 4.0, 128), 128,
+             dict(rtol=2e-4, atol=1e-3)))
+
+
+def test_merge_kernels_repeat_bit_for_bit_on_pools_that_merge_down(dev):
+    """merge, merge4 and merge3 launched 25 times each on pools that merge
+    down to few slots: the first launch agrees with the plain version at
+    the other merge tests' bars, and every launch completes and equals the
+    first bit for bit (a warp that left the pick loop used to relink the
+    member lists while another still scanned them: an illegal address in
+    about one launch of a few hundred on such pools)."""
+    for fn, plain_fn, args, cap, tol in _merge_down_pools(dev):
+        first = fn(*args)
+        torch.cuda.synchronize()
+        live = int((first[0] > 0).sum(1).max())
+        assert 0 < live < cap                    # the loop ended early
+        for k, q in zip(first, plain_fn(*args)):
+            torch.testing.assert_close(k, q, **tol)
+        for _ in range(25):
+            out = fn(*args)
+            torch.cuda.synchronize()
+            for x, y in zip(out, first):
+                assert torch.equal(x, y)

@@ -61,7 +61,8 @@ def test_import_without_jax():
         "kernels.sweep", "kernels.auction", "filter.fastslam", "ops.jcbb",
         "ops.ospa", "io.matdump", "eval.player", "checkpoint", "eval.batch",
         "eval.plots", "parallel", "parallel.island", "parallel.mesh",
-        "filter.runs")}
+        "filter.runs", "reference_cpu", "reference_cpu_disparity", "bench",
+        "stage_profile")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert "matplotlib" not in out["loaded_top"]   # the player's, lazily

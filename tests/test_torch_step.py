@@ -126,6 +126,36 @@ def test_three_steps_match_jax(tiny_cfg, run):
     assert tstate.map_static.w.sum() > 0
 
 
+@pytest.mark.parametrize("modes", [
+    dict(selectTopK=2),
+    dict(mergeMode=1, selectTopK=2, mergeMinWeight=1e-2)],
+    ids=["k2", "fast_merge_k2"])
+def test_three_steps_fast_modes_match_jax(tiny_cfg, run, modes):
+    """The benchmark's fast modes through three whole steps: two detection
+    candidates a measurement (select's k1 = 2), alone and under merge_mode
+    1 (fast_prune_renormalize before the merge), at the Ackerman test's
+    tolerances (rtol 1e-4 / atol 1e-5 on poses, weights and the aux
+    values, rtol 2e-4 / atol 1e-4 on the maps, resample indices
+    exactly)."""
+    controls, meas = run
+    cfg = tiny_cfg.replace(birthWeight=0.02, **modes)
+    jstate = JState.create(cfg)
+    tstate = state_from_numpy(jax.device_get(jstate))
+    key = jax.random.PRNGKey(17)
+    for t in range(3):
+        key, sk = jax.random.split(key)
+        ctrl = controls[t - 1] if t > 0 else np.zeros(2, np.float32)
+        zj, zt = _z(meas[t], cfg.maxMeasurements)
+        jstate, jaux, tstate, taux = _step_both(jstate, tstate, sk, ctrl,
+                                                zj, zt, t, cfg)
+        _compare(tstate, jstate, f"step {t}")
+        for name in ("expected_pose", "neff", "log_lik"):
+            np.testing.assert_allclose(
+                getattr(taux, name).numpy(),
+                np.asarray(getattr(jaux, name)), err_msg=name, **TOL)
+    assert tstate.map_static.w.sum() > 0
+
+
 def test_three_cv_motion_steps_match_jax(tiny_cfg, run):
     """motionType 0 (constant-velocity pose noise, three times the
     configured acceleration sigmas, [P, 3] draws) through three whole
