@@ -224,6 +224,22 @@ code is not 0:
      with select_top_k 2) through phase 7's timing: select at k1 = 8, 4,
      2 and merge on pools of 1088, 832 and 704 candidates, both against
      plain on the last step's inputs
+ 9f. the evidence entry points (phdslam_tpu_torch/evidence/), each as a
+     user runs it (main(argv), --device cuda, the results into a temporary
+     file) with the launch counts from 0: round3's phases vmap, merge,
+     variants, parity and cphd_cpu and mixed (default, --informed,
+     --labeled --set keepOobDynamic=1) and disparity (main, --oracle) at
+     the JAX scripts' --quick sizes, the CPU reference legs cut to their
+     first 3 steps; the FastSLAM cells (2, 0.25) of filter types 2 and 0,
+     cphd_dwell and ospa_latency in full. Each kernel launched once per
+     update step its filters took (counted at the filters' own gates:
+     slam_step and disparity_step with a measurement, each ospa_torch
+     call), each kernel it launched against plain on its last inputs, the
+     entry with every key of the JAX record (results/), its numbers
+     finite, its pose errors within PERF.md section 2's bars (the static,
+     CPHD and disparity arms 1.5 m, mixed 2.0 m, FastSLAM's low-clutter
+     cells 1.5 m), the CPHD dwell error within 2.0 and the OSPA gap within
+     2e-2
  10. the card's name and power limit, the kernels' JSON line, then
      {"ok": true, "device": {...}} last
 
@@ -305,9 +321,6 @@ ENVELOPE_SEEDS = range(5)
 RUN_STEPS = 330
 POSE_BAR_M = 1.5
 MIXED_LANDMARKS, MIXED_STEPS = 40, 150
-# scripts/mixed_evidence.py's movers: initial positions and velocities
-MOVER0 = np.array([[13.0, 9.0], [-9.0, 12.0], [10.0, -6.0]])
-MOVER_V = np.array([[-0.22, -0.10], [0.20, -0.12], [-0.14, 0.18]])
 MIXED_POSE_BAR_M = 2.0
 MOVER_SHARE = 0.5                   # settled mover steps confirmed, at least
 BY_INDEX_STEPS = 40
@@ -330,10 +343,11 @@ AUCTION_CASES = [                   # (P, M, F, kind): raw [P, M, F]
 # NaN test; counted for every row of every round run (the kernel scans
 # only the unassigned rows, so this overstates the work after round 1)
 AUCTION_OPS = 4
-# scripts/fastslam_evidence.py's low-clutter cell: 256 particles, 150
-# steps, scenario seed 7 (80 landmarks), run seed 8, clutter 2, std_range
-# 0.25
-FS_STEPS, FS_LANDMARKS, FS_PARTICLES = 150, 80, 256
+# scripts/fastslam_evidence.py's low-clutter cell (evidence/fastslam.py's
+# cell_config and cell_data): 256 particles, 150 steps, scenario seed 7
+# (80 landmarks), run seed 8, clutter 2, std_range 0.25
+FS_CELL = (2.0, 0.25, 2)
+FS_STEPS, FS_PARTICLES = 150, 256
 FS_SEEDS = range(5)
 FS_SEED_BAR_M, FS_MEAN_BAR_M = 1.5, 1.0
 FS_SHORT_STEPS = 12                 # the runner run with .mat files
@@ -351,10 +365,11 @@ OSPA_BUDGET_N, OSPA_BUDGET = 64, 2
 # checkpoint after step RESUME_FROM alone
 RESUME_STEPS, RESUME_EVERY, RESUME_FROM = 120, 50, 50
 # the Monte-Carlo envelope: scripts/round3_evidence.py::phase_variants
-# (cfg/ackerman_synth.cfg at 256 particles, make_scenario(rng(42), 80
-# landmarks, 200 steps), 20 runs at control noise (0.2, 0.01), the map
-# scored every 4 steps) and the JAX package's record of it
-MC_RUNS, MC_STEPS, MC_LANDMARKS, MC_SCENARIO_SEED = 20, 200, 80, 42
+# (evidence/common.py's mc_base_cfg and mc_scenario: cfg/ackerman_synth.cfg
+# at 256 particles, make_scenario(rng(42), 80 landmarks, 200 steps)), 20
+# runs at control noise (0.2, 0.01), the map scored every 4 steps, and the
+# JAX package's record of it
+MC_RUNS, MC_STEPS = 20, 200
 MC_CONTROL_NOISE, MC_EVERY, MC_POSE_BAR_M = (0.2, 0.01), 4, 1.5
 MC_ARMS = (("PHD", {}), ("CPHD", dict(filterType=1, maxCardinality=127)))
 MC_RECORD = "results/round3_evidence.json"
@@ -366,7 +381,7 @@ MC_RECORD = "results/round3_evidence.json"
 # vmapped and sequential; the fill probe, JAX's default chunk (65536 //
 # 256 = 256 runs) over the first MC_FILL_STEPS steps
 RUN_SETS = 4
-MC_PARTICLES, MC_FILL_PARTICLES = 256, 65536
+MC_FILL_PARTICLES = 65536
 MC_STEP_RUNS, MC_STEP_AT, MC_LOG_LIK_RTOL = 8, 30, 1e-5
 MC_SIDE_RUNS, MC_SIDE_STEPS = 4, 20
 MC_FILL_STEPS = 50
@@ -1694,7 +1709,8 @@ class _KernelTimer:
 
 def timers():
     """One _KernelTimer per kernel wrapper: select (both modes), select4
-    (both modes), merge, merge4, merge3, esf, auction."""
+    (both modes), merge, merge4, merge3, esf, auction, the square
+    auction."""
     S, S4, G, G4, G3, E = _mods()
     return dict(select=_KernelTimer(S, "select_cuda"),
                 select4=_KernelTimer(S4, "select4_cuda"),
@@ -1702,7 +1718,8 @@ def timers():
                 merge4=_KernelTimer(G4, "merge4_cuda"),
                 merge3=_KernelTimer(G3, "merge3_cuda"),
                 esf=_KernelTimer(E, "esf_all_cuda"),
-                auction=_KernelTimer(_auction(), "auction_assign_cuda"))
+                auction=_KernelTimer(_auction(), "auction_assign_cuda"),
+                ospa_auction=_KernelTimer(_auction(), "auction_square_cuda"))
 
 
 def agree_on_last_args(tm, stats, what):
@@ -1712,7 +1729,8 @@ def agree_on_last_args(tm, stats, what):
     plain_of = dict(select=S.select_plain, select4=S4.select4_plain,
                     merge=G.merge_plain, merge4=G4.merge4_plain,
                     merge3=G3.merge3_plain, esf=E.esf_all_plain,
-                    auction=_auction().auction_assign_plain)
+                    auction=_auction().auction_assign_plain,
+                    ospa_auction=_auction().auction_square_plain)
     parts, held = [], set()
     for name, t in tm.items():
         if t.last_args is None:
@@ -1733,6 +1751,9 @@ def agree_on_last_args(tm, stats, what):
             n_bad, err = auction_exact(kern, plain,
                                        a[0].shape[1] + a[0].shape[2],
                                        f"{what} inputs")
+        elif name == "ospa_auction":
+            square_exact(kern, plain, f"{what} inputs")
+            n_bad, err = 0, 0.0
         else:
             n_bad, err = compare_rows(kern, plain)
         P = kern[0].shape[0]
@@ -1985,6 +2006,7 @@ def mover_share(logs, truth, traj, cfg):
 
 def phase_mixed_main_path(dev, stats):
     from phdslam_tpu_torch import load_config, simdata
+    from phdslam_tpu_torch.evidence.mixed import MOVER0, MOVER_V
     from phdslam_tpu_torch.io.logs import read_state_estimate_log
 
     t0 = time.perf_counter()
@@ -2211,11 +2233,9 @@ def mc_setup(n_steps=MC_STEPS):
     scenario cut to its first n_steps steps."""
     import dataclasses
 
-    from phdslam_tpu_torch import load_config, simdata
-    base = load_config(str(ROOT / "cfg/ackerman_synth.cfg")).replace(
-        n_particles=MC_PARTICLES)
-    sc = simdata.make_scenario(np.random.default_rng(MC_SCENARIO_SEED),
-                               n_landmarks=MC_LANDMARKS, n_steps=MC_STEPS)
+    from phdslam_tpu_torch.evidence.common import mc_base_cfg, mc_scenario
+    base = mc_base_cfg()
+    sc = mc_scenario(MC_STEPS)
     if n_steps < MC_STEPS:
         sc = dataclasses.replace(sc, traj=sc.traj[:n_steps + 1],
                                  controls_true=sc.controls_true[:n_steps])
@@ -2530,26 +2550,15 @@ def phase_mc_fill(dev, stats, profile):
 # ------------------------------------------- phase 6c: FastSLAM main path --
 
 def fastslam_cell(dev):
-    """scripts/fastslam_evidence.py's low-clutter cell on the port's
-    simdata copy: (cfg, scenario, controls, per-step Measurements on dev).
-    The steps are driven directly, not through the loaders (which would
-    drop a step without measurements and shift the rest)."""
-    from phdslam_tpu_torch import load_config, simdata
+    """scripts/fastslam_evidence.py's low-clutter cell, as the evidence
+    entry point builds it: (cfg, scenario, controls, per-step Measurements
+    on dev). The steps are driven directly, not through the loaders (which
+    would drop a step without measurements and shift the rest)."""
+    from phdslam_tpu_torch.evidence.fastslam import cell_config, cell_data
     from phdslam_tpu_torch.filter.state import Measurements
-    from phdslam_tpu_torch.io.loaders import (MeasurementSet,
-                                              pad_measurement_sets)
-    cfg = load_config(str(ROOT / "cfg/fastslam_synth.cfg")).replace(
-        clutterRate=2.0, stdRange=0.25, nSteps=FS_STEPS,
-        n_particles=FS_PARTICLES, x0=0.0, y0=0.0, yaw0=0.0)
-    sc = simdata.make_scenario(np.random.default_rng(7),
-                               n_landmarks=FS_LANDMARKS, n_steps=FS_STEPS,
-                               clutter_rate=2.0)
-    sc = sc.__class__(**{**sc.__dict__, "std_range": 0.25})
-    controls, meas = simdata.generate_run(np.random.default_rng(8), sc,
-                                          control_noise=(0.2, 0.01))
-    sets = [MeasurementSet(z[:, 0], z[:, 1], np.zeros(len(z), np.int32))
-            for z in meas[:FS_STEPS]]
-    rb, labels, valid = pad_measurement_sets(sets, cfg.maxMeasurements)
+    cfg = cell_config(*FS_CELL, T=FS_STEPS, n_particles=FS_PARTICLES)
+    sc, controls, rb, labels, valid = cell_data(cfg, *FS_CELL[:2],
+                                                T=FS_STEPS)
     zs = [Measurements.from_numpy(rb[t], labels[t], valid[t], dev)
           for t in range(FS_STEPS)]
     return cfg, sc, controls, zs
@@ -3599,6 +3608,208 @@ def phase_bench(dev, stats, gpu):
     log(f"phase bench modes: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------- phase 9f: the evidence --
+
+# the evidence entry points (phdslam_tpu_torch/evidence/), each run as a
+# user runs it at EVIDENCE_SIZE (the JAX scripts' --quick sizes; ignored
+# by the entry points without one, which run in full), the CPU reference
+# legs cut to their first EVIDENCE_CPU_STEPS steps: (module, arguments,
+# the key of its entry in the results file, the JAX record that holds the
+# script's keys for it)
+EVIDENCE_SIZE = ("--quick",)
+EVIDENCE_CPU_STEPS = 3
+EVIDENCE_RUNS = (
+    ("round3", ("vmap",), "vmap", MC_RECORD),
+    ("round3", ("merge",), "merge_modes", MC_RECORD),
+    ("round3", ("variants",), "variants", MC_RECORD),
+    ("round3", ("parity",), "parity_config2", MC_RECORD),
+    ("round3", ("cphd_cpu",), "cphd_cpu_oracle", MC_RECORD),
+    ("mixed", (), "mixed", MC_RECORD),
+    ("mixed", ("--informed",), "mixed_informed", MC_RECORD),
+    ("mixed", ("--labeled", "--set", "keepOobDynamic=1"),
+     "mixed_labeled_keepOobDynamic1", MC_RECORD),
+    ("disparity", (), "disparity", MC_RECORD),
+    ("disparity", ("--oracle",), "disparity_cpu_oracle", MC_RECORD),
+    ("fastslam", ("--cell", "2.0", "0.25", "2"), "c2_s0.25_f2",
+     "results/fastslam_grid.json"),
+    ("fastslam", ("--cell", "2.0", "0.25", "0"), "c2_s0.25_f0",
+     "results/fastslam_grid.json"),
+    ("cphd_dwell", (), "cphd_dwell", "results/cphd_dwell.json"),
+    ("ospa_latency", (), "ospa_latency", "results/ospa_latency.json"),
+)
+# the pose bars of PERF.md section 2 on each entry's pose numbers (the
+# other arms logged beside JAX's: particle weighting 1 and 2 and the
+# convolution CPHD track worse in JAX too), the CPHD dwell criterion of
+# BASELINE.md config 3, and the OSPA gap
+EVIDENCE_BARS = {
+    "vmap": dict(pose_late_mean_vmapped=POSE_BAR_M,
+                 pose_late_mean_sequential=POSE_BAR_M),
+    "merge_modes": {f"{arm}.pose_late_mean": POSE_BAR_M for arm in (
+        "exact_merge", "fast_merge", "fast_merge_k2")},
+    "variants": {"PHD.pose_late_mean": POSE_BAR_M,
+                 "CPHD.pose_late_mean": POSE_BAR_M},
+    "parity_config2": dict(tpu_pose_late_mean=POSE_BAR_M),
+    "cphd_cpu_oracle": dict(tpu_pose_mean=POSE_BAR_M),
+    "mixed": dict(pose_mean=MIXED_POSE_BAR_M),
+    "mixed_informed": dict(pose_mean=MIXED_POSE_BAR_M),
+    "mixed_labeled_keepOobDynamic1": dict(pose_mean=MIXED_POSE_BAR_M),
+    "disparity": dict(pose_mean=DISP_POSE_BAR_M),
+    "disparity_cpu_oracle": dict(tpu_pose_mean=DISP_POSE_BAR_M),
+    "c2_s0.25_f2": dict(pose_mean=FS_SEED_BAR_M),
+    "c2_s0.25_f0": dict(pose_mean=FS_SEED_BAR_M),
+    "cphd_dwell": dict(dwell_err_mean=2.0),
+    "ospa_latency": {f"rows.{i}.max_gap": OSPA_TOL for i in range(3)},
+}
+
+
+def step_kernels(cfg):
+    """The kernels one update step of cfg launches, once each."""
+    if cfg.selectByIndex:
+        raise ValueError("the evidence runs no select_by_index arm")
+    if cfg.filterType == 2:
+        return ("auction",)
+    if cfg.featureModel == 2:
+        return ("select", "select4", "merge", "merge4")
+    if cfg.filterType == 1:
+        return ("select", "merge", "esf")
+    return ("select", "merge")
+
+
+class UpdateCounter:
+    """The launches an entry point should make, counted at the filters'
+    own gates: every slam_step with a measurement in some run launches its
+    filter's kernels once, every disparity_step with a measurement merge3
+    once, every ospa_torch call the square auction once."""
+
+    def __init__(self):
+        from phdslam_tpu_torch.filter import disparity, step
+        from phdslam_tpu_torch.ops import ospa
+        self.counts = dict.fromkeys(launch_counts(), 0)
+        self.patches = [(step, "slam_step", self._slam),
+                        (disparity, "disparity_step", self._disparity),
+                        (ospa, "ospa_torch", self._ospa)]
+        self.orig = {}
+
+    def _wrap(self, module, name, count):
+        orig = getattr(module, name)
+
+        def counted(*a, **kw):
+            for k in count(*a, **kw):
+                self.counts[k] += 1
+            return orig(*a, **kw)
+        return counted
+
+    def _slam(self, state, control, z, dt, do_predict, cfg, **kw):
+        return step_kernels(cfg) if z.any_run else ()
+
+    def _disparity(self, state, z, *a, **kw):
+        return ("merge3",) if z.count > 0 else ()
+
+    def _ospa(self, *a, **kw):
+        return ("ospa_auction",)
+
+    def __enter__(self):
+        for module, name, count in self.patches:
+            self.orig[(module, name)] = getattr(module, name)
+            setattr(module, name, self._wrap(module, name, count))
+        return self
+
+    def __exit__(self, *exc):
+        for (module, name), fn in self.orig.items():
+            setattr(module, name, fn)
+
+
+def json_leaves(obj, prefix=""):
+    """(dotted path, value) of every leaf of a JSON value."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from json_leaves(v, f"{prefix}{k}.")
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from json_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], obj
+
+
+def missing_keys(record, entry, prefix=""):
+    """The keys of the JAX record (nested dicts) the port's entry lacks."""
+    out = []
+    for k, v in record.items():
+        if k not in entry:
+            out.append(prefix + k)
+        elif isinstance(v, dict) and isinstance(entry[k], dict):
+            out += missing_keys(v, entry[k], f"{prefix}{k}.")
+    return out
+
+
+def check_entry(key, entry, record, what):
+    """The entry has every key of the JAX script's record, every number in
+    it is finite, and its pose numbers meet EVIDENCE_BARS; returns the
+    bars' (value, bar, JAX's value) for the log."""
+    gone = missing_keys(record, entry)
+    if gone:
+        raise RuntimeError(f"{what}: keys of the JAX script missing {gone}")
+    leaves = dict(json_leaves(entry))
+    bad = [p for p, v in leaves.items() if isinstance(v, float)
+           and not np.isfinite(v)]
+    if bad:
+        raise RuntimeError(f"{what}: values not finite {bad}")
+    jax_leaves = dict(json_leaves(record))
+    held = {}
+    for path, bar in EVIDENCE_BARS[key].items():
+        v = leaves[path]
+        held[path] = (v, bar, jax_leaves.get(path))
+        if not (v is not None and v <= bar):
+            raise RuntimeError(f"{what}: {path} = {v}, not within {bar}")
+    return held, sum(v is None for v in leaves.values())
+
+
+def phase_evidence(dev, stats, d):
+    """Every evidence entry point as a user runs it (main(argv) with
+    --device cuda, EVIDENCE_SIZE, the CPU legs cut to EVIDENCE_CPU_STEPS
+    steps), the results into a temporary file, each with every launch
+    count set to 0 just before: each kernel launched once per update step
+    the entry's filters took (check_launches on UpdateCounter's counts),
+    every kernel it launched held against plain on its last inputs, the
+    entry with every key of the JAX record, finite, within its bars."""
+    import importlib
+    from contextlib import ExitStack
+    t0 = time.perf_counter()
+    out = str(Path(d, "port_evidence.json"))
+    records = {}
+    for name, args, key, record_file in EVIDENCE_RUNS:
+        t_run = time.perf_counter()
+        mod = importlib.import_module(f"phdslam_tpu_torch.evidence.{name}")
+        argv = [*args, *EVIDENCE_SIZE, "--device", dev.type, "--out", out]
+        if name in ("round3", "disparity", "mixed"):
+            argv += ["--cpu-steps", str(EVIDENCE_CPU_STEPS)]
+        what = f"evidence {name} {' '.join(args)}".rstrip()
+        tm = timers()
+        with ExitStack() as stack, UpdateCounter() as expect:
+            for t in tm.values():
+                stack.enter_context(t)
+            zero_launch_counts()
+            res = mod.main(argv)
+            launches = launch_counts()
+        check_launches(launches, expect.counts, what)
+        held = agree_on_last_args(tm, stats, what)
+        if record_file not in records:
+            records[record_file] = json.loads((ROOT / record_file)
+                                              .read_text())
+        rec = records[record_file]        # a file of entries, or the entry
+        bars, n_none = check_entry(key, res[key], rec.get(key, rec), what)
+        log(f"{what}: launches " + ", ".join(
+            f"{k} {v}" for k, v in launches.items() if v)
+            + f" (update steps counted at the filters' gates); held against"
+            f" plain {sorted(held)}; bars " + "; ".join(
+                f"{p} {v:.4g} (bar {b}, JAX {j})" for p, (v, b, j)
+                in bars.items()) + f"; {n_none} null values; "
+            f"{time.perf_counter() - t_run:.1f} s")
+    log(f"the CPU reference legs cut to {EVIDENCE_CPU_STEPS} steps "
+        f"(round3 parity and cphd_cpu, disparity --oracle, mixed)")
+    log(f"phase evidence: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ---------------------------------------------------- optional: --profile --
 
 def phase_profile(dev):
@@ -3740,6 +3951,8 @@ def main(argv=None):
         phase_island_runner(dev, stats, d)
         phase_mesh(dev, stats, gpu, d)
     phase_bench(dev, stats, gpu)
+    with tempfile.TemporaryDirectory() as d:
+        phase_evidence(dev, stats, d)
     if args.profile:
         phase_profile(dev)
 

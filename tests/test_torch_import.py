@@ -62,7 +62,9 @@ def test_import_without_jax():
         "ops.ospa", "io.matdump", "eval.player", "checkpoint", "eval.batch",
         "eval.plots", "parallel", "parallel.island", "parallel.mesh",
         "filter.runs", "reference_cpu", "reference_cpu_disparity", "bench",
-        "stage_profile")}
+        "stage_profile", "evidence", "evidence.common", "evidence.round3",
+        "evidence.mixed", "evidence.disparity", "evidence.fastslam",
+        "evidence.cphd_dwell", "evidence.ospa_latency")}
     assert expected <= set(out["modules"])
     assert "phdslam_tpu_torch._shared" not in out["modules"]
     assert "matplotlib" not in out["loaded_top"]   # the player's, lazily
