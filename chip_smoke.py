@@ -190,21 +190,32 @@ code is not 0:
      pose error and exchanges beside phase 3's plain run (not gated: the
      reference's butterfly pool-mass defect applies here too)
   9d. mesh - particle-axis sharding across processes (parallel/mesh.py):
-     (a) one NCCL rank on this card, in this process: the dense static
-     step (phase 7's shape and stream) through sharded_step against
-     slam_step on the same draws, MESH_STEPS steps with the resample
-     forced, every aux value and state leaf bit for bit, launch counts
-     from 0 (select and merge once a step); then timed beside the plain
-     step, ISLAND_ROUNDS rounds, with the split, the peak, the kernels
-     against plain on the last step's inputs, the bytes a step moves
-     through gather_rows, and one step without a host sync; (b)
-     MESH_RANKS gloo ranks spawned from this script, all on this card (a
-     file rendezvous in a temporary directory; a failure in any rank fails
-     the phase): the dense static step at MESH_RANKS x P / MESH_RANKS bit
-     for bit against the single process, launches per rank, then timed
-     with its peak per rank and the kernels against plain on the last
-     step's inputs (two processes sharing one card through gloo: not a
-     multi-GPU figure); CPHD at 1024 x 128 x 64, the shipped mixed and
+     first torch's per-row cumsum and sum on the card at the dense island
+     pools (8 rows of 2048, 4 of 4096), rows taken 1, 2 and 4 at a time:
+     the floats that differ alone (logged), none as among all
+     (ops/resample.py's layout_runs); (a)
+     one NCCL rank on this card, in this process: the dense static step
+     (phase 7's shape and stream) through sharded_step against slam_step
+     on the same draws, MESH_STEPS steps at a threshold that always fires
+     the resample (1.1) and one that never does (0), every aux value and
+     state leaf bit for bit, launch counts from 0 (select and merge once
+     a step), the mesh's traffic record a step (one read_flag; the
+     state's leaves gathered on the firing steps only); then timed beside
+     the plain step at both thresholds, ISLAND_ROUNDS rounds, with the
+     split, the peak, the kernels against plain on the last step's inputs,
+     and one step in which the host waits for the device exactly once, at
+     read_flag (set_sync_debug_mode "warn"); (b) MESH_RANKS gloo ranks
+     spawned from this script, all on this card (a file rendezvous in a
+     temporary directory; a failure in any rank fails the phase): the
+     dense static step at MESH_RANKS x P / MESH_RANKS at both thresholds
+     and the dense island step at MESH_ISLANDS islands, never (0) and
+     always (1.1) exchanging, bit for bit against the single process,
+     launches and the bytes a step per rank (the butterfly: log2(W)
+     exchange_rows calls of the rank's shard, no gather larger than [n/W,
+     6] floats); the dense static step timed with its peak per rank and
+     the kernels against plain on the last step's inputs (two processes
+     sharing one card through gloo: not a multi-GPU figure); CPHD at 1024
+     x 128 x 64, the shipped mixed and
      FastSLAM cfgs and cfg/disparity_synth.cfg, MESH_SIDE_STEPS steps
      each, bit for bit, launches equal to the single process's;
      sharded_run_scan over phase 3's run at 256 particles against
@@ -396,6 +407,9 @@ SYNC_RUNS = 4
 # the mesh (phase 9d): MESH_STEPS dense steps held bit for bit; MESH_RANKS
 # gloo ranks sharing the card; MESH_SIDE_STEPS steps of the other filters
 MESH_STEPS, MESH_RANKS, MESH_SIDE_STEPS = 4, 2, 20
+# the dense island step across those ranks, at these island counts, and
+# the thresholds of the sharded and island steps: never, always
+MESH_ISLANDS, MESH_THRESHOLDS = (4, 8), (0.0, 1.1)
 # the measuring entry points (phase 9e): the stage profile's stage count
 # (10 at each of its 2 shapes, and the disparity step) and the kernels its
 # stages launch
@@ -2938,10 +2952,10 @@ def phase_dense_fastslam(dev, stats, gpu):
 
 # ------------------------------ phases 6f and 9c: no host sync, islands --
 
-def sync_free(fn, what):
-    """fn() under torch.cuda.set_sync_debug_mode "warn", every operation
-    that makes the host wait for the device recorded with the port's line
-    that called it, then under "error"; raises if either run waited."""
+def host_waits(fn):
+    """fn() under torch.cuda.set_sync_debug_mode "warn": every operation
+    that made the host wait for the device, as the port's line that called
+    it ("file.py:line")."""
     import traceback
 
     import torch
@@ -2964,6 +2978,14 @@ def sync_free(fn, what):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
+    return seen
+
+
+def sync_free(fn, what):
+    """fn() under torch.cuda.set_sync_debug_mode "warn" (``host_waits``),
+    then under "error"; raises if either run waited."""
+    import torch
+    seen = host_waits(fn)
     if seen:
         raise RuntimeError(f"{what}: the host waited for the device at "
                            + ", ".join(sorted(set(seen))))
@@ -3019,17 +3041,19 @@ def phase_sync_free_batch(dev, stats):
     log(f"phase no host sync: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-def island_stepper(shape, n_steps, dev, n_islands, thresh):
+def island_stepper(shape, n_steps, dev, n_islands, thresh, mesh=None):
     """(cfg, state, step(state, t), run) of the island step: the static
     cfg at a shape with bench.py's dense overrides on the stress stream,
     as stress_stepper's; run holds the island log-weights and the last
     IslandAux; step returns the state and an object whose neff is the
-    island nEff (timed_steps reads it)."""
+    island nEff (timed_steps reads it); with a mesh, across its ranks (the
+    state the rank's islands)."""
     import torch
     from types import SimpleNamespace
 
     from phdslam_tpu_torch.parallel.island import (init_islands,
                                                    island_slam_step)
+    from phdslam_tpu_torch.parallel.mesh import shard_state
     cfg = stress_cfg(shape)
     zs, controls = stress_stream(cfg, n_steps, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3040,9 +3064,11 @@ def island_stepper(shape, n_steps, dev, n_islands, thresh):
         st, run.ilw, run.aux = island_slam_step(
             st, run.ilw, (float(controls[t, 0]), float(controls[t, 1])),
             zs[t], float(cfg.dt), t > 0, cfg, n_islands, thresh=thresh,
-            generator=gen, z_prev=zs[t - 1] if t > 0 else None)
+            generator=gen, z_prev=zs[t - 1] if t > 0 else None, mesh=mesh)
         return st, SimpleNamespace(neff=run.aux.island_neff)
 
+    if mesh is not None:
+        state = shard_state(state, mesh)
     return cfg, state, step, run
 
 
@@ -3224,43 +3250,64 @@ def same_bits(ref, got, what):
 
 def mesh_pair(make, n_steps, mesh, what):
     """make(mesh) -> (state, step(state, t)). The sharded run (launch
-    counts from 0), then the single-process run (make(None)), n_steps steps
-    each from step 0: every aux and the final global state bit for bit,
-    and the same launches, some kernel launched. Returns the launches."""
+    counts and the mesh's traffic record from 0), then the single-process
+    run (make(None)), n_steps steps each from step 0: every aux and the
+    final global state bit for bit, and the same launches, some kernel
+    launched. Returns (the launches, the sharded run's traffic record)."""
     import torch
     from phdslam_tpu_torch.parallel.mesh import unshard_state
 
     def run(m):
         state, step = make(m)
         zero_launch_counts()
+        if m is not None:
+            m.take_traffic()
         auxs = []
         for t in range(n_steps):
             state, aux = step(state, t)
             auxs.append(aux)
         torch.cuda.synchronize()
-        return state, auxs, launch_counts()
+        return state, auxs, launch_counts(), m and m.take_traffic()
 
-    state, auxs, launches = run(mesh)
+    state, auxs, launches, moved = run(mesh)
     state = unshard_state(state, mesh)
-    p_state, p_auxs, p_launches = run(None)
+    p_state, p_auxs, p_launches, _ = run(None)
     same_bits((p_auxs, p_state), (auxs, state), what)
     if launches != p_launches or not any(launches.values()):
         raise RuntimeError(f"{what}: launches {launches}, the single "
                            f"process's {p_launches}")
     log(f"{what}: {n_steps} steps bit for bit with the single process "
         "(every aux value and state leaf), launches "
-        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
-    return launches
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + "; a step: " + traffic_line(moved, n_steps))
+    return launches, moved
 
 
-def gathered_bytes(state):
-    """Bytes a sharded step's gathers return on each rank: every leaf of
-    the global state once (the resample), the [P] weights twice and the
-    [P, 6] poses once (normalisation, nEff and the expected pose)."""
-    leaves = tree_tensors(state).values()
-    P = state.log_weights.shape[0]
-    return sum(t.numel() * t.element_size() for t in leaves) \
-        + P * 4 * (2 + 6)
+def traffic_line(moved, n_steps):
+    """A traffic record over n_steps steps, a step: each op and label's
+    calls, MB this rank offered and received, its largest block."""
+    return "; ".join(
+        f"{k} {v['calls'] / n_steps:g} calls, offered "
+        f"{v['offered'] / n_steps / 1e6:.6f} MB, received "
+        f"{v['received'] / n_steps / 1e6:.6f} MB, largest block "
+        f"{v['largest'] / 1e6:.6f} MB" for k, v in sorted(moved.items()))
+
+
+def check_moved(moved, n_steps, what, read, gated, calls, small):
+    """Raise unless the traffic record of n_steps steps holds one ``read``
+    ("read_flag label") a step, the transfer it gates (``gated``, "op
+    label") ``calls`` times a step (0: never), and no other block above
+    ``small`` bytes. Returns the gated transfer's bytes received a
+    step."""
+    reads = moved.get(read, {}).get("calls")
+    got = moved.get(gated, {}).get("calls", 0)
+    big = {k: v["largest"] for k, v in moved.items()
+           if k != gated and v["largest"] > small}
+    if reads != n_steps or got != calls * n_steps or big:
+        raise RuntimeError(f"{what}: {reads} reads in {n_steps} steps, "
+                           f"{got} {gated} calls, blocks above {small} B "
+                           f"{big}")
+    return moved.get(gated, {}).get("received", 0) / n_steps
 
 
 def mesh_scan(dev, mesh, run_dir):
@@ -3334,7 +3381,102 @@ def mesh_side_paths(dev, mesh):
             else "x".join(str(shape[k]) for k in "PFM")
         out[name] = mesh_pair(make, MESH_SIDE_STEPS, mesh,
                               f"sharded {name} step {dims} "
-                              f"({mesh.world_size} {mesh.backend} ranks)")
+                              f"({mesh.world_size} {mesh.backend} ranks)")[0]
+    return out
+
+
+def row_layouts(dev):
+    """torch's per-row cumsum and sum on the card at the dense island
+    pools (8 rows of 2048 uniform weights, 4 of 4096): rows taken 1, 2 and
+    4 at a time alone against the same rows among all; the floats that
+    differ alone are logged, and none may differ as among all
+    (ops/resample.py's ``among``, the island step's ``layout_runs``)."""
+    import torch
+    from phdslam_tpu_torch.ops.resample import among
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fns = dict(cumsum=lambda v: torch.cumsum(v, 1),
+               sum=lambda v: v.sum(1),
+               logsumexp=lambda v: torch.logsumexp(v, 1))
+    parts = []
+    for n, width in ((8, 2 * DENSE["P"] // 8), (4, 2 * DENSE["P"] // 4)):
+        x = torch.rand((n, width), generator=gen, device=dev) / width
+        for name, fn in fns.items():
+            full = fn(x)
+            for q in (1, 2, 4):
+                if q >= n:
+                    continue
+                part = x[:q].contiguous()
+                alone = int((fn(part) != full[:q]).sum())
+                laid = int((among(fn, part, n) != full[:q]).sum())
+                if laid:
+                    raise RuntimeError(f"{name} of {q} of {n} rows of "
+                                       f"{width}: {laid} floats differ as "
+                                       "among all")
+                parts.append(f"{name} [{q} of {n}, {width}] {alone}")
+    log("rows alone against the same rows among all, floats that differ "
+        "(none as among all): " + ", ".join(parts))
+
+
+def mesh_dense_pairs(dev, mesh):
+    """The dense static step through the mesh at MESH_THRESHOLDS (never,
+    always resampling), each against the single process (``mesh_pair``):
+    select and merge once a step, one read_flag a step, the state's leaves
+    gathered on the firing steps only. Returns {threshold: MB received a
+    step by the resample's gather}."""
+    from phdslam_tpu_torch.filter.state import SlamState
+    W = mesh.world_size
+    n_leaves = len(tree_tensors(SlamState.create(
+        stress_cfg(DENSE).replace(n_particles=1))))
+    out = {}
+    for thresh in MESH_THRESHOLDS:
+        what = (f"dense sharded step ({W} {mesh.backend} ranks x "
+                f"{DENSE['P'] // W}, threshold {thresh})")
+        launches, moved = mesh_pair(
+            lambda m: stress_stepper(DENSE, MESH_STEPS, dev, mesh=m,
+                                     resampleThresh=thresh)[1:],
+            MESH_STEPS, mesh, what)
+        check_launches(launches, dict(select=MESH_STEPS, merge=MESH_STEPS),
+                       what)
+        out[thresh] = check_moved(
+            moved, MESH_STEPS, what, "read_flag resample",
+            "gather_rows resample", n_leaves if thresh > 1.0 else 0,
+            DENSE["P"] // W * 6 * 4) / 1e6
+    return out
+
+
+def mesh_island_pairs(dev, mesh):
+    """The dense island step across the mesh at MESH_ISLANDS islands and
+    MESH_THRESHOLDS (never, always exchanging), each against the
+    one-device island step (``mesh_pair``; the aux and the island
+    weights): select and merge once a step, one read_flag a step, log2(W)
+    exchange_rows calls a step when it exchanges, nothing else above [n/W,
+    6] floats. Returns {"n threshold": MB received a step by the
+    butterfly}."""
+    W = mesh.world_size
+    out = {}
+    for n in MESH_ISLANDS:
+        for thresh in MESH_THRESHOLDS:
+            what = (f"dense island step ({n} x {DENSE['P'] // n} on {W} "
+                    f"{mesh.backend} ranks, threshold {thresh})")
+
+            def make(m):
+                _, state, step, run = island_stepper(
+                    DENSE, MESH_STEPS, dev, n, thresh, mesh=m)
+
+                def pair_step(st, t):
+                    st, _ = step(st, t)
+                    return st, (run.aux, run.ilw)
+
+                return state, pair_step
+
+            launches, moved = mesh_pair(make, MESH_STEPS, mesh, what)
+            check_launches(launches, dict(select=MESH_STEPS,
+                                          merge=MESH_STEPS), what)
+            out[f"{n} {thresh}"] = check_moved(
+                moved, MESH_STEPS, what, "read_flag butterfly",
+                "exchange_rows butterfly",
+                W.bit_length() - 1 if thresh > 1.0 else 0,
+                n // W * 6 * 4) / 1e6
     return out
 
 
@@ -3357,10 +3499,8 @@ def _mesh_rank(rank, world, device, tmp, run_dir, ports):
         shape = "x".join(str(DENSE[k]) for k in "PFM")
         what = (f"dense sharded step ({world} gloo ranks x "
                 f"{DENSE['P'] // world})")
-        out["dense_launches"] = mesh_pair(
-            lambda m: stress_stepper(DENSE, MESH_STEPS, dev, mesh=m,
-                                     resampleThresh=1.1)[1:],
-            MESH_STEPS, mesh, what)
+        out["dense_mb"] = mesh_dense_pairs(dev, mesh)
+        out["island_mb"] = mesh_island_pairs(dev, mesh)
         reset_peak_memory()
         _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev,
                                         mesh=mesh)
@@ -3427,13 +3567,26 @@ def same_run_outputs(one, two, what):
     return len(names)
 
 
+def one_read_a_step(fn, what):
+    """fn() (one sharded step) under set_sync_debug_mode "warn": the host
+    waits for the device exactly once, in parallel/mesh.py (read_flag)."""
+    seen = host_waits(fn)
+    if len(seen) != 1 or not seen[0].startswith("mesh.py:"):
+        raise RuntimeError(f"{what}: the host waited for the device at "
+                           f"{seen}, not once at read_flag")
+    log(f"{what}: one host read a step, at {seen[0]} (read_flag; "
+        "set_sync_debug_mode warn)")
+
+
 def phase_mesh(dev, stats, gpu, run_dir):
-    """9d: (a) in this process, (b) and (c) in MESH_RANKS spawned
-    processes (``_mesh_rank``); then (c)'s outputs against phase 9c's."""
+    """9d: the row layouts, (a) in this process, (b) and (c) in
+    MESH_RANKS spawned processes (``_mesh_rank``); then (c)'s outputs
+    against phase 9c's."""
     import torch
     import torch.multiprocessing as mp
     from phdslam_tpu_torch.parallel.mesh import make_mesh
     t0 = time.perf_counter()
+    row_layouts(dev)
     shape = "x".join(str(DENSE[k]) for k in "PFM")
     what = "dense sharded step (1 NCCL rank)"
     with tempfile.TemporaryDirectory() as tmp:
@@ -3442,36 +3595,34 @@ def phase_mesh(dev, stats, gpu, run_dir):
         try:
             if mesh.backend != ("nccl" if dev.type == "cuda" else "gloo"):
                 raise RuntimeError(f"{what}: backend {mesh.backend}")
-            launches = mesh_pair(
-                lambda m: stress_stepper(DENSE, MESH_STEPS, dev, mesh=m,
-                                         resampleThresh=1.1)[1:],
-                MESH_STEPS, mesh, what)
-            check_launches(launches, dict(select=MESH_STEPS,
-                                          merge=MESH_STEPS), what)
-            ms = {"plain": [], "mesh": []}
+            mesh_dense_pairs(dev, mesh)
+            ms = {(k, t): [] for k in ("plain", "mesh")
+                  for t in MESH_THRESHOLDS}
             for r in range(ISLAND_ROUNDS):
-                reset_peak_memory()
-                _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev)
-                ms["plain"].append(timed_steps(
-                    stats, state, step, WARMUP, "plain dense step", shape,
-                    peak=True)[1])
-                reset_peak_memory()
-                _, state, step = stress_stepper(DENSE, WARMUP + TIMED + 1,
-                                                dev, mesh=mesh)
-                state, step_ms = timed_steps(stats, state, step, WARMUP,
-                                             what, shape, peak=True)
-                ms["mesh"].append(step_ms)
-                if r == 0:
-                    sync_free(lambda: step(state, WARMUP + TIMED), what)
-            moved = gathered_bytes(state)
+                for thresh in MESH_THRESHOLDS:
+                    for kind in ("plain", "mesh"):
+                        m = mesh if kind == "mesh" else None
+                        label = (what if m else "plain dense step") \
+                            + f", threshold {thresh}"
+                        reset_peak_memory()
+                        _, state, step = stress_stepper(
+                            DENSE, WARMUP + TIMED + 1, dev, mesh=m,
+                            resampleThresh=thresh)
+                        state, step_ms = timed_steps(
+                            stats, state, step, WARMUP, label, shape,
+                            peak=True)
+                        ms[kind, thresh].append(step_ms)
+                        if m is not None and r == 0:
+                            one_read_a_step(
+                                lambda: step(state, WARMUP + TIMED), label)
         finally:
             mesh.close()
         fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)
-        log(f"dense timing on {gpu}, rounds of (plain, sharded): plain "
-            f"dense step {fmt(ms['plain'])} ms; {what} {fmt(ms['mesh'])} "
-            f"ms; gather_rows returns {moved / 1e6:.1f} MB a step (the "
-            f"state once, the weights twice, the poses)")
-        stats["mesh_nccl_ms"] = ms["mesh"]
+        log(f"dense timing on {gpu}, rounds of (plain, sharded) at "
+            "thresholds " + ", ".join(map(str, MESH_THRESHOLDS)) + ": "
+            + "; ".join(f"{k} threshold {t} {fmt(v)} ms"
+                        for (k, t), v in ms.items()))
+        stats["mesh_nccl_ms"] = {t: ms["mesh", t] for t in MESH_THRESHOLDS}
 
         gc.collect()
         torch.cuda.empty_cache()
@@ -3486,9 +3637,6 @@ def phase_mesh(dev, stats, gpu, run_dir):
         for k, err in r["max_abs_err"].items():
             _new_stats(stats, k)
             _err(stats, k, err)
-        check_launches(r["dense_launches"], dict(select=MESH_STEPS,
-                                                 merge=MESH_STEPS),
-                       f"rank {r['rank']} dense")
         for mode in ("loop", "scan"):
             check_launches(r[f"runner_{mode}"]["launches"],
                            dict(select=n_steps, merge=n_steps,
@@ -3504,12 +3652,22 @@ def phase_mesh(dev, stats, gpu, run_dir):
         log(f"runner --islands {RUNNER_ISLANDS} --mode {mode} on "
             f"{MESH_RANKS} gloo ranks: its {n_files} files equal phase "
             "9c's one-card run's (every state_estimate log byte for byte)")
-    log(f"mesh timing on {gpu}: {what} {fmt(stats['mesh_nccl_ms'])} ms; "
-        f"{MESH_RANKS} gloo ranks sharing the card (not a multi-GPU "
+    log(f"mesh timing on {gpu}: {what} " + "; ".join(
+        f"threshold {t} {fmt(v)} ms" for t, v in
+        stats["mesh_nccl_ms"].items())
+        + f"; {MESH_RANKS} gloo ranks sharing the card (not a multi-GPU "
         "figure): dense sharded step "
         + ", ".join(f"rank {r['rank']} {r['dense_ms']:.3f} ms, peak "
                     f"{r['dense_peak_gib']:.2f} GiB" for r in ranks)
         + f"; ranks' phase {time.perf_counter() - t1:.1f} s")
+    log(f"mesh bytes received a rank and a step on {MESH_RANKS} gloo ranks:"
+        " the resample's gather " + ", ".join(
+            f"threshold {t} {mb:.3f} MB" for t, mb in
+            ranks[0]["dense_mb"].items())
+        + "; the butterfly " + ", ".join(
+            f"{k.split()[0]} islands threshold {k.split()[1]} "
+            + "/".join(f"{r['island_mb'][k]:.3f}" for r in ranks) + " MB"
+            for k in ranks[0]["island_mb"]) + " (rank 0/1)")
     log(f"phase mesh: ok ({time.perf_counter() - t0:.1f} s)")
 
 

@@ -12,6 +12,7 @@ import torch
 from phdslam_tpu_torch.filter.state import (Gaussian2DMixture,
                                             Gaussian4DMixture, SlamState)
 from phdslam_tpu_torch.ops.gm import reduce_mixture_np
+from phdslam_tpu_torch.ops.resample import among
 
 
 def expected_pose(state: SlamState, n_runs=None):
@@ -20,13 +21,15 @@ def expected_pose(state: SlamState, n_runs=None):
     return weighted_pose(state.log_weights, state.pose, n_runs)
 
 
-def weighted_pose(log_weights, pose, n_runs=None):
+def weighted_pose(log_weights, pose, n_runs=None, layout_runs=None):
     """``expected_pose`` of log weights [P] and poses [P, 6] (a sharded
-    step passes the gathered ones)."""
+    step passes the gathered ones); per run as among ``layout_runs`` runs
+    (``ops/resample.py``)."""
     wp = torch.exp(log_weights)[:, None] * pose
     if n_runs is None:
         return wp.sum(0)
-    return wp.reshape(n_runs, -1, wp.shape[-1]).sum(1)
+    return among(lambda x: x.sum(1), wp.reshape(n_runs, -1, wp.shape[-1]),
+                 layout_runs)
 
 
 def map_map_static(state: SlamState) -> Gaussian2DMixture:

@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from phdslam_tpu_torch.ops.resample import among
+
 
 def rows(x, n_particles: int, shared_dim: int):
     """A measurement tensor broadcast against [n_particles, ...] tensors:
@@ -41,14 +43,15 @@ def per_particle(x, n_particles: int):
     return torch.repeat_interleave(x, n_particles // x.shape[0], dim=0)
 
 
-def normalise(lw, n_runs):
+def normalise(lw, n_runs, layout_runs=None):
     """(lw - its logsumexp, the logsumexp), over each run's particles:
-    the logsumexp is a scalar for one run (n_runs None), [R] for R."""
+    the logsumexp is a scalar for one run (n_runs None), [R] for R, taken
+    as among ``layout_runs`` runs (``ops/resample.py``)."""
     if n_runs is None:
         log_lik = torch.logsumexp(lw, 0)
         return lw - log_lik, log_lik
     v = lw.reshape(n_runs, -1)
-    log_lik = torch.logsumexp(v, 1)
+    log_lik = among(lambda x: torch.logsumexp(x, 1), v, layout_runs)
     return (v - log_lik[:, None]).reshape(-1), log_lik
 
 

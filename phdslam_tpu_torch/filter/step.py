@@ -14,7 +14,8 @@ numpy measurement mask), so they are Python bools and the device is never
 read inside a step; so is the CPHD birth gate (the previous step's
 measurement count). The resample trigger lives on the device: the indices
 are always computed and ``torch.where(trigger, idx, arange)`` picks them or
-the identity before the gather, which gives the ``cond``'s result.
+the identity before the gather, which gives the ``cond``'s result. With a
+mesh the trigger is read once instead (below).
 
 Monte-Carlo runs (``phdslam_tpu/eval/batch.py``'s vmapped path): with
 per-run measurements (``z.rb [R, M, 2]``) the state holds R runs of
@@ -33,10 +34,15 @@ Particle-axis sharding (``parallel/mesh.py``, JAX's ``pmesh``): with a
 normalisation runs on them alone. The normalisation, nEff, the expected
 pose, the resample (and its shotgun contraction) and ``log_aux``'s MAP
 particle read the gathered [P] weights and poses and compute exactly what
-the single process computes, and the resample takes the rank's rows of
-the gathered state. Every rank draws the global step's draws and uses its
-rows of the pose normals, so a sharded step equals the single-process step
-bit for bit. A mesh steps one run: it has no run axis.
+the single process computes. The resample's trigger is read on the host
+(``parallel/mesh.py::read_flag``, the step's one read of the device),
+since the gather it gates is a collective enqueued from the host: as
+under JAX's ``lax.cond``, a step whose resample fires takes the rank's
+rows of the gathered state, and one that does not moves no map and keeps
+its rows.
+Every rank draws the global step's draws and uses its rows of the pose
+normals, so a sharded step equals the single-process step bit for bit. A
+mesh steps one run: it has no run axis.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ from phdslam_tpu_torch.filter.update4 import (informed_birth_velocity,
                                               prev_measurement_world)
 from phdslam_tpu_torch.ops.resample import neff, stratified_resample_indices
 from phdslam_tpu_torch.parallel.mesh import (everywhere, gather_rows,
-                                             global_row, unshard_state)
+                                             global_row, read_flag,
+                                             unshard_state)
 
 
 class StepAux(NamedTuple):
@@ -155,7 +162,7 @@ def gather_particles(state: SlamState, idx, new_log_w, lineage,
     new_log_w and lineage are global [P]: the rank takes its slice of each
     and its rows of the gathered state."""
     if mesh is not None:
-        state = unshard_state(state, mesh)
+        state = unshard_state(state, mesh, "resample")
         idx, new_log_w, lineage = (mesh.local(t)
                                    for t in (idx, new_log_w, lineage))
     new = state.map(lambda t: t.index_select(0, idx))
@@ -165,7 +172,7 @@ def gather_particles(state: SlamState, idx, new_log_w, lineage,
 def slam_step(state: SlamState, control, z: Measurements, dt: float,
               do_predict: bool, cfg, *, generator=None, noise=None,
               with_variance: bool = False, z_prev: Measurements = None,
-              mesh=None):
+              mesh=None, layout_runs=None):
     """One SLAM time step; returns (state', StepAux).
 
     control     (v_encoder, alpha), floats or 0-d tensors; per run [R]
@@ -186,11 +193,14 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     mesh        a ``parallel.mesh.ParticleMesh``: the state holds the
                 rank's P/W rows; noise (given or drawn) is the global
                 step's; the aux values are global
+    layout_runs R runs of this many: each per-run reduction rounds as
+                among all of them (``ops/resample.py``; the island step
+                across ranks passes its n islands)
     """
     check_supported(cfg)
     is_cphd = cfg.filterType == CPHD_TYPE
     n_runs = z.n_runs
-    every, own = everywhere(mesh)
+    every, own = everywhere(mesh, "step")
     n_ranks = 1 if mesh is None else mesh.world_size
     if mesh is not None and n_runs is not None:
         raise ValueError("a sharded step (mesh) has no run axis: per-run "
@@ -243,14 +253,16 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     if z.any_run and cfg.filterType == FASTSLAM_TYPE:
         gm_out, dw = fastslam_update(state.pose, state.map_static, z.rb,
                                      z.valid, cfg)
-        lw, log_lik = normalise(every(state.log_weights + dw), n_runs)
+        lw, log_lik = normalise(every(state.log_weights + dw), n_runs,
+                                 layout_runs)
         lw = own(lw)
         state = state.replace(map_static=gm_out, log_weights=lw)
     elif z.any_run and is_cphd:
         map_out, cn_update, dw = cphd.cphd_update(
             state.pose, state.map_static, state.cardinality, z.rb, z.label,
             z.valid, cfg, consts)
-        lw, log_lik = normalise(every(state.log_weights + dw), n_runs)
+        lw, log_lik = normalise(every(state.log_weights + dw), n_runs,
+                                 layout_runs)
         lw = own(lw)
         state = state.replace(map_static=map_out, log_weights=lw,
                               cardinality=cn_update)
@@ -263,7 +275,8 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
         gm2, gm4, dw = phd_update_mixed(state.pose, state.map_static,
                                         state.map_dynamic, z.rb, z.label,
                                         z.valid, cfg, birth_vel=birth_vel)
-        lw, log_lik = normalise(every(state.log_weights + dw), n_runs)
+        lw, log_lik = normalise(every(state.log_weights + dw), n_runs,
+                                 layout_runs)
         lw = own(lw)
         state = state.replace(map_static=gm2, map_dynamic=gm4,
                               log_weights=lw)
@@ -271,7 +284,8 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
         res = phd_update_static(state.pose, state.map_static, z.rb, z.label,
                                 z.valid, cfg)
         lw, log_lik = normalise(
-            every(state.log_weights + res.log_weight_delta), n_runs)
+            every(state.log_weights + res.log_weight_delta), n_runs,
+            layout_runs)
         lw = own(lw)
         var = phd_variance(res, z.valid) if with_variance \
             else state.variances
@@ -286,8 +300,8 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
         log_lik = torch.where(has_z, log_lik, 0.0)
 
     lw_all = every(state.log_weights)
-    exp_pose = weighted_pose(lw_all, every(state.pose), n_runs)
-    n_eff = neff(lw_all, n_runs)
+    exp_pose = weighted_pose(lw_all, every(state.pose), n_runs, layout_runs)
+    n_eff = neff(lw_all, n_runs, layout_runs)
     if cfg.debug:
         lw_runs = run_view(lw_all, n_runs)
         print(f"[debug] log_lik={log_lik.tolist()} neff={n_eff.tolist()}"
@@ -304,7 +318,8 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
     if n_in != n_target:
         # shotgun-expanded step: always contract back to n_particles
         idx = stratified_resample_indices(lw_all, uniforms,
-                                          cfg.n_particles, n_runs)
+                                          cfg.n_particles, n_runs,
+                                          layout_runs)
         state = gather_particles(state, idx, uniform_lw,
                                  _lineage(idx, n_runs, n_in), mesh)
         resampled = torch.ones(run_shape, dtype=torch.bool, device=dev)
@@ -312,14 +327,25 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
         trigger = n_eff <= cfg.resampleThresh
         if has_z is not None:
             trigger = trigger & has_z
-        idx = stratified_resample_indices(lw_all, uniforms,
-                                          cfg.n_particles, n_runs)
-        trig = trigger if n_runs is None \
-            else per_particle(trigger, n_target)
-        idx = torch.where(trig, idx, arange)
-        state = gather_particles(
-            state, idx, torch.where(trig, uniform_lw, lw_all),
-            _lineage(idx, n_runs, n_in), mesh)
+        if mesh is None:
+            idx = stratified_resample_indices(lw_all, uniforms,
+                                              cfg.n_particles, n_runs,
+                                              layout_runs)
+            trig = trigger if n_runs is None \
+                else per_particle(trigger, n_target)
+            idx = torch.where(trig, idx, arange)
+            state = gather_particles(
+                state, idx, torch.where(trig, uniform_lw, lw_all),
+                _lineage(idx, n_runs, n_in))
+        elif read_flag(trigger, mesh, "resample"):
+            idx = stratified_resample_indices(lw_all, uniforms,
+                                              cfg.n_particles)
+            state = gather_particles(state, idx, uniform_lw, idx, mesh)
+        else:
+            # the torch.where path's bits with the identity: the rank's
+            # rows, weights and lineage as they are; no map moves
+            state = state.replace(log_weights=own(lw_all),
+                                  resample_idx=own(arange))
         resampled = trigger
     else:
         state = state.replace(
@@ -379,7 +405,8 @@ def log_aux(state: SlamState, n_runs=None, mesh=None) -> LogAux:
 def run_scan(state: SlamState, controls, zs, dts, cfg, *, generator=None,
              noises: Optional[list] = None, with_log_state: bool = False,
              with_variance: bool = False, mesh=None):
-    """Run ``slam_step`` over a whole dataset without reading the device.
+    """Run ``slam_step`` over a whole dataset without reading the device
+    (with a mesh, once a step: the resample's trigger).
 
     controls [T, 2] (host); zs: T Measurements on the state's device;
     dts [T] (host). Step 0 skips prediction. Each step gets the previous

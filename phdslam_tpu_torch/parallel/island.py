@@ -27,11 +27,12 @@ axis's own path, which its tests hold against single runs bit for bit;
 a shared set with a separate run count would be a second path through
 ``slam_step`` for the same numbers.
 
-JAX gates the exchange with ``lax.cond`` on a traced predicate. The trigger
-here stays on the device too: every round is computed each step, the
-rounds' index maps are composed, and ``torch.where`` picks the composed
-map or the identity, the weights, the lineage and the island weights
-before the one gather of the state. The step never reads the device.
+JAX gates the exchange with ``lax.cond`` on a traced predicate. On one
+device the trigger stays on the device: every round is computed each
+step, the rounds' index maps are composed, and ``torch.where`` picks the
+composed map or the identity, the weights, the lineage and the island
+weights before the one gather of the state. That step never reads the
+device.
 
 The draws come from one generator (``draw_island_noise``): pose normals
 [sub, P, d], the islands' resample uniforms [P] and the butterfly's
@@ -39,15 +40,21 @@ uniforms [rounds, P], island k's in its block of each. ``noise=`` replays
 given draws (the tests replay JAX's per-island keys).
 
 Across ranks (``mesh``, ``parallel/mesh.py``; JAX puts one island on each
-mesh device): W ranks, W dividing n, rank r holding islands [r n/W,
-(r + 1) n/W). Each rank runs its local ``slam_step`` over its n/W
-islands; the island weights, the island nEff, the global log-likelihood
-and the expected pose come from the gathered [n] log-likelihoods and
-[n, 6] expected poses, the same on every rank (every rank keeps all n
-island weights); the butterfly runs on the gathered state, its rounds
-composed as on one device, and each rank keeps its block. Every rank draws
-the global draws and uses its islands' rows, so the step equals the
-one-device step bit for bit.
+mesh device): W ranks, W dividing n, rank r holding the q = n/W islands
+[r q, (r + 1) q). Each rank runs its local ``slam_step`` over its q
+islands, each per-island reduction taken as among all n
+(``layout_runs``), so that it rounds as on one device. The island
+weights, the island nEff, the global log-likelihood and the expected pose
+come from the gathered [n] log-likelihoods and [n, 6] expected poses, the
+same on every rank (every rank keeps all n island weights). The trigger
+is read once (``read_flag``); a step that does not exchange moves nothing
+more. One that does runs ``butterfly_ranks``: a round at stride s < q
+pairs islands of one rank and is computed there; a round at s >= q pairs
+each island with the one at the same local position on rank r ^ (s / q),
+and the two ranks swap their shard once (``exchange_rows``, JAX's
+``ppermute``), log2(W) shards a rank per exchange, never a global gather.
+Every rank draws the global draws and uses its islands' rows, so the step
+equals the one-device step bit for bit.
 """
 
 from __future__ import annotations
@@ -61,8 +68,8 @@ from phdslam_tpu_torch.filter.predict import noise_dim
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
 from phdslam_tpu_torch.filter.step import slam_step
 from phdslam_tpu_torch.ops.resample import stratified_resample_indices
-from phdslam_tpu_torch.parallel.mesh import (everywhere, shard_state,
-                                             unshard_state)
+from phdslam_tpu_torch.parallel.mesh import (everywhere, exchange_rows,
+                                             pack_rows, read_flag)
 
 
 class IslandAux(NamedTuple):
@@ -167,19 +174,37 @@ def butterfly_round(log_weights, island_logw, u, stride: int,
     ``tests/test_torch_island.py`` pins it against JAX's indices."""
     n = n_islands
     p = log_weights.shape[0] // n
-    dev = log_weights.device
-    k = torch.arange(n, device=dev)
+    k = torch.arange(n, device=log_weights.device)
     partner = k ^ stride
     lw = log_weights.reshape(n, p)
-    pool_lw = torch.cat([lw + island_logw[:, None],
-                         lw[partner] + island_logw[partner][:, None]], 1)
-    idx = stratified_resample_indices(pool_lw.reshape(-1), u, p, n_runs=n)
-    idx = idx.reshape(n, p).long() - (2 * p * k)[:, None]
+    idx = _pool_picks(lw, lw[partner], island_logw, island_logw[partner],
+                      u, n)
     rows = torch.where(idx < p, k[:, None] * p + idx,
                        partner[:, None] * p + idx - p)
-    merged = torch.logaddexp(island_logw, island_logw[partner]) \
+    return rows.reshape(-1), _merged(island_logw, stride)
+
+
+def _pool_picks(lw, lw_partner, ilw, ilw_partner, u, n_islands: int):
+    """The butterfly's picks for q islands (lw, lw_partner [q, p]: each
+    island's local log-weights and its partner's; ilw, ilw_partner [q];
+    u [q p]): [q, p] int64, slot j of island i taking pool position idx,
+    below p its own particle idx, else its partner's idx - p. The resample
+    is taken as among all n_islands (``layout_runs``)."""
+    q, p = lw.shape
+    pool_lw = torch.cat([lw + ilw[:, None], lw_partner + ilw_partner[:, None]],
+                        1)
+    idx = stratified_resample_indices(pool_lw.reshape(-1), u, p, n_runs=q,
+                                      layout_runs=n_islands)
+    off = 2 * p * torch.arange(q, device=lw.device)
+    return idx.reshape(q, p).long() - off[:, None]
+
+
+def _merged(island_logw, stride: int):
+    """The island log-weights after a round: each pair's mean."""
+    partner = torch.arange(island_logw.shape[0],
+                           device=island_logw.device) ^ stride
+    return torch.logaddexp(island_logw, island_logw[partner]) \
         - math.log(2.0)
-    return rows.reshape(-1), merged
 
 
 def butterfly_exchange(state: SlamState, island_logw, u, trigger,
@@ -211,6 +236,53 @@ def butterfly_exchange(state: SlamState, island_logw, u, trigger,
     return new, torch.where(trigger, ilw, island_logw)
 
 
+def butterfly_ranks(state: SlamState, island_logw, u, n_islands: int,
+                    mesh):
+    """The butterfly exchange across the mesh's ranks, run (the caller has
+    read its trigger): ``butterfly_exchange``'s result on the rank's q =
+    n/W islands, bit for bit. Rounds at strides below q compose a map of
+    the rank's rows; at a stride s >= q the rank swaps its current shard
+    (every leaf packed into one int32 tensor) with rank r ^ (s / q) and
+    picks from [own, partner's], island i's partner at local position i
+    there. Returns (state, island_logw); the island weights are global."""
+    n = n_islands
+    q = n // mesh.world_size
+    p = state.n_particles // q
+    dev, dtype = state.device, state.log_weights.dtype
+    i = torch.arange(q, device=dev)
+    k = mesh.rank * q + i                     # the rank's islands
+    uniform_lw = torch.full((q * p,), -math.log(float(p)), dtype=dtype,
+                            device=dev)
+    packed, unpack = pack_rows(state)
+    rows = torch.arange(q * p, device=dev)    # each slot's row of packed
+    lw, ilw = state.log_weights, island_logw
+    for r, stride in enumerate(butterfly_strides(n)):
+        u_own = mesh.local(u[r])
+        if stride < q:
+            mate = i ^ stride
+            lw_mate, at = lw.reshape(q, p)[mate], mate
+        else:
+            own = packed.index_select(0, rows)
+            theirs = exchange_rows(own, mesh.rank ^ (stride // q), mesh,
+                                   "butterfly")
+            if r == 0:    # round 0 pools the partner's own local weights
+                lw_mate = unpack(theirs).log_weights.reshape(q, p)
+            else:
+                lw_mate = uniform_lw.reshape(q, p)
+            packed = torch.cat([own, theirs])
+            rows, at = torch.arange(2 * q * p, device=dev), i + q
+        idx = _pool_picks(lw.reshape(q, p), lw_mate, ilw[k],
+                          ilw[k ^ stride], u_own, n)
+        pick = torch.where(idx < p, i[:, None] * p + idx,
+                           at[:, None] * p + idx - p)
+        rows = rows[pick.reshape(-1)]
+        ilw = _merged(ilw, stride)
+        lw = uniform_lw
+    new = unpack(packed.index_select(0, rows))
+    lineage = torch.arange(p, dtype=torch.int32, device=dev).repeat(q)
+    return new.replace(log_weights=uniform_lw, resample_idx=lineage), ilw
+
+
 def island_slam_step(state: SlamState, island_logw, control,
                      z: Measurements, dt: float, do_predict: bool, cfg,
                      n_islands: int, *, thresh: float = 0.5, generator=None,
@@ -236,7 +308,7 @@ def island_slam_step(state: SlamState, island_logw, control,
     n = n_islands
     P = cfg.n_particles
     p = P // n
-    every, own = everywhere(mesh)
+    every, own = everywhere(mesh, "island")
     n_own = n if mesh is None else n // mesh.world_size
     dev, dtype = state.device, state.log_weights.dtype
     if noise is None:
@@ -249,7 +321,7 @@ def island_slam_step(state: SlamState, island_logw, control,
     state, aux = slam_step(state, control, _per_island(z, n_own), dt,
                            do_predict, cfg.replace(n_particles=p),
                            noise=(normals, uniforms),
-                           z_prev=_per_island(z_prev, n_own))
+                           z_prev=_per_island(z_prev, n_own), layout_runs=n)
 
     # the local normaliser is the island's likelihood increment; normalise
     # across islands as JAX does (max, then the log of the shifted sum)
@@ -265,10 +337,8 @@ def island_slam_step(state: SlamState, island_logw, control,
     exchanged = island_neff <= thresh
     if mesh is None:
         state, ilw = butterfly_exchange(state, ilw, bfly_u, exchanged, n)
-    else:
-        full, ilw = butterfly_exchange(unshard_state(state, mesh), ilw,
-                                       bfly_u, exchanged, n)
-        state = shard_state(full, mesh)
+    elif read_flag(exchanged, mesh, "butterfly"):
+        state, ilw = butterfly_ranks(state, ilw, bfly_u, n, mesh)
 
     out = (state, ilw, IslandAux(expected_pose=exp_pose, island_logw=ilw,
                                  island_neff=island_neff,
@@ -283,7 +353,7 @@ def island_log_aux(state: SlamState, island_logw, n_islands: int,
     """Each island's local MAP particle's static map and score, and every
     particle's global log-weight; with a mesh each rank's islands', then
     gathered (every field leads with the island or particle axis)."""
-    every, own = everywhere(mesh)
+    every, own = everywhere(mesh, "island log")
     island_logw = own(island_logw)
     n = n_islands if mesh is None else n_islands // mesh.world_size
     p = state.n_particles // n

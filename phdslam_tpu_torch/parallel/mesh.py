@@ -11,32 +11,50 @@ The per-particle work (prediction, the CPHD births, every measurement
 update and its kernels) runs on the rank's rows and touches no other rank.
 A step's global points (the weight normalisation, nEff, the expected pose,
 the resample and ``log_aux``'s MAP particle) need the other ranks' rows,
-and every transfer between ranks goes through ``gather_rows``: [n, ...] on
-each rank in, [W n, ...] in rank order on every rank out. Each rank then
-computes the global values exactly as the single process does from the
-same gathered tensors and keeps its own rows, so a sharded step equals the
-single-process step bit for bit. A max/sum all-reduce of the logsumexp
-would not: its partial sums round otherwise than a logsumexp over [P].
+which ``gather_rows`` brings: [n, ...] on each rank in, [W n, ...] in rank
+order on every rank out. Each rank then computes the global values exactly
+as the single process does from the same gathered tensors and keeps its
+own rows, so a sharded step equals the single-process step bit for bit. A
+max/sum all-reduce of the logsumexp would not: its partial sums round
+otherwise than a logsumexp over [P].
 
-The resample moves whole maps: every rank gathers every leaf of the state
-and takes the rows its slice of the global indices names, on every step
-(the trigger stays on the device, as in the single process).
+Particle maps move only where the JAX package moves them. JAX gates the
+resample with ``lax.cond`` and XLA's map-sized gather runs inside it, on
+the steps whose resample fires; the island butterfly runs under
+``lax.cond`` too, as static-stride ``ppermute``s of one island's shard.
+PyTorch enqueues NCCL and gloo collectives from the host, so a transfer
+can be skipped on a device-side predicate only after the host has read
+it: ``read_flag`` is that read, the one a sharded step makes (every rank
+computes the predicate from the same gathered tensors; the ranks' values
+are compared and a disagreement raises). A resample that fires gathers
+every leaf of the state on every rank and takes the rows its slice of the
+global indices names; one that does not fire moves no map. The butterfly
+across ranks swaps shards between partner ranks through ``exchange_rows``
+(one two-rank group per pair {r, r ^ m}, made once by every rank in the
+same order, as ``dist.new_group`` needs).
+
+Every transfer through ``gather_rows``, ``global_row`` and
+``exchange_rows`` and every ``read_flag`` adds to the mesh's traffic
+record under the caller's label (``take_traffic``): calls, the bytes this
+rank offered, the bytes it received from other ranks and its largest
+block.
 
 Random draws: every rank draws the global step's draws from a generator
 seeded alike (or replays given global draws) and slices its rows, so a
 sharded run filters the single-process run's draws.
 
-The transfer is ``all_gather_into_tensor`` under either backend: NCCL
-on the card, gloo on the CPU, and gloo for CUDA tensors (ranks that share
-one card, which NCCL refuses: "Duplicate GPU detected"), which stages them
-through the host. PyTorch 2.11 on an H100 was checked to take a CUDA
-all-gather under gloo.
+Every transfer is ``all_gather_into_tensor`` under either backend, over
+all ranks or within a pair's group: NCCL on the card, gloo on the CPU, and
+gloo for CUDA tensors (ranks that share one card, which NCCL refuses:
+"Duplicate GPU detected"), which stages them through the host. PyTorch
+2.11 on an H100 was checked to take a CUDA all-gather under gloo.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
@@ -46,14 +64,17 @@ import torch.distributed as dist
 @dataclass
 class ParticleMesh:
     """The particle axis over ``world_size`` ranks: this process's rank,
-    its process group (None: the default group), the backend and the
-    rank's device."""
+    its process group (None: the default group), the backend, the rank's
+    device, its pair groups (partner rank -> the two ranks' group) and the
+    traffic record (``note``, ``take_traffic``)."""
 
     rank: int
     world_size: int
     group: Any
     backend: str
     device: torch.device
+    pairs: dict = field(default_factory=dict)
+    traffic: dict = field(default_factory=dict)
 
     def local(self, x, dim: int = 0):
         """This rank's block of x along dim: [r n/W, (r + 1) n/W), a view."""
@@ -67,8 +88,26 @@ class ParticleMesh:
             raise ValueError(f"{what} ({n}) is not a multiple of the "
                              f"mesh's {self.world_size} ranks")
 
+    def note(self, op: str, label: str, offered: int, received: int):
+        """One transfer into the record under "op label": this rank's
+        block of ``offered`` bytes, ``received`` bytes from other ranks."""
+        r = self.traffic.setdefault(f"{op} {label}", dict(
+            calls=0, offered=0, received=0, largest=0))
+        r["calls"] += 1
+        r["offered"] += offered
+        r["received"] += received
+        r["largest"] = max(r["largest"], offered)
+
+    def take_traffic(self) -> dict:
+        """The record since the last take ({"op label": {calls, offered,
+        received, largest}}, bytes), and a fresh one."""
+        out, self.traffic = self.traffic, {}
+        return out
+
     def close(self):
-        """Destroy the process group (every rank calls it)."""
+        """Destroy the process group and the pair groups (every rank calls
+        it)."""
+        self.pairs = {}
         dist.destroy_process_group(self.group)
 
 
@@ -83,7 +122,8 @@ def make_mesh(backend: Optional[str] = None, device=None, *,
     device: ``cuda:{LOCAL_RANK}`` by default, and then NCCL; ``cpu``
     selects gloo on the CPU; ``backend="gloo"`` on a CUDA device is for
     ranks that share one card. Without CUDA, and not asked for the CPU,
-    it raises."""
+    it raises. Every rank makes the pair groups {r, r ^ m}, m = 1, 2, 4,
+    ... below W, in the same order."""
     env = os.environ
     rank = int(env.get("RANK", 0)) if rank is None else int(rank)
     world = int(env.get("WORLD_SIZE", 1)) if world_size is None \
@@ -114,42 +154,117 @@ def make_mesh(backend: Optional[str] = None, device=None, *,
     elif dist.get_backend() != backend:
         raise RuntimeError(f"make_mesh: the process group's backend is "
                            f"{dist.get_backend()}, not {backend}")
-    return ParticleMesh(rank=dist.get_rank(),
-                        world_size=dist.get_world_size(), group=None,
-                        backend=backend, device=device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    pairs, m = {}, 1
+    while m < world:
+        for a in range(world):
+            b = a ^ m
+            if a < b < world:
+                group = dist.new_group([a, b])
+                if rank in (a, b):
+                    pairs[a + b - rank] = group
+        m *= 2
+    return ParticleMesh(rank=rank, world_size=world, group=None,
+                        backend=backend, device=device, pairs=pairs)
 
 
-def gather_rows(x, mesh: ParticleMesh):
-    """[n, ...] on each rank -> [W n, ...] on every rank, rank r's rows in
-    block r. The one place where rows cross ranks."""
+def _all_gather(x, group, size: int):
+    """[n, ...] on each of the group's ``size`` ranks -> [size n, ...] in
+    group-rank order."""
     x = x.contiguous()
-    shape = (mesh.world_size * x.shape[0],) + tuple(x.shape[1:])
-    if x.numel() == 0:          # a [P, 0] map: nothing to move
-        return x.new_empty(shape)
-    out = x.new_empty(shape)
-    dist.all_gather_into_tensor(out, x, group=mesh.group)
+    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+    if x.numel():               # a [P, 0] map: nothing to move
+        dist.all_gather_into_tensor(out, x, group=group)
     return out
 
 
-def everywhere(mesh: Optional[ParticleMesh]):
-    """(gather, own): a rank's rows -> the global tensor (``gather_rows``),
-    the global tensor -> the rank's rows; both the identity without a
-    mesh, so one code path serves the single process and the ranks."""
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def gather_rows(x, mesh: ParticleMesh, label: str = "rows"):
+    """[n, ...] on each rank -> [W n, ...] on every rank, rank r's rows in
+    block r."""
+    out = _all_gather(x, mesh.group, mesh.world_size)
+    mesh.note("gather_rows", label, _nbytes(x),
+              _nbytes(x) * (mesh.world_size - 1))
+    return out
+
+
+def exchange_rows(x, partner: int, mesh: ParticleMesh, label: str):
+    """Rank ``partner``'s [n, ...] block for this rank's x (the counterpart
+    of ``lax.ppermute`` at one stride): both ranks call it with blocks of
+    one shape, through their pair's group."""
+    group = mesh.pairs.get(partner)
+    if group is None:
+        raise ValueError(f"exchange_rows: rank {mesh.rank} has no pair "
+                         f"group with rank {partner}")
+    both = _all_gather(x, group, 2)
+    mesh.note("exchange_rows", label, _nbytes(x), _nbytes(x))
+    n = x.shape[0]
+    return both[n:] if partner > mesh.rank else both[:n]
+
+
+def read_flag(t, mesh: ParticleMesh, label: str) -> bool:
+    """A replicated 0-d bool as a Python bool: the one read of the device
+    in a sharded step, so that a transfer gated on it can be skipped
+    (``lax.cond``'s counterpart). Raises unless every rank holds the same
+    value."""
+    flag = t.reshape(1).to(torch.int32)
+    flags = _all_gather(flag, mesh.group, mesh.world_size).tolist()
+    mesh.note("read_flag", label, _nbytes(flag),
+              _nbytes(flag) * (mesh.world_size - 1))
+    if min(flags) != max(flags):
+        raise RuntimeError(f"read_flag {label}: the ranks disagree "
+                           f"({flags})")
+    return bool(flags[0])
+
+
+def everywhere(mesh: Optional[ParticleMesh], label: str = "rows"):
+    """(gather, own): a rank's rows -> the global tensor (``gather_rows``
+    under label), the global tensor -> the rank's rows; both the identity
+    without a mesh, so one code path serves the single process and the
+    ranks."""
     if mesh is None:
         return (lambda t: t), (lambda t: t)
-    return (lambda t: gather_rows(t, mesh)), mesh.local
+    return (lambda t: gather_rows(t, mesh, label)), mesh.local
 
 
-def global_row(x, idx, mesh: ParticleMesh):
+def global_row(x, idx, mesh: ParticleMesh, label: str = "row"):
     """Row ``idx`` (a 0-d index tensor into the global [P] axis, the same on
     every rank) of the sharded leaf x, on every rank: each rank offers the
     row it would hold there (clamped into its block), the W offers are
     gathered, and the owner's is kept. No host read."""
     p = x.shape[0]
-    mine = torch.clamp(idx - mesh.rank * p, 0, p - 1).reshape(1)
+    mine = x.index_select(0, torch.clamp(idx - mesh.rank * p, 0,
+                                         p - 1).reshape(1))
     owner = torch.div(idx, p, rounding_mode="floor").reshape(1)
-    return gather_rows(x.index_select(0, mine), mesh).index_select(0,
-                                                                   owner)[0]
+    out = _all_gather(mine, mesh.group, mesh.world_size)
+    mesh.note("global_row", label, _nbytes(mine),
+              _nbytes(mine) * (mesh.world_size - 1))
+    return out.index_select(0, owner)[0]
+
+
+def pack_rows(tree):
+    """Every leaf of a tensor tree (``SlamState``; each leaf [n, ...] of a
+    4-byte dtype) as the columns of one int32 [n, words] tensor, and the
+    function that unpacks such a tensor (any row count) into the tree's
+    structure, bit for bit."""
+    leaves = []
+    tree.map(lambda t: leaves.append(t) or t)
+    if any(t.element_size() != 4 for t in leaves):
+        raise ValueError("pack_rows: every leaf must be 4 bytes wide")
+    n = leaves[0].shape[0]
+    widths = [math.prod(t.shape[1:]) for t in leaves]
+    packed = torch.cat([t.reshape(n, w).view(torch.int32)
+                        for t, w in zip(leaves, widths)], 1)
+
+    def unpack(rows):
+        parts = iter(torch.split(rows, widths, 1))
+        return tree.map(lambda t: next(parts).contiguous().view(t.dtype)
+                        .reshape((rows.shape[0],) + tuple(t.shape[1:])))
+
+    return packed, unpack
 
 
 def shard_state(state, mesh: ParticleMesh):
@@ -160,9 +275,10 @@ def shard_state(state, mesh: ParticleMesh):
     return state.map(lambda t: mesh.local(t).to(mesh.device, copy=True))
 
 
-def unshard_state(state, mesh: ParticleMesh):
-    """The global state on every rank (for logs and tests)."""
-    return state.map(lambda t: gather_rows(t, mesh))
+def unshard_state(state, mesh: ParticleMesh, label: str = "state"):
+    """The global state on every rank (the resample's gather, logs,
+    tests)."""
+    return state.map(lambda t: gather_rows(t, mesh, label))
 
 
 def replicate_measurements(z, mesh: ParticleMesh):

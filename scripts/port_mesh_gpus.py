@@ -14,13 +14,21 @@ checks. Prints every GPU's name and power limit, then:
    rendezvous in a temporary directory; a failure in any rank fails the
    run), each:
    - the dense static step (8192 x 512 x 64 on the stress stream) at W x
-     8192 / W, 4 steps with the resample forced, every aux value and state
-     leaf bit for bit against the single process (run on the rank's own
-     GPU), launch counts from 0;
-   - the dense sharded step timed with CUDA events beside the plain dense
-     step on the same GPU (warm-up 3, 16 timed), the split into glue,
+     8192 / W, 4 steps at a threshold that always fires the resample (1.1)
+     and one that never does (0), every aux value and state leaf bit for
+     bit against the single process (run on the rank's own GPU), launch
+     counts from 0, the bytes a step from the mesh's traffic record (one
+     read_flag a step; the state's leaves gathered on firing steps only);
+   - the dense island step at 4 and 8 islands (8 x 1024: local and
+     cross-rank butterfly rounds), never (0) and always (1.1) exchanging,
+     4 steps bit for bit against the one-GPU island step, the bytes a step
+     (log2(W) exchange_rows calls of the rank's shard when it exchanges,
+     nothing else above [n/W, 6] floats);
+   - timed with CUDA events (warm-up 3, 16 timed), the split into glue,
      select and merge, the peak device memory, the kernels against plain
-     on the last step's inputs;
+     on the last step's inputs: the plain dense step on the rank's GPU,
+     the dense sharded step at both thresholds, the 8-island step on the
+     rank's GPU and across the ranks at both thresholds;
    - CPHD at 1024 x 128 x 64, the shipped mixed and FastSLAM cfgs and
      cfg/disparity_synth.cfg, 20 steps each, bit for bit;
    - sharded_run_scan over the 330-step run at 256 particles against
@@ -31,8 +39,10 @@ checks. Prints every GPU's name and power limit, then:
 3. the ranks' runner outputs against 1.'s, every file byte for byte
    (metrics.jsonl apart from its ms column, loopTime.log a line a step).
 
-The last line is {"ok": true, "ranks": W, "dense_ms": [...],
-"plain_ms": [...]} (per rank).
+The last line is {"ok": true, "ranks": W, "plain_ms": [...], "dense_ms":
+{threshold: [...]}, "island_ms": {threshold: [...]}, "island_one_gpu_ms":
+[...], "dense_mb": {threshold: MB}, "island_mb": {"n threshold": MB}}
+(times per rank; MB received a step by rank 0).
 """
 
 import json
@@ -46,7 +56,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as C  # noqa: E402
 
-ISLANDS = 4
+ISLANDS = 4          # the runner's
+TIMED_ISLANDS = 8    # the timed island step's
 
 
 def rank_main(rank, world, device_type, backend, tmp, run_dir, ports):
@@ -65,21 +76,35 @@ def rank_main(rank, world, device_type, backend, tmp, run_dir, ports):
         shape = "x".join(str(C.DENSE[k]) for k in "PFM")
         what = (f"dense sharded step ({world} {backend} ranks x "
                 f"{C.DENSE['P'] // world}, one GPU each)")
-        out["dense_launches"] = C.mesh_pair(
-            lambda m: C.stress_stepper(C.DENSE, C.MESH_STEPS, dev, mesh=m,
-                                       resampleThresh=1.1)[1:],
-            C.MESH_STEPS, mesh, what)
+        out["dense_mb"] = C.mesh_dense_pairs(dev, mesh)
+        out["island_mb"] = C.mesh_island_pairs(dev, mesh)
         C.reset_peak_memory()
         _, state, step = C.stress_stepper(C.DENSE, C.WARMUP + C.TIMED, dev)
         _, out["plain_ms"] = C.timed_steps(stats, state, step, C.WARMUP,
                                            "plain dense step", shape,
                                            peak=True)
-        C.reset_peak_memory()
-        _, state, step = C.stress_stepper(C.DENSE, C.WARMUP + C.TIMED, dev,
-                                          mesh=mesh)
-        _, out["dense_ms"] = C.timed_steps(stats, state, step, C.WARMUP,
-                                           what, shape, peak=True)
-        out["dense_peak_gib"] = stats["peak_gib"][what]
+        n, p = TIMED_ISLANDS, C.DENSE["P"] // TIMED_ISLANDS
+        _, state, step, _ = C.island_stepper(C.DENSE, C.WARMUP + C.TIMED,
+                                             dev, n, 0.0)
+        _, out["island_one_gpu_ms"] = C.timed_steps(
+            stats, state, step, C.WARMUP,
+            f"dense island step ({n} x {p}, one GPU, threshold 0.0)", shape)
+        out["dense_ms"], out["island_ms"] = {}, {}
+        for thresh in C.MESH_THRESHOLDS:
+            C.reset_peak_memory()
+            label = f"{what}, threshold {thresh}"
+            _, state, step = C.stress_stepper(
+                C.DENSE, C.WARMUP + C.TIMED, dev, mesh=mesh,
+                resampleThresh=thresh)
+            _, out["dense_ms"][thresh] = C.timed_steps(
+                stats, state, step, C.WARMUP, label, shape, peak=True)
+            out["dense_peak_gib"] = stats["peak_gib"][label]
+            _, state, step, _ = C.island_stepper(
+                C.DENSE, C.WARMUP + C.TIMED, dev, n, thresh, mesh=mesh)
+            _, out["island_ms"][thresh] = C.timed_steps(
+                stats, state, step, C.WARMUP,
+                f"dense island step ({n} x {p} on {world} {backend} ranks,"
+                f" threshold {thresh})", shape)
         out["side"] = C.mesh_side_paths(dev, mesh)
         out["scan_launches"], out["scan_err"] = C.mesh_scan(dev, mesh,
                                                             run_dir)
@@ -117,9 +142,6 @@ def run(world, device_type, backend, dev0):
         n_steps = len(Path(run_dir, "islands_loop",
                            "loopTime.log").read_text().split())
         for r in ranks:
-            C.check_launches(r["dense_launches"],
-                             dict(select=C.MESH_STEPS, merge=C.MESH_STEPS),
-                             f"rank {r['rank']} dense")
             for mode in ("loop", "scan"):
                 C.check_launches(r[f"runner_{mode}"]["launches"],
                                  dict(select=n_steps, merge=n_steps),
@@ -159,13 +181,31 @@ def main():
     dev0 = torch.device("cuda", 0)
     torch.cuda.set_device(dev0)
     ranks = run(world, "cuda", "nccl", dev0)
-    C.log("dense sharded step, NCCL, one rank per GPU: " + "; ".join(
-        f"rank {r['rank']} {r['dense_ms']:.3f} ms (plain dense step on its "
-        f"GPU {r['plain_ms']:.3f} ms), peak {r['dense_peak_gib']:.2f} GiB"
-        for r in ranks))
-    print(json.dumps(dict(ok=True, ranks=world,
-                          dense_ms=[r["dense_ms"] for r in ranks],
-                          plain_ms=[r["plain_ms"] for r in ranks])))
+    per = lambda key, t: ", ".join(f"{r[key][t]:.3f}" for r in ranks)
+    C.log("NCCL, one rank per GPU, ms a step per rank: plain dense step on "
+          "the rank's GPU " + ", ".join(f"{r['plain_ms']:.3f}" for r in ranks)
+          + f"; {TIMED_ISLANDS}-island step on the rank's GPU "
+          + ", ".join(f"{r['island_one_gpu_ms']:.3f}" for r in ranks)
+          + "; " + "; ".join(
+              f"threshold {t}: sharded step {per('dense_ms', t)}, "
+              f"{TIMED_ISLANDS}-island step across the ranks "
+              f"{per('island_ms', t)}" for t in ranks[0]["dense_ms"])
+          + "; peak " + ", ".join(f"{r['dense_peak_gib']:.2f}"
+                                   for r in ranks) + " GiB")
+    C.log("MB received a step, rank 0: the resample's gather "
+          + ", ".join(f"threshold {t} {mb:.3f}"
+                      for t, mb in ranks[0]["dense_mb"].items())
+          + "; the butterfly " + ", ".join(
+              f"{k.split()[0]} islands threshold {k.split()[1]} {mb:.3f}"
+              for k, mb in ranks[0]["island_mb"].items()))
+    print(json.dumps(dict(
+        ok=True, ranks=world, plain_ms=[r["plain_ms"] for r in ranks],
+        dense_ms={t: [r["dense_ms"][t] for r in ranks]
+                  for t in ranks[0]["dense_ms"]},
+        island_ms={t: [r["island_ms"][t] for r in ranks]
+                   for t in ranks[0]["island_ms"]},
+        island_one_gpu_ms=[r["island_one_gpu_ms"] for r in ranks],
+        dense_mb=ranks[0]["dense_mb"], island_mb=ranks[0]["island_mb"])))
     return 0
 
 

@@ -7,8 +7,16 @@ torch thread each.
   disparity steps over 3 steps at thresholds 1.1 (the resample forced) and
   0 (never), every step's aux and log values and the final state;
   ``sharded_run_scan`` with its log over 5 steps; the disparity scan with
-  its map log; the island step across ranks (n = 4 islands) against the
-  one-device island step; at 2 and 4 ranks.
+  its map log; the island step across ranks (n = 4 and 8 islands: at 2
+  and 4 ranks every mix of butterfly rounds within a rank and between
+  ranks) against the one-device island step; at 2 and 4 ranks.
+- What moves between ranks, from the mesh's traffic record (the port's
+  counterpart of ``tests/test_multichip_evidence.py``'s HLO checks): a
+  sharded step reads the device once and gathers the state's leaves only
+  when its resample fires; an island step that does not exchange moves
+  nothing larger than its [n/W, 6] expected poses, one that does swaps
+  exactly log2(W) shards with partner ranks and gathers nothing larger;
+  every kernel entry gets the rank's P/W rows.
 - Against JAX: ``phdslam_tpu.parallel.mesh.sharded_step`` on 4 of
   conftest's virtual CPU devices (static and CPHD, 3 steps), the port's
   sharded step on 4 ranks replaying JAX's draws; rtol 1e-4 / atol 1e-5
@@ -33,6 +41,7 @@ from phdslam_tpu.filter.state import Measurements as JMeas
 from phdslam_tpu.filter.state import SlamState as JState
 from phdslam_tpu.parallel import mesh as JM
 from phdslam_tpu_torch.filter.predict import noise_dim
+from phdslam_tpu_torch.filter.state import SlamState
 
 torch.set_num_threads(1)
 
@@ -45,10 +54,15 @@ STEP_CASES = {f"{kind}-{thresh}": dict(kind=kind, thresh=thresh)
 STEP_CASES["scan"] = dict(kind="static", thresh=1.1, scan=True, steps=5)
 STEP_CASES["disparity-scan"] = dict(kind="disparity", thresh=1.1,
                                     scan=True, steps=4)
-ISLAND_CASES = {f"islands-{kind}-{thresh}": dict(kind=kind, thresh=thresh,
-                                                 islands=4)
-                for kind in ("static", "cphd", "mixed")
-                for thresh in (0.0, 1.1)}
+ISLAND_CASES = {f"islands{'' if n == 4 else n}-{kind}-{thresh}": dict(
+    kind=kind, thresh=thresh, islands=n)
+    for n in (4, 8) for kind in ("static", "cphd", "mixed")
+    for thresh in (0.0, 1.1)}
+# the kernel entries each kind's step reaches
+KERNELS = dict(static={"select", "merge"}, shotgun={"select", "merge"},
+               cphd={"select", "esf", "merge"},
+               mixed={"select", "select4", "merge", "merge4"},
+               fastslam={"auction"}, disparity={"merge3"})
 JAX_KINDS = ("static", "cphd")
 JAX_W = 4
 
@@ -138,8 +152,8 @@ def test_sharded_matches_single_process(rank_runs, world, name):
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("name", list(ISLAND_CASES))
 def test_islands_across_ranks_match_one_device(rank_runs, world, name):
-    """n = 4 islands on W ranks (n/W each), the butterfly forced (1.1) or
-    never run (0): bit for bit the one-device island step, which
+    """n = 4 and 8 islands on W ranks (n/W each), the butterfly forced
+    (1.1) or never run (0): bit for bit the one-device island step, which
     tests/test_torch_island.py holds to JAX's shard_map step."""
     ref = R.run_case(ISLAND_CASES[name])
     _assert_same_bits(ref, rank_runs[world][name], f"{name} W={world}")
@@ -176,3 +190,85 @@ def test_sharded_matches_jax_sharded_step(rank_runs, jax_runs, kind):
         fin = np.isfinite(jcn)
         assert (np.isfinite(cn) == fin).all()
         np.testing.assert_allclose(cn[fin], jcn[fin], **TOL)
+
+
+def _shard_bytes(kind, world):
+    """(leaves of the kind's state, bytes of one rank's shard of them)."""
+    leaves = []
+    SlamState.create(R.config(kind)).map(lambda t: leaves.append(t) or t)
+    return len(leaves), sum(t.numel() * t.element_size()
+                            for t in leaves) // world
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("kind", ["static", "cphd", "mixed", "fastslam"])
+@pytest.mark.parametrize("thresh", [0.0, 1.1])
+def test_sharded_step_moves_maps_only_when_it_resamples(rank_runs, world,
+                                                        kind, thresh):
+    """Each sharded step: the weights twice and the [P/W, 6] poses once
+    (normalisation, nEff, expected pose), one read of the device (the
+    resample's trigger); the state's leaves once, one rank's shard each,
+    only when the resample fires (1.1), as under JAX's lax.cond."""
+    steps = rank_runs[world]["__extras__"][f"{kind}-{thresh}"]["traffic"]
+    n_leaves, shard = _shard_bytes(kind, world)
+    pose_block = R.config(kind).n_particles // world * 6 * 4
+    assert len(steps) == R.T_STEPS
+    for t, rec in enumerate(steps):
+        keys = {"gather_rows step", "read_flag resample"}
+        if thresh > 1.0:
+            keys.add("gather_rows resample")
+        assert set(rec) == keys, (t, sorted(rec))
+        assert rec["read_flag resample"]["calls"] == 1
+        assert rec["gather_rows step"]["calls"] == 3
+        assert rec["gather_rows step"]["largest"] == pose_block
+        if thresh > 1.0:
+            res = rec["gather_rows resample"]
+            assert res["calls"] == n_leaves
+            assert res["offered"] == shard
+            assert res["received"] == shard * (world - 1)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(ISLAND_CASES))
+def test_island_step_swaps_shards_only_with_partners(rank_runs, world,
+                                                     name):
+    """Each island step across ranks: the [n/W] log-likelihoods and [n/W,
+    6] expected poses gathered, one read of the device (the exchange's
+    trigger); when it exchanges (1.1), exactly log2(W) exchange_rows calls
+    of the rank's whole shard with its partner ranks and nothing
+    gathered larger than [n/W, 6] floats; no transfer at all otherwise
+    (tests/test_multichip_evidence.py::
+    test_island_path_hlo_moves_only_shard_sized_data's counterpart)."""
+    case = ISLAND_CASES[name]
+    q = case["islands"] // world
+    _, shard = _shard_bytes(case["kind"], world)
+    rounds = world.bit_length() - 1
+    steps = rank_runs[world]["__extras__"][name]["traffic"]
+    assert len(steps) == R.T_STEPS
+    for t, rec in enumerate(steps):
+        keys = {"gather_rows island", "read_flag butterfly"}
+        if case["thresh"] > 1.0:
+            keys.add("exchange_rows butterfly")
+        assert set(rec) == keys, (t, sorted(rec))
+        assert rec["read_flag butterfly"]["calls"] == 1
+        assert rec["gather_rows island"]["calls"] == 2
+        assert rec["gather_rows island"]["largest"] == q * 6 * 4
+        if case["thresh"] > 1.0:
+            ex = rec["exchange_rows butterfly"]
+            assert ex["calls"] == rounds
+            assert ex["largest"] == shard
+            assert ex["offered"] == ex["received"] == rounds * shard
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(STEP_CASES) + list(ISLAND_CASES))
+def test_kernels_get_the_ranks_rows(rank_runs, world, name):
+    """Every kernel entry on a rank receives the rank's P/W rows, never the
+    global P (tests/test_multichip_evidence.py::
+    test_global_path_hlo_shards_flops_and_gathers_maps's counterpart)."""
+    case = {**STEP_CASES, **ISLAND_CASES}[name]
+    cfg = R.config(case["kind"])
+    P = cfg.n_particles * max(int(cfg.nPredictParticles), 1)
+    rows = rank_runs[world]["__extras__"][name]["rows"]
+    assert set(rows) == KERNELS[case["kind"]]
+    assert all(v == {P // world} for v in rows.values()), rows

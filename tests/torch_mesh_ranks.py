@@ -5,11 +5,14 @@ and nothing of ``phdslam_tpu`` (``loaded_reference_modules`` lets the test
 check that). ``run_case(case)`` runs a case in the single process;
 ``run_case(case, mesh)`` runs it on a rank of a mesh. Both return the same
 flat dict of numpy arrays (the global values), so the parent compares
-them key by key.
+them key by key. A rank also keeps, for each case, the mesh's traffic
+record of every step (taken before the step's log values are gathered)
+and the leading dimension each kernel entry received (``kernel_rows``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -23,6 +26,7 @@ from phdslam_tpu_torch import load_config, simdata
 from phdslam_tpu_torch.filter import disparity as TD
 from phdslam_tpu_torch.filter import step as TS
 from phdslam_tpu_torch.filter.state import Measurements, SlamState
+from phdslam_tpu_torch.kernels import _build
 from phdslam_tpu_torch.parallel import island as TI
 from phdslam_tpu_torch.parallel import mesh as TM
 
@@ -103,13 +107,40 @@ def flat(obj, prefix=""):
     return out
 
 
-def run_case(case, mesh=None):
+@contextlib.contextmanager
+def kernel_rows():
+    """Within: every kernel entry (``_build.kernel_for``'s callers) notes
+    the leading dimension of its first tensor argument (a list's first
+    tensor) in the yielded dict, {kernel: set of sizes}."""
+    rows, kernel_for = {}, _build.kernel_for
+
+    def noting(device, cuda_fn, plain_fn, what):
+        run = kernel_for(device, cuda_fn, plain_fn, what)
+
+        def call(*args, **kw):
+            first = args[0][0] if isinstance(args[0], (list, tuple)) \
+                else args[0]
+            rows.setdefault(what, set()).add(int(first.shape[0]))
+            return run(*args, **kw)
+
+        return call
+
+    _build.kernel_for = noting
+    try:
+        yield rows
+    finally:
+        _build.kernel_for = kernel_for
+
+
+def run_case(case, mesh=None, traffic=None):
     """One case: kind (a KINDS key), thresh (resampleThresh, or the island
     exchange's), steps; islands (n), scan (run_scan with its log), noises
     (global draws to replay, one per step; without them the draws come
     from a generator seeded 0) and z_prev (False: no previous set, as
     JAX's sharded_step is called). Returns flat(...) of every step's aux and
-    log values and the final global state."""
+    log values and the final global state. With a mesh and a list
+    ``traffic``, the mesh's traffic record of each step is appended to it
+    (of the whole run for a scan)."""
     kind, thresh = case["kind"], case["thresh"]
     n_steps = case.get("steps", T_STEPS)
     gen = torch.Generator().manual_seed(0)
@@ -117,20 +148,31 @@ def run_case(case, mesh=None):
     every = TM.everywhere(mesh)[0]
     shard = (lambda s: s) if mesh is None else \
         (lambda s: TM.shard_state(s, mesh))
+
+    def record(run):
+        """run(), the mesh's traffic record of it appended to traffic."""
+        if mesh is not None:
+            mesh.take_traffic()
+        out = run()
+        if mesh is not None and traffic is not None:
+            traffic.append(mesh.take_traffic())
+        return out
+
     if kind == "disparity":
         cfg = config(kind, resampleThresh=thresh)
         zs = disparity_inputs(cfg, n_steps)
         state = shard(TD.DisparityState.create(cfg))
         if case.get("scan"):
-            state, outs = TD.run_disparity_scan(
+            state, outs = record(lambda: TD.run_disparity_scan(
                 state, zs, float(cfg.dt), cfg, generator=gen,
-                with_map_log=True, mesh=mesh)
+                with_map_log=True, mesh=mesh))
             return flat(dict(outs=outs, state=every_state(state, mesh)))
         step = (lambda *a, **kw: TD.disparity_step(*a, cfg, **kw)) \
             if mesh is None else TM.sharded_disparity_step(cfg, mesh)
         steps = []
         for t, z in enumerate(zs):
-            state, aux = step(state, z, float(cfg.dt), t > 0, generator=gen)
+            state, aux = record(lambda: step(state, z, float(cfg.dt), t > 0,
+                                             generator=gen))
             steps.append((aux, TD.map_summary(state, mesh),
                           every(state.log_weights)))
         return flat(dict(steps=steps, state=every_state(state, mesh)))
@@ -143,12 +185,12 @@ def run_case(case, mesh=None):
         state = shard(state)
         steps, prev = [], None
         for t in range(n_steps):
-            state, ilw, aux, la = TI.island_slam_step(
+            state, ilw, aux = record(lambda: TI.island_slam_step(
                 state, ilw, ctrls[t], zs[t], float(cfg.dt), t > 0, cfg, n,
                 thresh=thresh, generator=gen, z_prev=prev,
-                noise=None if noises is None else noises[t],
-                with_log_state=True, mesh=mesh)
-            steps.append((aux, la))
+                noise=None if noises is None else noises[t], mesh=mesh))
+            # what with_log_state=True appends, apart from the step's record
+            steps.append((aux, TI.island_log_aux(state, ilw, n, mesh)))
             prev = zs[t]
         return flat(dict(steps=steps, ilw=ilw,
                          state=every_state(state, mesh)))
@@ -162,17 +204,17 @@ def run_case(case, mesh=None):
                                       with_log_state=True)
         else:
             run = TM.sharded_run_scan(cfg, mesh, with_log_state=True)
-            state, outs = run(state, ctrls, zs, [cfg.dt] * n_steps,
-                              generator=gen)
+            state, outs = record(lambda: run(
+                state, ctrls, zs, [cfg.dt] * n_steps, generator=gen))
         return flat(dict(outs=outs, state=every_state(state, mesh)))
     step = (lambda *a, **kw: TS.slam_step(*a[:5], cfg, **kw)) \
         if mesh is None else TM.sharded_step(cfg, mesh)
     steps, prev = [], None
     for t in range(n_steps):
-        state, aux = step(state, ctrls[t], zs[t], float(cfg.dt), t > 0,
-                          generator=gen,
-                          z_prev=prev if case.get("z_prev", True) else None,
-                          noise=None if noises is None else noises[t])
+        state, aux = record(lambda: step(
+            state, ctrls[t], zs[t], float(cfg.dt), t > 0, generator=gen,
+            z_prev=prev if case.get("z_prev", True) else None,
+            noise=None if noises is None else noises[t]))
         steps.append((aux, TS.log_aux(state, mesh=mesh)))
         prev = zs[t]
     return flat(dict(steps=steps, state=every_state(state, mesh)))
@@ -201,7 +243,13 @@ def _rank(rank, world, init_file, job_path, out_path):
     try:
         with open(job_path, "rb") as f:
             job = pickle.load(f)
-        res = {name: run_case(case, mesh) for name, case in job.items()}
+        res, extras = {}, {}
+        for name, case in job.items():
+            traffic = []
+            with kernel_rows() as rows:
+                res[name] = run_case(case, mesh, traffic)
+            extras[name] = dict(traffic=traffic, rows=rows)
+        res["__extras__"] = extras
         res["__reference_modules__"] = loaded_reference_modules()
         if rank == 0:
             with open(out_path, "wb") as f:
