@@ -78,12 +78,22 @@ code is not 0:
      330-step simdata run at cfg/ackerman_synth.cfg: the log contract,
      select and merge launched once per update step, mean pose error below
      1.5 m, both kernels against their plain versions on the run's last
-     launch, and select's early exits and live slots on that launch
-  3b. resume - the static runner over the first 120 steps of that run with
-     --checkpoint-every 50, then a fresh out-dir holding only
-     ckpt_000050.npz run with --resume (launch counts from 0): steps
-     51-119 byte-identical to the straight run's, select and merge
-     launched once per resumed step
+     launch, and select's early exits and live slots on that launch; then
+     the runner in scan mode on the same run (launch counts from 0): every
+     state_estimate log byte for byte the loop run's, metrics.jsonl the
+     same apart from its ms column (phases 4, 5, 6 and 6d do the same
+     after their loop runs: mixed, disparity, CPHD, FastSLAM)
+  3b. resume - each filter's runner over the first 120 steps of that run
+     (mixed: of phase 4's) with --checkpoint-every 50, then a fresh
+     out-dir holding only ckpt_000050.npz run with --resume (launch counts
+     from 0): static, FastSLAM (clutter 2, std_range 0.25) and mixed,
+     steps 51-119 byte-identical to the straight run's (metrics apart from
+     ms); CPHD and mixed with birth_velocity_init 1, step 51 differing (a
+     checkpoint holds no previous measurements, as in JAX) and every
+     resumed step with finite weights (CPHD: a normalised cardinality
+     line); then the disparity runner over its 100 steps, resumed from
+     step 50 byte for byte; each filter's kernels launched once per
+     resumed update step
   4. mixed main path - the runner (loop mode, --device cuda) at
      cfg/mixed_synth.cfg's full width (256 particles x 128 static + 128
      dynamic slots x 64 measurements) over the 150-step scenario of
@@ -193,7 +203,9 @@ code is not 0:
      first torch's per-row cumsum and sum on the card at the dense island
      pools (8 rows of 2048, 4 of 4096), rows taken 1, 2 and 4 at a time:
      the floats that differ alone (logged), none as among all
-     (ops/resample.py's layout_runs); (a)
+     (ops/resample.py's layout_runs); 100 cumsums of the same weights at
+     8192 to 262,144 floats, one row and as the first of two rows: the
+     distinct results (logged), one for the two-row form (F9); (a)
      one NCCL rank on this card, in this process: the dense static step
      (phase 7's shape and stream) through sharded_step against slam_step
      on the same draws, MESH_STEPS steps at a threshold that always fires
@@ -219,7 +231,17 @@ code is not 0:
      FastSLAM cfgs and cfg/disparity_synth.cfg, MESH_SIDE_STEPS steps
      each, bit for bit, launches equal to the single process's;
      sharded_run_scan over phase 3's run at 256 particles against
-     run_scan, bit for bit, mean pose error below 1.5 m; (c) the runner
+     run_scan, bit for bit, mean pose error below 1.5 m; in (a) and (b)
+     also BASELINE config 5 over the ranks, sharded_run_scan at 65,536
+     particles over the run's first 16 steps at thresholds 0 and 1.1,
+     warm then timed, bit for bit against run_scan, one read_flag a step,
+     the bytes received a step within 5 % of (W - 1) / W x (32 B a
+     particle, and the state's 203.7 MB on a firing step), and the dense
+     sharded disparity step (8192 x 128 x 64 points x 48, 3 steps) bit
+     for bit, its traffic exactly the weights and poses (label step) and
+     the pose, weights and clouds gathered on every step (label resample,
+     JAX's ungated jnp.take); in (a) the dense sharded disparity step
+     timed beside the plain one; (c) the runner
      with --islands 4 --truth --dist-backend gloo on those ranks over
      phase 3's run, loop and scan: every file of phase 9c's one-card run
      byte for byte (metrics.jsonl apart from its ms, loopTime.log a line
@@ -234,7 +256,8 @@ code is not 0:
      step of each of the bench's modes (exact; merge_mode 1; merge_mode 1
      with select_top_k 2) through phase 7's timing: select at k1 = 8, 4,
      2 and merge on pools of 1088, 832 and 704 candidates, both against
-     plain on the last step's inputs
+     plain on the last step's inputs; python3 -m phdslam_tpu_torch.bench
+     --quick (512 x 128) as a user runs it, its JSON line
  9f. the evidence entry points (phdslam_tpu_torch/evidence/), each as a
      user runs it (main(argv), --device cuda, the results into a temporary
      file) with the launch counts from 0: round3's phases vmap, merge,
@@ -251,8 +274,27 @@ code is not 0:
      CPHD and disparity arms 1.5 m, mixed 2.0 m, FastSLAM's low-clutter
      cells 1.5 m), the CPHD dwell error within 2.0 and the OSPA gap within
      2e-2
- 10. the card's name and power limit, the kernels' JSON line, then
-     {"ok": true, "device": {...}} last
+ 9g. BASELINE config 5 (eval_baselines.py's config 5): one filter of
+     65,536 particles (cfg/ackerman_synth.cfg, 128 slots, 64
+     measurements) on this card, run_scan over the first 16 steps of
+     phase 3's run, a warm pass then a timed one ending in a synchronise,
+     exact and merge_mode 1: ms a step, the split into glue, select and
+     merge, peak device memory; select (k1 8 and 4) and merge (the step's
+     own pools) on each pass's last inputs against plain (select in
+     chunks of 8192 particles; two merge launches bit-identical), each
+     timed beside its bound; then the runner in scan mode at that width
+     over the whole 330-step run: a log a step with every particle,
+     loopTime.log and metrics.jsonl, select and merge once a step, mean
+     pose error below 1.5 m, peak memory
+ 9h. constant-velocity motion (motion_type 0, cfg/cv_synth.cfg) at 256 x
+     128 x 64 on phase 3's measurement sets: 20 card steps, then one step
+     from that state on one set of draws on the card and on the CPU
+     (plain versions): poses, log-weights, maps and aux values within
+     rtol 2e-4 / atol 1e-5, resample indices exact, at most 0.1 % of the
+     particles differing; the dense CV step timed beside the dense
+     Ackerman step, two rounds
+ 10. the seconds of the whole run, the card's name and power limit, the
+     kernels' JSON line, then {"ok": true, "device": {...}} last
 
     python3 chip_smoke.py --profile
 
@@ -410,6 +452,19 @@ MESH_STEPS, MESH_RANKS, MESH_SIDE_STEPS = 4, 2, 20
 # the dense island step across those ranks, at these island counts, and
 # the thresholds of the sharded and island steps: never, always
 MESH_ISLANDS, MESH_THRESHOLDS = (4, 8), (0.0, 1.1)
+# BASELINE config 5 (phase 9g; eval_baselines.py's config 5):
+# cfg/ackerman_synth.cfg at CONFIG5's width over phase 3's run, run_scan
+# over its first CONFIG5_STEPS steps, the plain comparisons CONFIG5_CHUNK
+# particles at a time; over the mesh (phase 9d), the bytes received a step
+# within CONFIG5_BYTES_TOL of the prediction
+CONFIG5 = dict(P=65536, F=128, M=64)
+CONFIG5_STEPS, CONFIG5_CHUNK, CONFIG5_BYTES_TOL = 16, 8192, 0.05
+# F9's reading (phase 9d): CUMSUM_CALLS CUDA cumsums of the same weights
+# at each size, one row and as the first of two rows
+CUMSUM_SIZES, CUMSUM_CALLS = (8192, 32768, 65536, 262144), 100
+# the dense sharded disparity step's steps (phase 9d); the constant-velocity
+# card steps before the compared one (phase 9h)
+MESH_DISP_STEPS, CV_STEPS = 3, 20
 # the measuring entry points (phase 9e): the stage profile's stage count
 # (10 at each of its 2 shapes, and the disparity step) and the kernels its
 # stages launch
@@ -522,14 +577,20 @@ def zero_launch_counts():
     _auction().launches = _auction().launches_square = 0
 
 
-def bound(stats, name, n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops):
     """The least time of the work on this card: bytes moved over the memory
-    rate or float32 operations over the peak rate, the larger."""
+    rate or float32 operations over the peak rate, the larger; returns
+    (ms, "bytes" or "operations")."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / PEAK_F32_OPS * 1e3
-    stats[name].update(bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops
-                       else "operations")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def bound(stats, name, n_bytes, n_ops):
+    """bound_ms into stats[name] (bound_ms, bound_by)."""
+    ms, by = bound_ms(n_bytes, n_ops)
+    stats[name].update(bound_ms=ms, bound_by=by)
 
 
 def _new_stats(stats, *names):
@@ -1799,13 +1860,31 @@ def float64_sides(out, plain, bad, plain_fn, a, kw):
 def agree_on_every_launch(t, plain_fn, stats, what):
     """Every launch the timer kept against the plain version on the same
     inputs: at most MAX_DIFFER of the particles over all launches differ.
-    A particle that differs is run again through the plain version in
-    float64, to see which of the two float32 results it sides with."""
+    The plain version runs once on the inputs of all launches of one shape
+    and one set of scalars, stacked on the particle axis (each particle's
+    result is its own). A particle that differs is run again through the
+    plain version in float64, to see which of the two float32 results it
+    sides with."""
     import torch
+    key = lambda a, kw: (tuple(tuple(x.shape[1:]) if torch.is_tensor(x)
+                               else x for x in a), tuple(sorted(kw.items())))
+    groups = {}
+    for a, kw, out in t.kept:
+        groups.setdefault(key(a, kw), []).append((a, kw, out))
+    plains = []
+    for runs in groups.values():
+        a0, kw0, _ = runs[0]
+        stacked = plain_fn(*(torch.cat([r[0][i] for r in runs])
+                             if torch.is_tensor(x) else x
+                             for i, x in enumerate(a0)), **kw0)
+        lo = 0
+        for a, kw, out in runs:
+            n = out[0].shape[0]
+            plains.append((a, kw, out, [p[lo:lo + n] for p in stacked]))
+            lo += n
     n_bad = n_rows = worst = by_kern = by_plain = 0
     err = 0.0
-    for a, kw, out in t.kept:
-        plain = plain_fn(*a, **kw)
+    for a, kw, out, plain in plains:
         bad, errs = differing_rows(out, plain)
         b = int(bad.sum())
         n_bad, n_rows = n_bad + b, n_rows + out[0].shape[0]
@@ -1839,24 +1918,71 @@ def run_cli(args, tm):
     return launch_counts(), time.perf_counter() - t_run, res
 
 
-def runner_args(d, out, dev, seed=0, extra=()):
+def runner_args(d, out, dev, seed=0, extra=(), mode="loop"):
     """The synth runner's arguments for d/run.cfg on the run files in d,
-    loop mode unless extra names another."""
+    in mode (loop unless extra names another)."""
     return [str(Path(d, "run.cfg")), "synth", "--measurements",
             str(Path(d, "measurements.txt")), "--controls",
             str(Path(d, "controls.txt")), "--data-dir", str(d),
-            "--out-dir", str(out), "--mode", "loop", "--device", dev.type,
+            "--out-dir", str(out), "--mode", mode, "--device", dev.type,
             "--seed", str(seed), *extra]
 
 
-def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0, extra=(), out=None):
-    """The synth runner in loop mode on the run files in d, with the extra
-    arguments, into out (default: a new out<N> in d); returns (launch
-    counts, run seconds, out dir)."""
+def run_runner(d, cfg_text, steps_cfg, dev, tm, seed=0, extra=(), out=None,
+               mode="loop"):
+    """The synth runner in mode (loop or scan) on the run files in d, with
+    the extra arguments, into out (default: a new out<N> in d); returns
+    (launch counts, run seconds, out dir)."""
     Path(d, "run.cfg").write_text(cfg_text + steps_cfg)
     out = out or Path(d, f"out{len(list(Path(d).glob('out*')))}")
-    launches, run_s, _ = run_cli(runner_args(d, out, dev, seed, extra), tm)
+    launches, run_s, _ = run_cli(runner_args(d, out, dev, seed, extra, mode),
+                                 tm)
     return launches, run_s, out
+
+
+def metrics_rows(out, skip=("ms",)):
+    """The metrics.jsonl lines of a run, without the keys in skip."""
+    return [{k: v for k, v in json.loads(line).items() if k not in skip}
+            for line in (Path(out) / "metrics.jsonl").read_text()
+            .splitlines()]
+
+
+def same_logs(ref, got, steps, what):
+    """Raise unless the run in got wrote ref's state_estimate log of every
+    step in steps byte for byte, and ref's metrics.jsonl lines of those
+    steps apart from their ms (loopTime.log: a line a step)."""
+    differ = [t for t in steps
+              if Path(got, f"state_estimate{t:05d}.log").read_bytes()
+              != Path(ref, f"state_estimate{t:05d}.log").read_bytes()]
+    n_logs = len(list(Path(got).glob("state_estimate*.log")))
+    rows = {r["t"]: r for r in metrics_rows(ref)}
+    same_rows = metrics_rows(got) == [rows[t] for t in steps]
+    n_times = len(Path(got, "loopTime.log").read_text().split())
+    if differ or n_logs != len(steps) or n_times != len(steps) \
+            or not same_rows:
+        raise RuntimeError(
+            f"{what}: the logs of steps {differ[:5]}"
+            f"{' ...' if len(differ) > 5 else ''} ({len(differ)} of "
+            f"{len(steps)}) differ, {n_logs} logs, {n_times} times, "
+            f"metrics {'equal' if same_rows else 'differ'}")
+
+
+def scan_as_loop(run, loop_out, n_steps, expect, what):
+    """run() -> (launch counts, run seconds, out dir): the runner in scan
+    mode on the run loop_out's loop run read, launch counts from 0. Every
+    state_estimate log byte for byte the loop run's and every metrics line
+    the same apart from its ms (``same_logs``); each kernel launched as
+    expect says. Returns the scan's ms a step."""
+    launches, run_s, out = run()
+    check_launches(launches, expect, f"{what}, scan mode")
+    same_logs(loop_out, out, range(n_steps), f"{what}, scan mode")
+    ms = float(np.loadtxt(Path(out, "loopTime.log")).mean())
+    log(f"{what}, scan mode: its {n_steps} state_estimate logs byte for "
+        f"byte the loop run's, metrics.jsonl equal apart from ms; "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                 if v)
+        + f"; {ms:.3f} ms/step, run {run_s:.1f} s")
+    return ms
 
 
 def check_launches(launches, expect, what):
@@ -1900,11 +2026,15 @@ def phase_main_path(dev, stats):
     tm = timers()
     with tempfile.TemporaryDirectory() as d:
         sc, n_steps, start = static_run_files(d)
-        launches, run_s, out = run_runner(
-            d, (ROOT / "cfg/ackerman_synth.cfg").read_text(), start, dev, tm)
+        cfg_text = (ROOT / "cfg/ackerman_synth.cfg").read_text()
+        launches, run_s, out = run_runner(d, cfg_text, start, dev, tm)
         n_logs = len(list(out.glob("state_estimate*.log")))
         loop_ms = np.loadtxt(out / "loopTime.log")
         _, errs = pose_errors(out, sc.traj, n_steps, 2)
+        stats.setdefault("scan_ms_per_step", {})["static"] = scan_as_loop(
+            lambda: run_runner(d, cfg_text, start, dev, {}, mode="scan"),
+            out, n_steps, dict(select=n_steps, merge=n_steps, esf=0,
+                               auction=0), "static main path")
     # every step of this run has measurements, so every step updates
     n_update = n_steps
     log(f"main path: {n_steps} steps, {n_logs} state_estimate logs, "
@@ -1942,52 +2072,141 @@ def phase_main_path(dev, stats):
 
 # ------------------------------------------------ phase 3b: resume --
 
+def resume_pair(run, steps, what):
+    """run(extra, out) -> (launch counts, seconds, out dir): the straight
+    run with --checkpoint-every RESUME_EVERY, then a fresh out-dir holding
+    only the checkpoint after step RESUME_FROM run with --resume (launch
+    counts from 0). Returns (the straight and resumed out dirs, the
+    resumed run's launches, the checkpoints kept, the seconds of each)."""
+    _, run_s, straight = run(("--checkpoint-every", str(RESUME_EVERY)),
+                             None)
+    ckpts = sorted(p.name for p in (straight / "checkpoints").iterdir())
+    expect = [f"ckpt_{t:06d}.npz"
+              for t in range(RESUME_EVERY, steps, RESUME_EVERY)]
+    if ckpts != expect[-3:]:
+        raise RuntimeError(f"{what} resume: checkpoints {ckpts}, expected "
+                           f"{expect[-3:]}")
+    out = Path(straight.parent, straight.name + "_resumed")
+    (out / "checkpoints").mkdir(parents=True)
+    name = f"ckpt_{RESUME_FROM:06d}.npz"
+    (out / "checkpoints" / name).write_bytes(
+        (straight / "checkpoints" / name).read_bytes())
+    launches, res_s, _ = run(("--resume",), out)
+    return straight, out, launches, ckpts, (run_s, res_s)
+
+
+def resumed_lines_valid(out, steps, cphd, what):
+    """Every resumed step's log: finite log-weights summing to 1 within
+    1e-3 and, under CPHD, a normalised cardinality log-pmf."""
+    from phdslam_tpu_torch.io.logs import read_state_estimate_log
+    for t in steps:
+        lg = read_state_estimate_log(str(out / f"state_estimate{t:05d}.log"))
+        w = lg["weights"]
+        ok = np.isfinite(w).all() and abs(np.exp(w.astype(np.float64)).sum()
+                                          - 1.0) < 1e-3
+        if cphd:
+            with np.errstate(over="ignore"):
+                pmf = np.exp(lg["cardinality"].astype(np.float64))
+            ok = ok and np.isfinite(pmf).all() \
+                and abs(np.log(pmf.sum())) < 1e-3
+        if not ok:
+            raise RuntimeError(f"{what} resume: step {t}'s weights or "
+                               "cardinality line invalid")
+
+
+# (name, cfg, cfg lines, run files, resumed logs byte for byte, kernels
+# launched once a resumed step): the straight run byte for byte unless the
+# filter reads the previous step's measurements (CPHD births, the mixed
+# model's birth_velocity_init), which a checkpoint does not hold (as in
+# JAX): then the first resumed step differs
+RESUME_CASES = (
+    ("static", "cfg/ackerman_synth.cfg", "", "static", True,
+     ("select", "merge")),
+    ("FastSLAM", "cfg/fastslam_synth.cfg",
+     "std_range = 0.25\nclutter_rate = 2.0\n", "static", True,
+     ("auction",)),
+    ("mixed", "cfg/mixed_synth.cfg", "", "mixed", True,
+     ("select", "select4", "merge", "merge4")),
+    ("mixed birth_velocity_init", "cfg/mixed_synth.cfg",
+     "birth_velocity_init = 1\n", "mixed", False,
+     ("select", "select4", "merge", "merge4")),
+    ("CPHD", "cfg/ackerman_synth.cfg", "filter_type = 1\n", "static",
+     False, ("esf", "select", "merge")),
+)
+
+
 def phase_resume(dev, stats):
-    """The static runner over RESUME_STEPS steps of phase 3's run with
-    --checkpoint-every RESUME_EVERY, then, counts from 0, a fresh out-dir
-    holding only the checkpoint after step RESUME_FROM run with --resume:
-    every later step's log byte-identical to the straight run's, select
-    and merge launched once per resumed update step."""
+    """Each filter's runner over RESUME_STEPS steps of phase 3's run
+    (mixed: of phase 4's) with --checkpoint-every RESUME_EVERY, then,
+    counts from 0, a fresh out-dir holding only the checkpoint after step
+    RESUME_FROM run with --resume: every later step's log byte-identical
+    to the straight run's and its metrics line the same apart from ms
+    (static, FastSLAM at clutter 2, mixed); the first resumed step's log
+    differing and every later one with finite weights and (CPHD) a
+    normalised cardinality line (CPHD, mixed with birth_velocity_init);
+    the filter's kernels launched once per resumed update step. Then the
+    disparity runner over its 100 steps, resumed byte for byte the
+    same way."""
     t0 = time.perf_counter()
-    cfg_text = (ROOT / "cfg/ackerman_synth.cfg").read_text()
+    steps = range(RESUME_FROM + 1, RESUME_STEPS)
+    kinds = ("select", "select4", "merge", "merge4", "merge3", "esf",
+             "auction")
     with tempfile.TemporaryDirectory() as d:
-        sc, _, start = static_run_files(d)
-        steps_cfg = start + f"n_steps = {RESUME_STEPS}\n"
-        _, run_s, straight = run_runner(
-            d, cfg_text, steps_cfg, dev, {},
-            extra=("--checkpoint-every", str(RESUME_EVERY)))
-        ckpts = sorted(p.name for p in (straight / "checkpoints").iterdir())
-        expect = [f"ckpt_{t:06d}.npz"
-                  for t in range(RESUME_EVERY, RESUME_STEPS, RESUME_EVERY)]
-        if ckpts != expect[-3:]:
-            raise RuntimeError(f"resume: checkpoints {ckpts}, expected "
-                               f"{expect[-3:]}")
-        out = Path(d, "resumed")
-        (out / "checkpoints").mkdir(parents=True)
-        name = f"ckpt_{RESUME_FROM:06d}.npz"
-        (out / "checkpoints" / name).write_bytes(
-            (straight / "checkpoints" / name).read_bytes())
-        launches, res_s, _ = run_runner(d, cfg_text, steps_cfg, dev, {},
-                                        extra=("--resume",), out=out)
-        steps = range(RESUME_FROM + 1, RESUME_STEPS)
-        differ = [t for t in steps
-                  if (out / f"state_estimate{t:05d}.log").read_bytes()
-                  != (straight / f"state_estimate{t:05d}.log").read_bytes()]
-        n_logs = len(list(out.glob("state_estimate*.log")))
-        size = (straight / "checkpoints" / ckpts[-1]).stat().st_size
-    log(f"resume: straight run {RESUME_STEPS} steps ({run_s:.1f} s), "
-        f"checkpoints {ckpts} (the last {size} bytes); resumed "
-        f"from {name}: {n_logs} logs, launches {launches} ({res_s:.1f} s); "
-        f"steps {steps[0]}-{steps[-1]} differing from the straight run: "
-        f"{differ[:5]}{' ...' if len(differ) > 5 else ''} "
-        f"({len(differ)} of {len(steps)})")
-    if differ or n_logs != len(steps):
-        raise RuntimeError("resume: the resumed run's logs are not the "
-                           "straight run's")
-    # every step of this run has measurements, so every step updates
-    check_launches(launches, dict(select=len(steps), merge=len(steps),
-                                  esf=0, auction=0, ospa_auction=0),
-                   "resumed static run")
+        files = dict(static=static_run_files(Path(d, "static"))[2],
+                     mixed=mixed_run_files(Path(d, "mixed"))[3])
+        for name, cfg_file, lines, data, exact, kernels in RESUME_CASES:
+            cfg_text = (ROOT / cfg_file).read_text() + lines
+            steps_cfg = files[data] + f"n_steps = {RESUME_STEPS}\n"
+            run = lambda extra, out: run_runner(
+                Path(d, data), cfg_text, steps_cfg, dev, {}, extra=extra,
+                out=out)
+            straight, out, launches, ckpts, secs = resume_pair(
+                run, RESUME_STEPS, name)
+            first = f"state_estimate{steps[0]:05d}.log"
+            if exact:
+                same_logs(straight, out, steps, f"{name} resume")
+            elif (out / first).read_bytes() == (straight / first) \
+                    .read_bytes():
+                raise RuntimeError(f"{name} resume: the first resumed "
+                                   "step's log equals the straight run's")
+            else:
+                resumed_lines_valid(out, steps, "filter_type = 1" in lines,
+                                    name)
+                n_logs = len(list(out.glob("state_estimate*.log")))
+                if n_logs != len(steps):
+                    raise RuntimeError(f"{name} resume: {n_logs} logs")
+            check_launches(launches, {k: len(steps) if k in kernels else 0
+                                      for k in kinds}, f"resumed {name} run")
+            log(f"resume, {name}: straight run {RESUME_STEPS} steps "
+                f"({secs[0]:.1f} s), checkpoints {ckpts}; resumed from "
+                f"step {RESUME_FROM} ({secs[1]:.1f} s): steps {steps[0]}-"
+                f"{steps[-1]} "
+                + ("byte for byte the straight run's (logs; metrics apart "
+                   "from ms)" if exact else
+                   f"written, step {steps[0]} differing from the straight "
+                   "run's (no previous measurements after a resume, as in "
+                   "JAX), every resumed step's weights finite"
+                   + (" and cardinality normalised"
+                      if "filter_type" in lines else ""))
+                + ", launches " + ", ".join(f"{k} {v}" for k, v in
+                                            launches.items() if v))
+
+        n_disp = len(np.loadtxt(DISP_DATA / "traj.txt", comments="%"))
+        disp = Path(d, "disparity")
+        run = lambda extra, out: run_disparity(
+            out or disp, dev, {}, extra=extra) + (out or disp,)
+        straight, out, launches, ckpts, secs = resume_pair(
+            run, n_disp, "disparity")
+        d_steps = range(RESUME_FROM + 1, n_disp)
+        same_logs(straight, out, d_steps, "disparity resume")
+        n_update = sum(r["n_measure"] > 0 for r in metrics_rows(out))
+        check_launches(launches, {k: n_update if k == "merge3" else 0
+                                  for k in kinds}, "resumed disparity run")
+        log(f"resume, disparity: straight run {n_disp} steps "
+            f"({secs[0]:.1f} s), checkpoints {ckpts}; resumed from step "
+            f"{RESUME_FROM} ({secs[1]:.1f} s): steps {d_steps[0]}-"
+            f"{d_steps[-1]} byte for byte the straight run's (logs; "
+            f"metrics apart from ms), launches merge3 {launches['merge3']}")
     log(f"phase resume: ok ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -2018,28 +2237,37 @@ def mover_share(logs, truth, traj, cfg):
     return float(np.mean(hits)) if hits else float("nan"), len(hits)
 
 
-def phase_mixed_main_path(dev, stats):
-    from phdslam_tpu_torch import load_config, simdata
+def mixed_run_files(d):
+    """The mover run of phases 4 and 3b in d: scripts/mixed_evidence.py's
+    scenario (40 landmarks, three movers, seed 500), every step with
+    measurements. Returns (scenario, the movers' truth, steps, the cfg
+    lines of its start pose)."""
+    from phdslam_tpu_torch import simdata
     from phdslam_tpu_torch.evidence.mixed import MOVER0, MOVER_V
-    from phdslam_tpu_torch.io.logs import read_state_estimate_log
-
-    t0 = time.perf_counter()
     sc = simdata.make_scenario(np.random.default_rng(11),
                                n_landmarks=MIXED_LANDMARKS,
                                n_steps=MIXED_STEPS)
     controls, meas, truth = simdata.generate_mixed_run(
         np.random.default_rng(500), sc, MOVER0, MOVER_V,
         control_noise=(0.2, 0.01))
-    n_steps = len(meas)
     if not all(len(z) for z in meas):
         raise RuntimeError("mixed scenario has a step without measurements")
+    simdata.write_run_files(str(d), controls, meas)
+    x0, y0, yaw0 = sc.traj[0]
+    return sc, truth, len(meas), (f"\ninitial_x = {x0}\ninitial_y = {y0}"
+                                  f"\ninitial_yaw = {yaw0}\n")
+
+
+def phase_mixed_main_path(dev, stats):
+    from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.io.logs import read_state_estimate_log
+
+    t0 = time.perf_counter()
     base = (ROOT / "cfg/mixed_synth.cfg").read_text()
     cfg = load_config(str(ROOT / "cfg/mixed_synth.cfg"))
-    x0, y0, yaw0 = sc.traj[0]
-    start = f"\ninitial_x = {x0}\ninitial_y = {y0}\ninitial_yaw = {yaw0}\n"
     tm = timers()
     with tempfile.TemporaryDirectory() as d:
-        simdata.write_run_files(d, controls, meas)
+        sc, truth, n_steps, start = mixed_run_files(d)
         launches, run_s, out = run_runner(d, base, start, dev, tm)
         logs = [read_state_estimate_log(str(out / f"state_estimate{t:05d}"
                                             ".log")) for t in range(n_steps)]
@@ -2076,6 +2304,11 @@ def phase_mixed_main_path(dev, stats):
             f"{k} {t.ms() / n_steps:.4f}" for k, t in tm.items() if t.pairs))
         for k in ("select4", "merge4"):
             stats[k]["launches"] = launches[k]
+        stats.setdefault("scan_ms_per_step", {})["mixed"] = scan_as_loop(
+            lambda: run_runner(d, base, start, dev, {}, mode="scan"), out,
+            n_steps, dict(select=n_steps, select4=n_steps, merge=n_steps,
+                          merge4=n_steps, select_by_index=0,
+                          select4_by_index=0), "mixed main path")
 
         # the by-index modes, on the first steps of the same run
         tm = timers()
@@ -2103,13 +2336,14 @@ def phase_mixed_main_path(dev, stats):
 DISP_DATA = ROOT / "data/disparity_synth"
 
 
-def run_disparity(out, dev, tm, seed=0):
-    """The disparity runner in loop mode on the shipped cfg and data;
-    returns (launch counts, run seconds)."""
+def run_disparity(out, dev, tm, seed=0, mode="loop", extra=()):
+    """The disparity runner in mode (loop or scan) on the shipped cfg and
+    data, with the extra arguments; returns (launch counts, run
+    seconds)."""
     return run_cli([str(ROOT / "cfg/disparity_synth.cfg"), "disparity",
                     "--data-dir", str(DISP_DATA), "--out-dir", str(out),
-                    "--mode", "loop", "--device", dev.type, "--seed",
-                    str(seed)], tm)[:2]
+                    "--mode", mode, "--device", dev.type, "--seed",
+                    str(seed), *extra], tm)[:2]
 
 
 def phase_disparity_main_path(dev, stats):
@@ -2124,7 +2358,12 @@ def phase_disparity_main_path(dev, stats):
         metrics = [json.loads(x) for x in
                    (out / "metrics.jsonl").read_text().splitlines()]
         logs, errs = pose_errors(out, traj, n_steps, 3)
-    n_update = sum(m["n_measure"] > 0 for m in metrics)
+        n_update = sum(m["n_measure"] > 0 for m in metrics)
+        scan_out = Path(d, "scan")
+        stats.setdefault("scan_ms_per_step", {})["disparity"] = scan_as_loop(
+            lambda: run_disparity(scan_out, dev, {}, mode="scan")
+            + (scan_out,), out, n_steps, dict(merge3=n_update, merge=0),
+            "disparity main path")
     n_map = np.array([len(lg["static"]) for lg in logs])
     log(f"disparity main path: {n_steps} steps, launches {launches} (steps "
         f"with measurements {n_update}), camera position error mean "
@@ -2160,11 +2399,18 @@ def phase_cphd_main_path(dev, stats):
     tm["merge"].kept = []
     with tempfile.TemporaryDirectory() as d:
         sc, n_steps, start = static_run_files(d)
+        cfg_text = (ROOT / "cfg/ackerman_synth.cfg").read_text()
         launches, run_s, out = run_runner(
-            d, (ROOT / "cfg/ackerman_synth.cfg").read_text(),
-            start + "filter_type = 1\n", dev, tm)
+            d, cfg_text, start + "filter_type = 1\n", dev, tm)
         loop_ms = np.loadtxt(out / "loopTime.log")
         logs, errs = pose_errors(out, sc.traj, n_steps, 2)
+        # step 0 of the scan gets an empty previous set, the loop none:
+        # no births either way
+        stats.setdefault("scan_ms_per_step", {})["CPHD"] = scan_as_loop(
+            lambda: run_runner(d, cfg_text, start + "filter_type = 1\n",
+                               dev, {}, mode="scan"), out, n_steps,
+            dict(esf=n_steps, select=n_steps, merge=n_steps),
+            "CPHD main path")
     cn = np.stack([lg["cardinality"] for lg in logs])       # [T, N+1]
     with np.errstate(over="ignore"):
         pmf = np.exp(cn.astype(np.float64))
@@ -2710,6 +2956,13 @@ def phase_fastslam_runner(dev, stats):
         log(f"FastSLAM profile replay of state100.pkl: "
             + ", ".join(f"{x:.3f}" for x in res["ms"]) + " ms")
         stats["fastslam_runner_ms_per_step"] = float(loop_ms.mean())
+        # scan mode has no --predict-time (loop mode only); the loop run's
+        # logs do not depend on it
+        stats.setdefault("scan_ms_per_step", {})["FastSLAM"] = scan_as_loop(
+            lambda: run_runner(d, cfg_text, start, dev, {}, mode="scan",
+                               extra=("--truth", str(truth))), out,
+            n_steps, dict(auction=n_steps, select=0, merge=0),
+            "FastSLAM runner")
 
         launches, run_s, out = run_runner(
             d, cfg_text, start + f"n_steps = {FS_SHORT_STEPS}\n"
@@ -3250,10 +3503,12 @@ def same_bits(ref, got, what):
 
 def mesh_pair(make, n_steps, mesh, what):
     """make(mesh) -> (state, step(state, t)). The sharded run (launch
-    counts and the mesh's traffic record from 0), then the single-process
-    run (make(None)), n_steps steps each from step 0: every aux and the
-    final global state bit for bit, and the same launches, some kernel
-    launched. Returns (the launches, the sharded run's traffic record)."""
+    counts and the mesh's traffic record from 0; timed on the host clock,
+    ending in a synchronise, from step 0), then the single-process run
+    (make(None)), n_steps steps each from step 0: every aux and the final
+    global state bit for bit, and the same launches, some kernel
+    launched. Returns (the launches, the sharded run's traffic record,
+    its ms a step)."""
     import torch
     from phdslam_tpu_torch.parallel.mesh import unshard_state
 
@@ -3263,15 +3518,18 @@ def mesh_pair(make, n_steps, mesh, what):
         if m is not None:
             m.take_traffic()
         auxs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for t in range(n_steps):
             state, aux = step(state, t)
             auxs.append(aux)
         torch.cuda.synchronize()
-        return state, auxs, launch_counts(), m and m.take_traffic()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        return state, auxs, launch_counts(), m and m.take_traffic(), ms
 
-    state, auxs, launches, moved = run(mesh)
+    state, auxs, launches, moved, ms = run(mesh)
     state = unshard_state(state, mesh)
-    p_state, p_auxs, p_launches, _ = run(None)
+    p_state, p_auxs, p_launches, _, _ = run(None)
     same_bits((p_auxs, p_state), (auxs, state), what)
     if launches != p_launches or not any(launches.values()):
         raise RuntimeError(f"{what}: launches {launches}, the single "
@@ -3279,8 +3537,9 @@ def mesh_pair(make, n_steps, mesh, what):
     log(f"{what}: {n_steps} steps bit for bit with the single process "
         "(every aux value and state leaf), launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
-        + "; a step: " + traffic_line(moved, n_steps))
-    return launches, moved
+        + f"; {ms:.3f} ms a step (host clock, from step 0); a step: "
+        + traffic_line(moved, n_steps))
+    return launches, moved, ms
 
 
 def traffic_line(moved, n_steps):
@@ -3310,27 +3569,36 @@ def check_moved(moved, n_steps, what, read, gated, calls, small):
     return moved.get(gated, {}).get("received", 0) / n_steps
 
 
-def mesh_scan(dev, mesh, run_dir):
-    """sharded_run_scan over phase 3's run (the files in run_dir) at its
-    256 particles against run_scan on the same draws, bit for bit; the
-    mean pose error below POSE_BAR_M. Returns (launches, the error)."""
-    import torch
-    from phdslam_tpu_torch import load_config, runner, simdata
-    from phdslam_tpu_torch.filter.state import SlamState
-    from phdslam_tpu_torch.filter.step import run_scan
+def scan_inputs(run_dir, cfg, dev, n_steps=None):
+    """The run files in run_dir as the runner's scan mode feeds run_scan
+    (its schedule, padded to cfg's measurements), the first n_steps steps
+    (all by default): (controls, Measurements on dev, dts)."""
+    from phdslam_tpu_torch import runner
     from phdslam_tpu_torch.io import loaders
-    from phdslam_tpu_torch.parallel.mesh import (shard_state,
-                                                 sharded_run_scan,
-                                                 unshard_state)
-    cfg = load_config(str(Path(run_dir, "run.cfg")))
     sets = loaders.load_measurements(str(Path(run_dir, "measurements.txt")))
     controls = loaders.load_controls(str(Path(run_dir, "controls.txt")))
+    sets = sets[:n_steps or len(sets)]
     rb, labels, valid = loaders.pad_measurement_sets(sets,
                                                      cfg.maxMeasurements)
     steps = runner._step_inputs(runner.schedule_inputs(len(sets), None,
                                                        None),
                                 controls, rb, labels, valid, cfg, dev)
-    ctrls, zs, dts = ([s[i] for s in steps] for i in range(3))
+    return tuple([s[i] for s in steps] for i in range(3))
+
+
+def mesh_scan(dev, mesh, run_dir):
+    """sharded_run_scan over phase 3's run (the files in run_dir) at its
+    256 particles against run_scan on the same draws, bit for bit; the
+    mean pose error below POSE_BAR_M. Returns (launches, the error)."""
+    import torch
+    from phdslam_tpu_torch import load_config, simdata
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import run_scan
+    from phdslam_tpu_torch.parallel.mesh import (shard_state,
+                                                 sharded_run_scan,
+                                                 unshard_state)
+    cfg = load_config(str(Path(run_dir, "run.cfg")))
+    ctrls, zs, dts = scan_inputs(run_dir, cfg, dev)
     gen = lambda: torch.Generator(device=dev).manual_seed(0)
     what = (f"sharded_run_scan ({mesh.world_size} {mesh.backend} ranks x "
             f"{cfg.n_particles // mesh.world_size})")
@@ -3390,7 +3658,10 @@ def row_layouts(dev):
     pools (8 rows of 2048 uniform weights, 4 of 4096): rows taken 1, 2 and
     4 at a time alone against the same rows among all; the floats that
     differ alone are logged, and none may differ as among all
-    (ops/resample.py's ``among``, the island step's ``layout_runs``)."""
+    (ops/resample.py's ``among``, the island step's ``layout_runs``).
+    Then CUMSUM_CALLS cumsums of the same weights at CUMSUM_SIZES, one
+    row and as the first of two rows: the distinct results of each are
+    logged, and the two-row form (the resample's, F9) must give one."""
     import torch
     from phdslam_tpu_torch.ops.resample import among
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -3415,6 +3686,29 @@ def row_layouts(dev):
                 parts.append(f"{name} [{q} of {n}, {width}] {alone}")
     log("rows alone against the same rows among all, floats that differ "
         "(none as among all): " + ", ".join(parts))
+    # F9: one row's CUDA cumsum (CUB's device scan) need not repeat itself;
+    # the resample scans one run as the first of two rows, which must
+    parts = []
+    for n in CUMSUM_SIZES:
+        w = torch.rand((1, n), generator=gen, device=dev)
+        w = w / w.sum()
+        two = w.repeat(2, 1)
+        counts = []
+        for fn in (lambda: torch.cumsum(w, 1),
+                   lambda: torch.cumsum(two, 1)[:1]):
+            outs = [fn() for _ in range(CUMSUM_CALLS)]
+            distinct = []
+            for o in outs:
+                if not any(torch.equal(o, u) for u in distinct):
+                    distinct.append(o)
+            counts.append(len(distinct))
+        if counts[1] != 1:
+            raise RuntimeError(f"cumsum of {n} floats as the first of two "
+                               f"rows: {counts[1]} distinct results")
+        parts.append(f"{n} floats {counts[0]} / {counts[1]}")
+    log(f"distinct results of {CUMSUM_CALLS} CUDA cumsums of the same "
+        "weights, one row / as the first of two rows (must be 1): "
+        + ", ".join(parts))
 
 
 def mesh_dense_pairs(dev, mesh):
@@ -3431,7 +3725,7 @@ def mesh_dense_pairs(dev, mesh):
     for thresh in MESH_THRESHOLDS:
         what = (f"dense sharded step ({W} {mesh.backend} ranks x "
                 f"{DENSE['P'] // W}, threshold {thresh})")
-        launches, moved = mesh_pair(
+        launches, moved, _ = mesh_pair(
             lambda m: stress_stepper(DENSE, MESH_STEPS, dev, mesh=m,
                                      resampleThresh=thresh)[1:],
             MESH_STEPS, mesh, what)
@@ -3469,7 +3763,7 @@ def mesh_island_pairs(dev, mesh):
 
                 return state, pair_step
 
-            launches, moved = mesh_pair(make, MESH_STEPS, mesh, what)
+            launches, moved, _ = mesh_pair(make, MESH_STEPS, mesh, what)
             check_launches(launches, dict(select=MESH_STEPS,
                                           merge=MESH_STEPS), what)
             out[f"{n} {thresh}"] = check_moved(
@@ -3512,6 +3806,8 @@ def _mesh_rank(rank, world, device, tmp, run_dir, ports):
         out["side"] = mesh_side_paths(dev, mesh)
         out["scan_launches"], out["scan_err"] = mesh_scan(dev, mesh,
                                                           run_dir)
+        out["config5"] = config5_mesh_scans(dev, mesh, run_dir)
+        out["disp"] = mesh_dense_disparity(dev, mesh)
     finally:
         mesh.close()
     truth = str(Path(run_dir, "truth.txt"))
@@ -3615,6 +3911,21 @@ def phase_mesh(dev, stats, gpu, run_dir):
                         if m is not None and r == 0:
                             one_read_a_step(
                                 lambda: step(state, WARMUP + TIMED), label)
+            stats["config5_mesh"] = {"1 NCCL": config5_mesh_scans(
+                dev, mesh, run_dir)}
+            stats["disp_mesh"] = {"1 NCCL": mesh_dense_disparity(
+                dev, mesh)}
+            disp = "x".join(str(DENSE_DISP[k]) for k in "PFM") \
+                + " x 64 points"
+            for m in (None, mesh):
+                reset_peak_memory()
+                state, step = disparity_stepper(
+                    DENSE_DISP, DISP_WARMUP + TIMED, dev, mesh=m)
+                label = "dense sharded disparity step (1 NCCL rank)" if m \
+                    else "plain dense disparity step"
+                stats.setdefault("disp_mesh_ms", {})[label] = timed_steps(
+                    stats, state, step, DISP_WARMUP, label, disp,
+                    peak=True)[1]
         finally:
             mesh.close()
         fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)
@@ -3668,6 +3979,27 @@ def phase_mesh(dev, stats, gpu, run_dir):
             f"{k.split()[0]} islands threshold {k.split()[1]} "
             + "/".join(f"{r['island_mb'][k]:.3f}" for r in ranks) + " MB"
             for k in ranks[0]["island_mb"]) + " (rank 0/1)")
+    stats["config5_mesh"][f"{MESH_RANKS} gloo"] = ranks[0]["config5"]
+    stats["disp_mesh"][f"{MESH_RANKS} gloo"] = [r["disp"] for r in ranks]
+    disp_line = "; ".join(
+        f"{k} " + ", ".join(f"{v['mb']:.3f} MB, {v['ms']:.3f} ms"
+                            for v in (runs if isinstance(runs, list)
+                                      else [runs]))
+        for k, runs in stats["disp_mesh"].items())
+    log(f"config 5 sharded_run_scan ({CONFIG5['P']} particles, "
+        f"{CONFIG5_STEPS} steps) on {gpu}, ms a step and MB received a "
+        "rank and a step (predicted): " + "; ".join(
+            f"{k}: " + ", ".join(
+                f"threshold {t} {v['ms']:.3f} ms, {v['mb']:.3f} MB "
+                f"({v['predicted_mb']:.3f}), peak {v['peak_gib']:.2f} GiB"
+                for t, v in runs.items())
+            for k, runs in stats["config5_mesh"].items())
+        + " (rank 0; gloo ranks share the card: not a multi-GPU figure)")
+    log(f"dense sharded disparity step on {gpu}, MB received a rank and a "
+        f"step and ms a step from step 0 ({MESH_DISP_STEPS} steps; rank 0, "
+        "rank 1): " + disp_line + "; after the maps fill, CUDA events: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in
+                    stats["disp_mesh_ms"].items()))
     log(f"phase mesh: ok ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -3713,6 +4045,21 @@ def phase_bench(dev, stats, gpu):
                     "bench")
     stats["bench"] = rec
     log(f"phase bench main: ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    rec = bench.main(["--quick"])
+    launches = launch_counts()
+    check_launches(launches, dict(select=n, merge=n), "bench --quick")
+    if (rec["metric"] != "ms_per_slam_step_512p_cuda"
+            or rec["device"] != torch.cuda.get_device_name(0)):
+        raise RuntimeError(f"bench --quick line: {rec}")
+    finite_positive({k: rec[k] for k in ("value", "ms_fast_merge",
+                                         "ms_fast_k2", "vs_baseline")},
+                    "bench --quick")
+    stats["bench_quick"] = rec
+    log(f"phase bench --quick: ok ({time.perf_counter() - t0:.1f} s; "
+        f"the CPU anchor {rec['cpu_anchor']})")
 
     t0 = time.perf_counter()
     zero_launch_counts()
@@ -3968,6 +4315,389 @@ def phase_evidence(dev, stats, d):
     log(f"phase evidence: ok ({time.perf_counter() - t0:.1f} s)")
 
 
+
+# ------------------------------------- phase 9g: BASELINE config 5 --
+
+def config5_cfg(run_dir, **over):
+    """BASELINE config 5: run_dir's run.cfg (cfg/ackerman_synth.cfg with
+    phase 3's start pose) at CONFIG5's width, then the overrides."""
+    from phdslam_tpu_torch import load_config
+    return load_config(str(Path(run_dir, "run.cfg"))).replace(
+        n_particles=CONFIG5["P"], maxFeatures=CONFIG5["F"],
+        maxMeasurements=CONFIG5["M"], **over)
+
+
+def config5_kernels(tm, what):
+    """select and merge at config 5's shape on the step's own last
+    inputs (tm: the timers of a config-5 pass): select against its plain
+    version chunk by chunk (CONFIG5_CHUNK particles), merge against
+    merge_plain on the step's real pool, two merge launches bit-identical;
+    each timed (CUDA events) beside its bound, counted as PERF.md section
+    6 counts it. Returns {kernel: dict(ms, bound_ms, bound_by, max_abs_err,
+    shape)}."""
+    S, G = _mods()[0], _mods()[2]
+    out = {}
+    t = tm["select"]
+    (chans, z, nv), kw = t.last_args
+    P, F = chans[0].shape
+    M = z.shape[-2]
+    check = compare_rows if kw.get("by_index") else select_outputs_agree
+    _, n_bad, err = chunked(
+        lambda c: t.orig(c, z, nv, **kw),
+        lambda c: S.select_plain(c, z, nv, **kw), check,
+        lambda lo, hi: [c[lo:hi] for c in chans], P, chunk=CONFIG5_CHUNK)
+    _limit(n_bad, P, f"select ({what})")
+    k1 = kw["k1"]
+    b_ms, by = bound_ms(select_bytes(P, F, M, k1, kw.get("by_index", False)),
+                        P * M * F * (SELECT_TRIPLE_OPS + k1
+                                     + (0 if kw["raw"] else 2)))
+    out["select"] = dict(
+        ms=cuda_ms(lambda: t.orig(chans, z, nv, **kw), 10), bound_ms=b_ms,
+        bound_by=by, max_abs_err=err, differing=n_bad,
+        shape=f"[{P}, {M}, {F}] k1 {k1}")
+    t = tm["merge"]
+    a, kw = t.last_args
+    pool, (sep, cap, metric) = list(a[:6]), a[6:9]
+    K = pool[0].shape[1]
+    kern = t.orig(*a, **kw)
+    n_bad, err = compare_rows(kern, G.merge_plain(*a, **kw))
+    _limit(n_bad, P, f"merge ({what})")
+    bit_identical(lambda: t.orig(*a, **kw),
+                  f"merge [{P}, {K}] -> {cap} ({what})")
+    tests = merge_tests(pool, sep, cap, metric)
+    b_ms, by = bound_ms(4 * 6 * P * (K + cap), tests * MERGE_TEST_OPS)
+    out["merge"] = dict(
+        ms=cuda_ms(lambda: t.orig(*a, **kw), 5), bound_ms=b_ms,
+        bound_by=by, max_abs_err=err, differing=n_bad,
+        shape=f"[{P}, {K}] -> {cap}", tests=tests)
+    log(f"{what}, the kernels on the step's last inputs: " + "; ".join(
+        f"{k} {v['shape']} particles differing {v['differing']}/{P} "
+        f"(max_abs_err {v['max_abs_err']:.3e}), {v['ms']:.4f} ms, bound "
+        f"{v['bound_ms']:.4f} ms by {v['bound_by']}" for k, v in out.items())
+        + f" ({out['merge']['tests']} merge candidate tests)")
+    return out
+
+
+def phase_config5(dev, stats, gpu):
+    """9g: BASELINE config 5, one filter of CONFIG5['P'] particles on this
+    card (eval_baselines.py's config 5 on the port): run_scan over the
+    first CONFIG5_STEPS steps of phase 3's run, a warm pass and then a
+    timed pass ending in a synchronise, at the exact merge and at
+    merge_mode 1 (ms a step, host clock, with the split by CUDA events;
+    peak device memory), launch counts from 0 before the timed pass
+    (select and merge once a step); select and merge on each pass's last
+    inputs (config5_kernels); then the runner in scan mode at the same
+    width over the whole 330-step run: the log contract, select and merge
+    once a step, mean pose error below POSE_BAR_M, peak memory."""
+    from contextlib import ExitStack
+
+    import torch
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import run_scan
+    t0 = time.perf_counter()
+    P = CONFIG5["P"]
+    shape = "x".join(str(CONFIG5[k]) for k in "PFM")
+    cfg_text = (ROOT / "cfg/ackerman_synth.cfg").read_text()
+    res = dict(timing={})
+    with tempfile.TemporaryDirectory() as d:
+        sc, n_steps, start = static_run_files(d)
+        Path(d, "run.cfg").write_text(cfg_text + start)
+        base = config5_cfg(d)
+        ctrls, zs, dts = scan_inputs(d, base, dev, CONFIG5_STEPS)
+        state_mb = sum(t.numel() * t.element_size() for t in tree_tensors(
+            SlamState.create(base, dev)).values()) / 1e6
+        for mode, over in (("exact", {}), ("merge_mode 1",
+                                           dict(mergeMode=1))):
+            cfg = base.replace(**over)
+            what = f"config 5 run_scan {shape}, {mode}"
+
+            def run():
+                gen = torch.Generator(device=dev).manual_seed(0)
+                return run_scan(SlamState.create(cfg, dev), ctrls, zs, dts,
+                                cfg, generator=gen)
+
+            reset_peak_memory()
+            run()
+            torch.cuda.synchronize()
+            tm = timers()
+            zero_launch_counts()
+            with ExitStack() as stack:
+                for tmr in tm.values():
+                    stack.enter_context(tmr)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _, aux = run()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3 / CONFIG5_STEPS
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check_launches(launches, dict(select=CONFIG5_STEPS,
+                                          merge=CONFIG5_STEPS, esf=0,
+                                          auction=0), what)
+            k_ms = {k: t.ms() / CONFIG5_STEPS for k, t in tm.items()
+                    if t.pairs}
+            neff = aux.neff.cpu().numpy()
+            pose = aux.expected_pose.cpu().numpy()
+            if not (np.isfinite(neff).all() and np.isfinite(pose).all()):
+                raise RuntimeError(f"{what}: a neff or pose is not finite")
+            log(f"{what} on {gpu}: {CONFIG5_STEPS} steps, {ms:.3f} ms/step "
+                f"(host clock, timed pass after a warm pass) = glue "
+                f"{ms - sum(k_ms.values()):.3f} + " + " + ".join(
+                    f"{k} {v:.3f}" for k, v in k_ms.items())
+                + f" (CUDA events); peak device memory {peak:.2f} GiB (the "
+                f"state {state_mb:.1f} MB); resampled on "
+                f"{int(aux.resampled.sum())} steps, last neff "
+                f"{float(neff[-1]):.4f}; launches select "
+                f"{launches['select']} merge {launches['merge']}")
+            res["timing"][mode] = dict(
+                ms=ms, peak_gib=peak, kernels=config5_kernels(tm, what),
+                kernel_ms=k_ms)
+
+        # the runner in scan mode over the whole run at this width
+        reset_peak_memory()
+        launches, run_s, out = run_runner(
+            d, cfg_text, start + f"n_particles = {P}\n", dev, {},
+            mode="scan")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        names = sorted(p.name for p in out.glob("state_estimate*.log"))
+        poses = []
+        for name in names:
+            with open(out / name) as f:
+                poses.append([float(v) for v in f.readline().split()])
+        errs = np.linalg.norm(np.array(poses)[:, :2]
+                              - sc.traj[:len(poses), :2], axis=1)
+        loop_ms = np.loadtxt(out / "loopTime.log")
+        rows = metrics_rows(out)
+        with open(out / names[-1]) as f:
+            lines = f.read().splitlines()
+        n_w, n_p = len(lines[3].split()), len(lines[4].split())
+    what = f"config 5 runner --mode scan {shape}"
+    log(f"{what}: {len(names)} state_estimate logs ({n_w} weights, {n_p} "
+        f"pose values in the last), {len(loop_ms)} loop times, {len(rows)} "
+        f"metrics lines; pose error mean {errs.mean():.3f} m max "
+        f"{errs.max():.3f} m; {loop_ms.mean():.3f} ms/step (the scan); "
+        f"launches select {launches['select']} merge {launches['merge']}; "
+        f"peak device memory {peak:.2f} GiB; run {run_s:.1f} s (logs "
+        "included)")
+    if names != [f"state_estimate{t:05d}.log" for t in range(n_steps)] \
+            or len(loop_ms) != n_steps or len(rows) != n_steps \
+            or n_w != P or n_p != 6 * P or len(lines) != 7:
+        raise RuntimeError(f"{what}: log contract incomplete")
+    check_launches(launches, dict(select=n_steps, merge=n_steps, esf=0,
+                                  auction=0), what)
+    if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
+        raise RuntimeError(f"{what}: mean pose error {errs.mean():.3f} m "
+                           f"is not below {POSE_BAR_M} m")
+    res["runner"] = dict(ms=float(loop_ms.mean()), pose_err=float(
+        errs.mean()), peak_gib=peak, run_s=run_s)
+    stats["config5"] = res
+    log(f"phase config 5: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def config5_mesh_scans(dev, mesh, run_dir):
+    """BASELINE config 5 over the mesh: sharded_run_scan at CONFIG5's width
+    over the first CONFIG5_STEPS steps of phase 3's run (run_dir's files)
+    at MESH_THRESHOLDS (never, always resampling), a warm pass and then a
+    timed pass (host clock, ending in a synchronise; launch counts and the
+    traffic record from 0), each against run_scan in one process on the
+    same draws, bit for bit: select and merge once a step, one read_flag a
+    step, the state's leaves gathered on firing steps only, the bytes this
+    rank received a step within CONFIG5_BYTES_TOL of (W - 1) / W x (32 B a
+    particle: the weights twice, the pose; and the state's bytes on a
+    firing step). Returns {threshold: dict(ms, mb, predicted_mb, peak_gib,
+    fired)}."""
+    import torch
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import run_scan
+    from phdslam_tpu_torch.parallel.mesh import (shard_state,
+                                                 sharded_run_scan,
+                                                 unshard_state)
+    W, P = mesh.world_size, CONFIG5["P"]
+    base = config5_cfg(run_dir)
+    ctrls, zs, dts = scan_inputs(run_dir, base, dev, CONFIG5_STEPS)
+    leaves = tree_tensors(SlamState.create(base.replace(n_particles=1),
+                                           dev))
+    state_bytes = P * sum(t.numel() * t.element_size()
+                          for t in leaves.values())
+    out = {}
+    for thresh in MESH_THRESHOLDS:
+        cfg = base.replace(resampleThresh=thresh)
+        what = (f"config 5 sharded_run_scan ({W} {mesh.backend} ranks x "
+                f"{P // W}, threshold {thresh})")
+
+        def run(m):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            if m is None:
+                return run_scan(SlamState.create(cfg, dev), ctrls, zs, dts,
+                                cfg, generator=gen)
+            return sharded_run_scan(cfg, m)(
+                shard_state(SlamState.create(cfg, dev), m), ctrls, zs, dts,
+                generator=gen)
+
+        run(mesh)
+        torch.cuda.synchronize()
+        reset_peak_memory()
+        zero_launch_counts()
+        mesh.take_traffic()
+        t1 = time.perf_counter()
+        state, auxs = run(mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / CONFIG5_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches, moved = launch_counts(), mesh.take_traffic()
+        state = unshard_state(state, mesh)
+        p_state, p_auxs = run(None)
+        same_bits((p_auxs, p_state), (auxs, state), what)
+        check_launches(launches, dict(select=CONFIG5_STEPS,
+                                      merge=CONFIG5_STEPS), what)
+        fired = int(auxs.resampled.sum())
+        if fired != (CONFIG5_STEPS if thresh > 1.0 else 0):
+            raise RuntimeError(f"{what}: the resample fired on {fired} of "
+                               f"{CONFIG5_STEPS} steps")
+        check_moved(moved, CONFIG5_STEPS, what, "read_flag resample",
+                    "gather_rows resample",
+                    len(leaves) if thresh > 1.0 else 0, P // W * 6 * 4)
+        mb = sum(v["received"] for v in moved.values()) / CONFIG5_STEPS / 1e6
+        pred = (W - 1) / W * (P * 32 + (state_bytes if thresh > 1.0
+                                        else 0)) / 1e6
+        log(f"{what}: {CONFIG5_STEPS} steps bit for bit with run_scan in one "
+            f"process (every aux value and the final state), launches "
+            f"select {launches['select']} merge {launches['merge']}, "
+            f"resampled on {fired} steps; {ms:.3f} ms a step (host clock, "
+            f"after a warm pass), peak {peak:.2f} GiB; received "
+            f"{mb:.6f} MB a step (predicted {pred:.6f}); a step: "
+            + traffic_line(moved, CONFIG5_STEPS))
+        if abs(mb - pred) > CONFIG5_BYTES_TOL * pred:
+            raise RuntimeError(f"{what}: {mb:.6f} MB received a step, not "
+                               f"within {CONFIG5_BYTES_TOL:.0%} of the "
+                               f"predicted {pred:.6f} MB")
+        out[thresh] = dict(ms=ms, mb=mb, predicted_mb=pred, peak_gib=peak,
+                           fired=fired)
+    return out
+
+
+def mesh_dense_disparity(dev, mesh):
+    """The dense disparity step (phase 9's 8192 x 128 x 64 points x 48)
+    through sharded_disparity_step, MESH_DISP_STEPS steps from step 0,
+    against disparity_step in one process (mesh_pair, bit for bit): no
+    read of the device; the weights and poses gathered (label step, 2
+    calls a step); the pose, weights and clouds gathered on every step,
+    fired or not (label resample, 5 calls a step, one rank's shard each),
+    as JAX's ungated jnp.take. Returns dict(mb: received a step by this
+    rank, ms: a sharded step, host clock, from step 0)."""
+    from phdslam_tpu_torch import load_config
+    W, P, F = mesh.world_size, DENSE_DISP["P"], DENSE_DISP["F"]
+    n = MESH_DISP_STEPS
+    npp = load_config(str(ROOT / "cfg/disparity_synth.cfg")) \
+        .particlesPerFeature
+    what = (f"dense sharded disparity step ({W} {mesh.backend} ranks x "
+            f"{P // W})")
+    _, moved, ms = mesh_pair(
+        lambda m: disparity_stepper(DENSE_DISP, n, dev, mesh=m), n, mesh,
+        what)
+    per = P // W
+    shard = per * (12 + F + 3 * F * npp) * 4
+    expect = {"gather_rows step": (2 * n, n * per * 13 * 4),
+              "gather_rows resample": (5 * n, n * shard)}
+    got = {k: (v["calls"], v["offered"]) for k, v in moved.items()}
+    received = {k: v["received"] for k, v in moved.items()}
+    if got != expect or any(received[k] != expect[k][1] * (W - 1)
+                            for k in expect):
+        raise RuntimeError(f"{what}: traffic {moved}, expected (calls, "
+                           f"offered) {expect}")
+    return dict(mb=sum(received.values()) / n / 1e6, ms=ms)
+
+
+# ------------------------------------- phase 9h: constant-velocity motion --
+
+def phase_cv_motion(dev, stats, gpu):
+    """9h: the constant-velocity motion model (motion_type 0,
+    cfg/cv_synth.cfg, BASELINE config 1's) at the shipped width (256 x 128
+    x 64) on phase 3's measurement sets: CV_STEPS steps on the card from
+    the start pose fill the map; then one step from that state with one
+    set of draws, on the card (kernels) and on the CPU (plain versions):
+    the poses, log-weights and maps within rtol/atol (map means and
+    covariances where a slot is live), the resample indices exactly, at
+    most MAX_DIFFER of the particles differing, the aux values within
+    rtol/atol; select and merge launched once a card step. Then the dense
+    CV step (the stress stream at 8192 x 512 x 64) timed beside phase 7's
+    Ackerman step, ISLAND_ROUNDS rounds of (Ackerman, CV)."""
+    import torch
+    from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.filter.state import SlamState
+    from phdslam_tpu_torch.filter.step import draw_noise, slam_step
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        _, _, start = static_run_files(d)
+        Path(d, "run.cfg").write_text(
+            (ROOT / "cfg/cv_synth.cfg").read_text() + start
+            + f"n_particles = {SHIPPED['P']}\n")
+        cfg = load_config(str(Path(d, "run.cfg")))
+        ctrls, zs, dts = scan_inputs(d, cfg, dev, CV_STEPS + 1)
+    P = cfg.n_particles
+    what = (f"CV motion step {P}x{cfg.maxFeatures}x{cfg.maxMeasurements} "
+            f"(cfg/cv_synth.cfg)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = SlamState.create(cfg, dev)
+    zero_launch_counts()
+    for t in range(CV_STEPS):
+        state, _ = slam_step(state, ctrls[t], zs[t], dts[t], t > 0, cfg,
+                             generator=gen,
+                             z_prev=zs[t - 1] if t else None)
+    t = CV_STEPS
+    noise = draw_noise(cfg, P, dev, gen, state.log_weights.dtype)
+    card, aux = slam_step(state, ctrls[t], zs[t], dts[t], True, cfg,
+                          noise=noise, z_prev=zs[t - 1])
+    launches = launch_counts()
+    cpu = torch.device("cpu")
+    plain, p_aux = slam_step(state.map(lambda x: x.cpu()), ctrls[t],
+                             zs[t].to(cpu), dts[t], True, cfg,
+                             noise=tuple(x.cpu() for x in noise),
+                             z_prev=zs[t - 1].to(cpu))
+    check_launches(launches, dict(select=CV_STEPS + 1, merge=CV_STEPS + 1,
+                                  esf=0, auction=0), what)
+    ms_, mp_ = card.map_static, plain.map_static
+    live = (ms_.w.cpu() > 0) | (mp_.w > 0)
+    kern = [card.pose.cpu(), card.log_weights.cpu(),
+            card.resample_idx.cpu(), ms_.w.cpu()] + [
+        getattr(ms_, c).cpu() for c in ("mx", "my", "c00", "c01", "c11")]
+    ref = [plain.pose, plain.log_weights, plain.resample_idx, mp_.w] + [
+        getattr(mp_, c) for c in ("mx", "my", "c00", "c01", "c11")]
+    n_bad, err = compare_rows(kern, ref, [None] * 4 + [live] * 5)
+    aux_bad = [k for k in ("expected_pose", "neff", "log_lik")
+               if not torch.allclose(getattr(aux, k).cpu(),
+                                     getattr(p_aux, k), rtol=RTOL,
+                                     atol=ATOL)]
+    moved = float((card.pose.cpu() - state.pose.cpu()).norm(dim=1).mean())
+    log(f"{what}, step {t} from the state after {CV_STEPS} card steps, one "
+        f"set of draws: card (kernels) against the CPU (plain versions): "
+        f"particles differing {n_bad}/{P} (max_abs_err {err:.3e}), aux "
+        f"values differing {aux_bad}, resampled "
+        f"{bool(aux.resampled)}/{bool(p_aux.resampled)}, live slots "
+        f"{int((ms_.w > 0).sum(1).max())} max, mean pose move "
+        f"{moved:.4f} m; launches select {launches['select']} merge "
+        f"{launches['merge']}")
+    _limit(n_bad, P, what)
+    if aux_bad or bool(aux.resampled) != bool(p_aux.resampled):
+        raise RuntimeError(f"{what}: aux values {aux_bad} differ")
+    stats["cv_max_abs_err"] = err
+
+    shape = f"{DENSE['P']}x{DENSE['F']}x{DENSE['M']}"
+    ms = {"Ackerman": [], "CV": []}
+    for _ in range(ISLAND_ROUNDS):
+        for name, cfg_file in (("Ackerman", "cfg/ackerman_synth.cfg"),
+                               ("CV", "cfg/cv_synth.cfg")):
+            _, st, step = stress_stepper(DENSE, WARMUP + TIMED, dev,
+                                         cfg_file=cfg_file)
+            ms[name].append(timed_steps(stats, st, step, WARMUP,
+                                        f"dense {name} step", shape)[1])
+    log(f"dense timing on {gpu}, rounds of (Ackerman, CV): " + "; ".join(
+        f"{k} " + ", ".join(f"{x:.3f}" for x in v) + " ms"
+        for k, v in ms.items()))
+    stats["cv_dense_ms"] = ms
+    log(f"phase CV motion: ok ({time.perf_counter() - t0:.1f} s)")
+
+
 # ---------------------------------------------------- optional: --profile --
 
 def phase_profile(dev):
@@ -4058,6 +4788,7 @@ def main(argv=None):
         print(f"chip_smoke: no phdslam_tpu_torch package beside {__file__};"
               " run it from a checkout of the repository", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from phdslam_tpu_torch.bench import gpu_line
     dev = torch.device("cuda", 0)
@@ -4104,6 +4835,7 @@ def main(argv=None):
     phase_dense(dev, stats, gpu)
     phase_dense_cphd_disparity(dev, stats, gpu)
     phase_dense_fastslam(dev, stats, gpu)
+    phase_cv_motion(dev, stats, gpu)
     phase_islands(dev, stats, gpu)
     with tempfile.TemporaryDirectory() as d:
         phase_island_runner(dev, stats, d)
@@ -4111,8 +4843,10 @@ def main(argv=None):
     phase_bench(dev, stats, gpu)
     with tempfile.TemporaryDirectory() as d:
         phase_evidence(dev, stats, d)
+    phase_config5(dev, stats, gpu)
     if args.profile:
         phase_profile(dev)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []
     for name, src, replaces in KERNELS:

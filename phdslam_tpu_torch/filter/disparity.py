@@ -25,9 +25,11 @@ device (``torch.where``), so a step never reads the device.
 
 With a ``mesh`` (``parallel/mesh.py``) the state holds the rank's P/W
 rows: the update runs on them, and the logsumexp, the expected pose, nEff
-and the resample read the gathered weights, poses and clouds, as
-``filter/step.py``'s sharded step does; every rank draws the global
-step's draws and uses its rows.
+and the resample read the gathered weights and poses (traffic label
+"step"); every rank draws the global step's draws and uses its rows.
+Unlike ``filter/step.py``'s sharded step, the resample's gather of the
+pose, weights and clouds (label "resample") runs on every step, fired or
+not, as JAX's ungated ``jnp.take`` does.
 
 Top-k ties: ``ops/gm.py::top_k`` keeps ``jax.lax.top_k``'s order (the lower
 index first among equal values), so empty slots (w = 0) carry the same
@@ -161,7 +163,7 @@ def disparity_step(state: DisparityState, z: Measurements, dt: float,
     if noise is None:
         noise = draw_noise(state, generator, P)
     pose_normals, cloud_normals, uniforms = noise
-    every, own = everywhere(mesh)
+    every, own = everywhere(mesh, "step")
     if mesh is not None:
         pose_normals, cloud_normals = own(pose_normals), own(cloud_normals)
     z_uv, z_valid = z.rb, z.valid
@@ -201,7 +203,11 @@ def disparity_step(state: DisparityState, z: Measurements, dt: float,
     else:
         idx, lw_final = arange, lw_new
     idx, lw_final = own(idx), own(lw_final)
-    take = lambda x: every(x).index_select(0, idx)
+    # every leaf gathered on every step, whether or not the resample fires:
+    # JAX's ungated jnp.take (phdslam_tpu/filter/disparity.py), not
+    # slam_step's lax.cond
+    gather = everywhere(mesh, "resample")[0]
+    take = lambda x: gather(x).index_select(0, idx)
     state = DisparityState(pose=take(pose), log_weights=lw_final,
                            w=take(new_w), px=take(new_px), py=take(new_py),
                            pz=take(new_pz), resample_idx=idx)
@@ -406,7 +412,8 @@ def run_disparity(cfg, args) -> dict:
     """The disparity runner: per step the expected camera pose and a
     state_estimate log (pose line the 12-DOF camera state, map line the MAP
     particle's world-frame Gaussians, stride 13), loopTime.log and
-    metrics.jsonl; a NaN neff stops the run. In loop mode
+    metrics.jsonl (t, ms, neff, n_measure, card in both modes; JAX's scan
+    mode writes no card); a NaN neff stops the run. In loop mode
     ``--checkpoint-every`` and ``--resume`` work as in the synth runner:
     the generator is restored after the initial jitter draw, so a resumed
     run draws what the straight run drew."""
@@ -459,8 +466,8 @@ def run_disparity(cfg, args) -> dict:
         n_meas = host(auxs.n_measure)
         for t in range(t_valid):
             logs.append_loop_time(out_dir, ms_step)
+            sel = map_w[t] > 0
             if not args.no_logs:
-                sel = map_w[t] > 0
                 logs.write_state_estimate_log(
                     out_dir, t, poses[t], map_w[t][sel], map_mean[t][sel],
                     map_cov[t][sel], particle_log_weights=lws[t],
@@ -468,7 +475,7 @@ def run_disparity(cfg, args) -> dict:
                     max_cardinality=cfg.maxCardinality)
             logs.append_metrics_jsonl(out_dir, dict(
                 t=t, ms=ms_step, neff=float(neffs[t]),
-                n_measure=int(n_meas[t])))
+                n_measure=int(n_meas[t]), card=float(map_w[t][sel].sum())))
         print(f"disparity scan: {n_steps} steps in {elapsed:.3f}s "
               f"({ms_step:.2f} ms/step)")
         return dict(state=final, poses=poses[:t_valid], ms_per_step=ms_step)

@@ -9,7 +9,14 @@ altogether). A caller that holds R of L runs (the island step across
 ranks: n/W of n islands) passes L, and each per-run reduction is taken
 over the rows repeated to L and cut back to R (``among``): each run then
 rounds as it does among all L on one device. On the CPU every row rounds
-alike at any count."""
+alike at any count.
+
+One run's cumulative weights are scanned as the first of two rows: torch
+takes a single row's CUDA cumsum through CUB's device scan, whose float
+sums depend on the order its tiles finish (from 32,768 weights on an H100
+two calls on the same inputs can differ, at 65,536 a resample fired on
+the same weights picks other particles), while each row of a multi-row
+cumsum is one ordered block scan."""
 
 from __future__ import annotations
 
@@ -39,7 +46,9 @@ def stratified_resample_indices(log_weights, u, n_out: int, n_runs=None,
     R = n_runs or 1
     lw = log_weights.reshape(R, -1)
     n = lw.shape[1]
-    csum = among(lambda w: torch.cumsum(w, 1), torch.exp(lw), layout_runs)
+    # one run as the first of two rows: never a single-row scan
+    csum = among(lambda w: torch.cumsum(w, 1), torch.exp(lw),
+                 layout_runs or (2 if R == 1 else None))
     r = (torch.arange(n_out, dtype=lw.dtype, device=lw.device)
          + u.reshape(R, n_out)) / float(n_out)
     idx = torch.searchsorted(csum, r, side="left").to(torch.int32)

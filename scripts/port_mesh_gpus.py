@@ -33,6 +33,12 @@ checks. Prints every GPU's name and power limit, then:
      cfg/disparity_synth.cfg, 20 steps each, bit for bit;
    - sharded_run_scan over the 330-step run at 256 particles against
      run_scan, bit for bit, mean pose error below 1.5 m;
+   - BASELINE config 5: sharded_run_scan at 65,536 particles (W x 65536 /
+     W) over the run's first 16 steps at thresholds 0 and 1.1 (never,
+     always resampling), warm then timed (host clock), bit for bit
+     against run_scan on the rank's GPU, the bytes received a step within
+     5 % of (W - 1) / W x (32 B a particle, and the state's 203.7 MB on a
+     firing step);
    - the island runner of 1. across the W ranks (torchrun's environment
      set by hand: RANK, WORLD_SIZE, LOCAL_RANK = r, a free localhost
      port), loop and scan: select and merge once a step;
@@ -41,7 +47,8 @@ checks. Prints every GPU's name and power limit, then:
 
 The last line is {"ok": true, "ranks": W, "plain_ms": [...], "dense_ms":
 {threshold: [...]}, "island_ms": {threshold: [...]}, "island_one_gpu_ms":
-[...], "dense_mb": {threshold: MB}, "island_mb": {"n threshold": MB}}
+[...], "dense_mb": {threshold: MB}, "island_mb": {"n threshold": MB},
+"config5": {threshold: {"ms": [...], "mb": MB, "predicted_mb": MB}}}
 (times per rank; MB received a step by rank 0).
 """
 
@@ -108,6 +115,7 @@ def rank_main(rank, world, device_type, backend, tmp, run_dir, ports):
         out["side"] = C.mesh_side_paths(dev, mesh)
         out["scan_launches"], out["scan_err"] = C.mesh_scan(dev, mesh,
                                                             run_dir)
+        out["config5"] = C.config5_mesh_scans(dev, mesh, run_dir)
     finally:
         mesh.close()
     truth = str(Path(run_dir, "truth.txt"))
@@ -198,6 +206,18 @@ def main():
           + "; the butterfly " + ", ".join(
               f"{k.split()[0]} islands threshold {k.split()[1]} {mb:.3f}"
               for k, mb in ranks[0]["island_mb"].items()))
+    c5 = {t: dict(ms=[r["config5"][t]["ms"] for r in ranks],
+                  mb=ranks[0]["config5"][t]["mb"],
+                  predicted_mb=ranks[0]["config5"][t]["predicted_mb"],
+                  peak_gib=[r["config5"][t]["peak_gib"] for r in ranks])
+          for t in ranks[0]["config5"]}
+    C.log(f"config 5 sharded_run_scan ({world} x "
+          f"{C.CONFIG5['P'] // world}), ms a step per rank and MB received "
+          "a step by rank 0 (predicted): " + "; ".join(
+              f"threshold {t} " + ", ".join(f"{x:.3f}" for x in v["ms"])
+              + f" ms, {v['mb']:.3f} MB ({v['predicted_mb']:.3f}), peak "
+              + ", ".join(f"{x:.2f}" for x in v["peak_gib"]) + " GiB"
+              for t, v in c5.items()))
     print(json.dumps(dict(
         ok=True, ranks=world, plain_ms=[r["plain_ms"] for r in ranks],
         dense_ms={t: [r["dense_ms"][t] for r in ranks]
@@ -205,7 +225,8 @@ def main():
         island_ms={t: [r["island_ms"][t] for r in ranks]
                    for t in ranks[0]["island_ms"]},
         island_one_gpu_ms=[r["island_one_gpu_ms"] for r in ranks],
-        dense_mb=ranks[0]["dense_mb"], island_mb=ranks[0]["island_mb"])))
+        dense_mb=ranks[0]["dense_mb"], island_mb=ranks[0]["island_mb"],
+        config5=c5)))
     return 0
 
 

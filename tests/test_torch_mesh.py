@@ -6,14 +6,18 @@ torch thread each.
   sharded static, CPHD, mixed, FastSLAM, shotgun (nPredictParticles 2) and
   disparity steps over 3 steps at thresholds 1.1 (the resample forced) and
   0 (never), every step's aux and log values and the final state;
-  ``sharded_run_scan`` with its log over 5 steps; the disparity scan with
-  its map log; the island step across ranks (n = 4 and 8 islands: at 2
+  ``sharded_run_scan`` with its log over 5 steps, and at 3 x 64
+  particles a rank (an uneven lineage across the ranks' blocks); the
+  disparity scan with its map log; the island step across ranks (n = 4
+  and 8 islands: at 2
   and 4 ranks every mix of butterfly rounds within a rank and between
   ranks) against the one-device island step; at 2 and 4 ranks.
 - What moves between ranks, from the mesh's traffic record (the port's
   counterpart of ``tests/test_multichip_evidence.py``'s HLO checks): a
   sharded step reads the device once and gathers the state's leaves only
-  when its resample fires; an island step that does not exchange moves
+  when its resample fires; a sharded disparity step gathers its pose,
+  weights and clouds on every step, fired or not (JAX's ungated
+  ``jnp.take``); an island step that does not exchange moves
   nothing larger than its [n/W, 6] expected poses, one that does swaps
   exactly log2(W) shards with partner ranks and gathers nothing larger;
   every kernel entry gets the rank's P/W rows.
@@ -54,6 +58,13 @@ STEP_CASES = {f"{kind}-{thresh}": dict(kind=kind, thresh=thresh)
 STEP_CASES["scan"] = dict(kind="static", thresh=1.1, scan=True, steps=5)
 STEP_CASES["disparity-scan"] = dict(kind="disparity", thresh=1.1,
                                     scan=True, steps=4)
+# sharded_run_scan at 3 x 64 particles a rank (not a power of two), the
+# resample always (1.1) or on some steps (0.999: steps 2-4 of 5) firing:
+# the lineage crosses the ranks' blocks unevenly
+UNEVEN_PER_RANK = 3 * 64
+UNEVEN_CASES = {f"scan-uneven-{thresh}": dict(kind="static", thresh=thresh,
+                                              scan=True, steps=5)
+                for thresh in (1.1, 0.999)}
 ISLAND_CASES = {f"islands{'' if n == 4 else n}-{kind}-{thresh}": dict(
     kind=kind, thresh=thresh, islands=n)
     for n in (4, 8) for kind in ("static", "cphd", "mixed")
@@ -119,12 +130,18 @@ def jax_runs():
     return out
 
 
+def _uneven(world):
+    """UNEVEN_CASES at UNEVEN_PER_RANK particles a rank of world ranks."""
+    return {k: dict(v, over=dict(n_particles=UNEVEN_PER_RANK * world))
+            for k, v in UNEVEN_CASES.items()}
+
+
 @pytest.fixture(scope="module")
 def rank_runs(jax_runs, tmp_path_factory):
     """Every case on 2 and on 4 gloo ranks: {W: rank 0's results}."""
     tmp = tmp_path_factory.mktemp("mesh")
-    jobs = {2: {**STEP_CASES, **ISLAND_CASES},
-            4: {**STEP_CASES, **ISLAND_CASES,
+    jobs = {2: {**STEP_CASES, **ISLAND_CASES, **_uneven(2)},
+            4: {**STEP_CASES, **ISLAND_CASES, **_uneven(4),
                 **{f"jax-{k}": v[2] for k, v in jax_runs.items()}}}
     return {w: R.run_ranks(job, w, tmp) for w, job in jobs.items()}
 
@@ -147,6 +164,25 @@ def test_sharded_matches_single_process(rank_runs, world, name):
     _assert_same_bits(ref, got, f"{name} W={world}")
     assert any(k.endswith("resampled") or k.endswith("resample_idx")
                for k in ref)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(UNEVEN_CASES))
+def test_sharded_run_scan_uneven_lineage(rank_runs, world, name):
+    """sharded_run_scan at 3 x 64 particles a rank on W gloo ranks, bit for
+    bit with run_scan in the single process (every step's aux and log
+    values, the final state), with a lineage that is not the identity
+    and that takes particles across the ranks' blocks."""
+    ref = R.run_case(_uneven(world)[name])
+    _assert_same_bits(ref, rank_runs[world][name], f"{name} W={world}")
+    ridx = ref[".outs.1.resample_idx"]
+    own = np.arange(ridx.shape[1])
+    assert ridx.shape[1] == UNEVEN_PER_RANK * world
+    assert (ridx != own).any()
+    assert (ridx // UNEVEN_PER_RANK != own // UNEVEN_PER_RANK).any()
+    resampled = ref[".outs.0.resampled"]
+    assert resampled.all() if name.endswith("1.1") \
+        else resampled.any() and not resampled.all()
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -226,6 +262,37 @@ def test_sharded_step_moves_maps_only_when_it_resamples(rank_runs, world,
             assert res["calls"] == n_leaves
             assert res["offered"] == shard
             assert res["received"] == shard * (world - 1)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("thresh", [0.0, 1.1])
+def test_sharded_disparity_step_gathers_clouds_every_step(rank_runs, world,
+                                                          thresh):
+    """Each sharded disparity step: the weights and the [P/W, 12] poses
+    once each (label step: normalisation, expected pose), no read of the
+    device, and the pose, weights and clouds once, one rank's shard each
+    (label resample), on every step whether or not the resample fires (0:
+    never, 1.1: always), as JAX's ungated jnp.take of every leaf does
+    (phdslam_tpu/filter/disparity.py), unlike slam_step's lax.cond."""
+    from phdslam_tpu_torch.filter.disparity import DisparityState
+    cfg = R.config("disparity")
+    st = DisparityState.create(cfg)
+    per = cfg.n_particles // world
+    shard = sum(t.numel() * t.element_size()
+                for t in (st.pose, st.w, st.px, st.py, st.pz)) // world
+    steps = rank_runs[world]["__extras__"][f"disparity-{thresh}"]["traffic"]
+    assert len(steps) == R.T_STEPS
+    for t, rec in enumerate(steps):
+        assert set(rec) == {"gather_rows step", "gather_rows resample"}, \
+            (t, sorted(rec))
+        assert rec["gather_rows step"]["calls"] == 2
+        assert rec["gather_rows step"]["offered"] == per * 4 + per * 12 * 4
+        res = rec["gather_rows resample"]
+        assert res["calls"] == 5
+        assert res["offered"] == shard
+        assert res["received"] == shard * (world - 1)
+        assert res["largest"] == per * cfg.maxFeatures \
+            * cfg.particlesPerFeature * 4
 
 
 @pytest.mark.parametrize("world", [2, 4])

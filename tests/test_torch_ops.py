@@ -177,6 +177,35 @@ def test_stratified_resample_and_neff(rng):
     _close(TR.neff(_t(lw)), JR.neff(jnp.asarray(lw)), rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("n_runs", [None, 3])
+def test_stratified_resample_never_scans_one_row(rng, monkeypatch, n_runs):
+    """F9: the cumulative weights are never a one-row scan, the only kind
+    torch's CUDA cumsum does not repeat bit for bit (CUB's device scan:
+    from 32,768 weights on an H100 two calls can differ, and BASELINE
+    config 5's 65,536 particles resampled otherwise run to run). One run
+    is scanned as the first of two rows, R runs as they are; the indices
+    are the same as each run's alone."""
+    R = n_runs or 1
+    lw = np.log(rng.dirichlet(np.ones(64), size=R)).astype(np.float32)
+    u = rng.uniform(size=(R, 64)).astype(np.float32)
+    rows = []
+    cumsum = torch.cumsum
+
+    def recording(x, dim, *a, **kw):
+        rows.append(x.shape[0] if x.dim() > 1 else 1)
+        return cumsum(x, dim, *a, **kw)
+
+    monkeypatch.setattr(torch, "cumsum", recording)
+    got = TR.stratified_resample_indices(_t(lw.reshape(-1)),
+                                         _t(u.reshape(-1)), 64, n_runs)
+    monkeypatch.undo()
+    assert rows and min(rows) >= 2, rows
+    for r in range(R):
+        alone = TR.stratified_resample_indices(_t(lw[r]), _t(u[r]), 64)
+        np.testing.assert_array_equal(got.numpy()[r * 64:(r + 1) * 64],
+                                      alone.numpy() + r * 64)
+
+
 def test_resample_overrun_guard():
     """Weights summing below 1: positions past the cumulative sum take the
     maximum-weight particle, as in the JAX guard."""

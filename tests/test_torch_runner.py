@@ -267,6 +267,9 @@ RESUME_T, RESUME_EVERY, RESUME_FROM = 20, 5, 10
                  id="truth"),
     pytest.param("cfg/ackerman_synth.cfg", "filter_type = 1", (),
                  id="cphd_z_prev"),
+    pytest.param("cfg/mixed_synth.cfg", "", (), id="mixed"),
+    pytest.param("cfg/mixed_synth.cfg", "birth_velocity_init = 1", (),
+                 id="mixed_birth_velocity_z_prev"),
 ])
 def test_checkpoint_resume(dataset, tmp_path, monkeypatch, base, extra_cfg,
                            extra_args):
@@ -277,8 +280,12 @@ def test_checkpoint_resume(dataset, tmp_path, monkeypatch, base, extra_cfg,
     and the same .mat prediction files and ospa columns. JAX's runner does
     not restore the previous step's measurements, and neither does the
     port: the first resumed step runs with z_prev None, which under CPHD
-    skips that step's births (so only the static-map cases are compared
-    byte for byte)."""
+    skips that step's births and under the mixed model's
+    birth_velocity_init gives its dynamic births the zero-velocity prior
+    (so those two cases hold that step to differing, and every later step
+    to finite weights and, under CPHD, normalised cardinality lines; the
+    others, the mixed model without it included, are compared byte for
+    byte)."""
     from phdslam_tpu_torch.io.matdump import read_particles_mat
     sc, d = dataset
     np.savetxt(tmp_path / "truth.txt", sc.landmarks)
@@ -328,10 +335,18 @@ def test_checkpoint_resume(dataset, tmp_path, monkeypatch, base, extra_cfg,
     with open(outs["resumed"] / "metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     assert [r["t"] for r in rows] == list(resumed)
-    if "filter_type = 1" in extra_cfg:
-        # the first resumed step has no births from step 10's measurements
+    if "filter_type = 1" in extra_cfg or "birth_velocity_init" in extra_cfg:
+        # the first resumed step has no births (CPHD), or no informed
+        # birth velocities (mixed), from step 10's measurements
         first = f"state_estimate{RESUME_FROM + 1:05d}.log"
         assert resumed_logs[first] != straight_logs[first]
+        for t in resumed:
+            lg = read_state_estimate_log(
+                str(outs["resumed"] / f"state_estimate{t:05d}.log"))
+            assert np.isfinite(lg["weights"]).all()
+            assert abs(np.exp(lg["weights"]).sum() - 1.0) < 1e-3
+            if "filter_type = 1" in extra_cfg:
+                assert abs(np.log(np.exp(lg["cardinality"]).sum())) < 1e-3
         return
     assert resumed_logs == {k: v for k, v in straight_logs.items()
                             if k in resumed_logs}
@@ -358,35 +373,84 @@ def _files(out, prefix):
             if p.startswith(prefix)}
 
 
-def test_fastslam_runner_loop_and_scan(dataset, tmp_path):
-    """cfg/fastslam_synth.cfg at small widths through both modes: the full
-    log contract, the map line holding the MAP particle's integer
-    counters, and the two modes writing the same logs (the same draws from
-    the same generator)."""
+LOOP_SCAN_CASES = {
+    "static": ("cfg/ackerman_synth.cfg", ""),
+    "cphd": ("cfg/ackerman_synth.cfg", "filter_type = 1\n"
+             "max_cardinality = 31"),
+    "mixed": ("cfg/mixed_synth.cfg", ""),
+    "fastslam": ("cfg/fastslam_synth.cfg",
+                 "std_range = 0.25\nclutter_rate = 2.0"),
+    "disparity": ("cfg/disparity_synth.cfg", ""),
+}
+DISP_T = 12
+DISP_TINY = """
+n_particles = 4
+max_features = 8
+particles_per_feature = 8
+max_measurements = 8
+"""
+
+
+@pytest.fixture(scope="module")
+def disparity_dataset(tmp_path_factory):
+    sc = simdata.make_disparity_scenario(np.random.default_rng(3),
+                                         n_landmarks=8, n_steps=DISP_T)
+    meas = simdata.generate_disparity_run(np.random.default_rng(4), sc)
+    assert all(len(z) for z in meas)
+    d = tmp_path_factory.mktemp("disprun")
+    simdata.write_disparity_files(str(d), sc, meas)
+    return d
+
+
+def _metrics(out):
+    with open(out / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.mark.parametrize("kind", list(LOOP_SCAN_CASES))
+def test_runner_loop_and_scan_write_the_same_logs(dataset, disparity_dataset,
+                                                  tmp_path, kind):
+    """Each filter's shipped cfg at small widths through both modes: the
+    same draws from the same generator, so every state_estimate log is the
+    same file, byte for byte, and every metrics line the same apart from
+    its ms. Step 0 of a scan gets an empty previous set where the loop
+    passes none: no CPHD births either way. FastSLAM also keeps its log
+    contract: the map line holding the MAP particle's integer counters."""
+    base, extra = LOOP_SCAN_CASES[kind]
     sc, d = dataset
-    fs = tmp_path / "fs.cfg"
-    fs.write_text(open("cfg/fastslam_synth.cfg").read() + TINY
-                  + "std_range = 0.25\nclutter_rate = 2.0\n")
+    n = T
+    if kind == "disparity":
+        d, n = disparity_dataset, DISP_T
+    cfg = tmp_path / f"{kind}.cfg"
+    cfg.write_text(open(base).read()
+                   + (DISP_TINY if kind == "disparity" else TINY)
+                   + extra + "\n")
     outs = {}
     for mode in ("loop", "scan"):
         out = outs[mode] = tmp_path / mode
-        args = _args(d, out, "--mode", mode, "--seed", "4", "--data-dir",
-                     str(d))
-        args[0] = str(fs)
-        runner.main(args)
-        with open(out / "metrics.jsonl") as f:
-            metrics = [json.loads(line) for line in f]
-        assert [m["t"] for m in metrics] == list(range(T))
-        assert len((out / "loopTime.log").read_text().split()) == T
-        logs = _logs(out, T)
-        w = np.concatenate([lg["static"][:, 0] for lg in logs])
+        if kind == "disparity":
+            args = [str(cfg), "disparity", "--data-dir", str(d),
+                    "--out-dir", str(out), "--device", "cpu"]
+        else:
+            args = _args(d, out, "--data-dir", str(d))
+            args[0] = str(cfg)
+        runner.main(args + ["--mode", mode, "--seed", "4"])
+        assert [m["t"] for m in _metrics(out)] == list(range(n))
+        assert len((out / "loopTime.log").read_text().split()) == n
+    logs = _files(outs["loop"], "state_estimate")
+    assert sorted(logs) == [f"state_estimate{t:05d}.log" for t in range(n)]
+    assert logs == _files(outs["scan"], "state_estimate")
+    drop_ms = lambda rows: [{k: v for k, v in r.items() if k != "ms"}
+                            for r in rows]
+    assert drop_ms(_metrics(outs["loop"])) == drop_ms(_metrics(outs["scan"]))
+    if kind == "fastslam":
+        lgs = _logs(outs["scan"], T)
+        w = np.concatenate([lg["static"][:, 0] for lg in lgs])
         assert len(w) and (w == np.round(w)).all() and w.min() >= 1
-        assert max(m["card"] for m in metrics) >= 5
+        assert max(m["card"] for m in _metrics(outs["scan"])) >= 5
         errs = np.array([np.linalg.norm(lg["pose"][:2] - sc.traj[t, :2])
-                         for t, lg in enumerate(logs)])
+                         for t, lg in enumerate(lgs)])
         assert np.isfinite(errs).all()
-    assert _files(outs["loop"], "state_estimate") == \
-        _files(outs["scan"], "state_estimate")
 
 
 def test_runner_truth_ospa_column(dataset, tmp_path):

@@ -134,7 +134,8 @@ def kernel_rows():
 
 def run_case(case, mesh=None, traffic=None):
     """One case: kind (a KINDS key), thresh (resampleThresh, or the island
-    exchange's), steps; islands (n), scan (run_scan with its log), noises
+    exchange's), steps; over (more cfg overrides of a plain step or scan,
+    e.g. n_particles); islands (n), scan (run_scan with its log), noises
     (global draws to replay, one per step; without them the draws come
     from a generator seeded 0) and z_prev (False: no previous set, as
     JAX's sharded_step is called). Returns flat(...) of every step's aux and
@@ -195,7 +196,7 @@ def run_case(case, mesh=None, traffic=None):
         return flat(dict(steps=steps, ilw=ilw,
                          state=every_state(state, mesh)))
 
-    cfg = config(kind, resampleThresh=thresh)
+    cfg = config(kind, resampleThresh=thresh, **case.get("over", {}))
     state = shard(SlamState.create(cfg))
     if case.get("scan"):
         if mesh is None:
