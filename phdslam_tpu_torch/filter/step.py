@@ -72,6 +72,7 @@ from phdslam_tpu_torch.ops.resample import neff, stratified_resample_indices
 from phdslam_tpu_torch.parallel.mesh import (everywhere, gather_rows,
                                              global_row, read_flag,
                                              unshard_state)
+from phdslam_tpu_torch.spans import ROOT, span
 
 
 class StepAux(NamedTuple):
@@ -197,6 +198,14 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
                 among all of them (``ops/resample.py``; the island step
                 across ranks passes its n islands)
     """
+    with span(ROOT, state.device):
+        return _step(state, control, z, dt, do_predict, cfg, generator,
+                     noise, with_variance, z_prev, mesh, layout_runs)
+
+
+def _step(state, control, z, dt, do_predict, cfg, generator, noise,
+          with_variance, z_prev, mesh, layout_runs):
+    """``slam_step``'s body, inside its root span."""
     check_supported(cfg)
     is_cphd = cfg.filterType == CPHD_TYPE
     n_runs = z.n_runs
@@ -232,7 +241,8 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
 
     # ---- prediction (shotgun expansion, then sub-stepped pose and
     # dynamic map) ----
-    state = predicted_state(state, control, dt, do_predict, cfg, noise)
+    with span("predict"):
+        state = predicted_state(state, control, dt, do_predict, cfg, noise)
 
     # ---- CPHD births from the previous measurements ----
     if is_cphd:
@@ -245,63 +255,58 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
             state = born if z_prev.every_run \
                 else select_runs(z_prev.run_mask(), born, state)
 
-    # ---- measurement update ----
-    n_measure = z.valid.sum(-1)
-    # the runs with a measurement, where some run has none
-    has_z = z.run_mask() if z.any_run and not z.every_run else None
-    before = state
-    if z.any_run and cfg.filterType == FASTSLAM_TYPE:
-        gm_out, dw = fastslam_update(state.pose, state.map_static, z.rb,
-                                     z.valid, cfg)
-        lw, log_lik = normalise(every(state.log_weights + dw), n_runs,
-                                 layout_runs)
-        lw = own(lw)
-        state = state.replace(map_static=gm_out, log_weights=lw)
-    elif z.any_run and is_cphd:
-        map_out, cn_update, dw = cphd.cphd_update(
-            state.pose, state.map_static, state.cardinality, z.rb, z.label,
-            z.valid, cfg, consts)
-        lw, log_lik = normalise(every(state.log_weights + dw), n_runs,
-                                 layout_runs)
-        lw = own(lw)
-        state = state.replace(map_static=map_out, log_weights=lw,
-                              cardinality=cn_update)
-    elif z.any_run and mixed:
-        birth_vel = None
-        if zw_prev is not None:
-            birth_vel = informed_birth_velocity(state.pose, z.rb, z.valid,
-                                                zw_prev, z_prev.valid, dt,
-                                                cfg)
-        gm2, gm4, dw = phd_update_mixed(state.pose, state.map_static,
-                                        state.map_dynamic, z.rb, z.label,
-                                        z.valid, cfg, birth_vel=birth_vel)
-        lw, log_lik = normalise(every(state.log_weights + dw), n_runs,
-                                 layout_runs)
-        lw = own(lw)
-        state = state.replace(map_static=gm2, map_dynamic=gm4,
-                              log_weights=lw)
-    elif z.any_run:
-        res = phd_update_static(state.pose, state.map_static, z.rb, z.label,
-                                z.valid, cfg)
-        lw, log_lik = normalise(
-            every(state.log_weights + res.log_weight_delta), n_runs,
-            layout_runs)
-        lw = own(lw)
-        var = phd_variance(res, z.valid) if with_variance \
-            else state.variances
-        state = state.replace(map_static=res.map_out, log_weights=lw,
-                              variances=var)
-    else:
-        log_lik = torch.zeros(() if n_runs is None else (n_runs,),
-                              dtype=dtype, device=dev)
-    if has_z is not None:
-        # the runs without a measurement keep their pre-update state
-        state = select_runs(has_z, state, before)
-        log_lik = torch.where(has_z, log_lik, 0.0)
+    # ---- measurement update: the new maps and the weight deltas dw ----
+    with span("update"):
+        n_measure = z.valid.sum(-1)
+        # the runs with a measurement, where some run has none
+        has_z = z.run_mask() if z.any_run and not z.every_run else None
+        before = state
+        dw = None
+        if z.any_run and cfg.filterType == FASTSLAM_TYPE:
+            gm_out, dw = fastslam_update(state.pose, state.map_static, z.rb,
+                                         z.valid, cfg)
+            state = state.replace(map_static=gm_out)
+        elif z.any_run and is_cphd:
+            map_out, cn_update, dw = cphd.cphd_update(
+                state.pose, state.map_static, state.cardinality, z.rb,
+                z.label, z.valid, cfg, consts)
+            state = state.replace(map_static=map_out, cardinality=cn_update)
+        elif z.any_run and mixed:
+            birth_vel = None
+            if zw_prev is not None:
+                birth_vel = informed_birth_velocity(
+                    state.pose, z.rb, z.valid, zw_prev, z_prev.valid, dt,
+                    cfg)
+            gm2, gm4, dw = phd_update_mixed(
+                state.pose, state.map_static, state.map_dynamic, z.rb,
+                z.label, z.valid, cfg, birth_vel=birth_vel)
+            state = state.replace(map_static=gm2, map_dynamic=gm4)
+        elif z.any_run:
+            res = phd_update_static(state.pose, state.map_static, z.rb,
+                                    z.label, z.valid, cfg)
+            dw = res.log_weight_delta
+            var = phd_variance(res, z.valid) if with_variance \
+                else state.variances
+            state = state.replace(map_static=res.map_out, variances=var)
 
-    lw_all = every(state.log_weights)
-    exp_pose = weighted_pose(lw_all, every(state.pose), n_runs, layout_runs)
-    n_eff = neff(lw_all, n_runs, layout_runs)
+    # ---- weight normalisation, expected pose, nEff ----
+    with span("estimate"):
+        if dw is None:
+            log_lik = torch.zeros(() if n_runs is None else (n_runs,),
+                                  dtype=dtype, device=dev)
+        else:
+            lw, log_lik = normalise(every(state.log_weights + dw), n_runs,
+                                     layout_runs)
+            state = state.replace(log_weights=own(lw))
+        if has_z is not None:
+            # the runs without a measurement keep their pre-update state
+            state = select_runs(has_z, state, before)
+            log_lik = torch.where(has_z, log_lik, 0.0)
+
+        lw_all = every(state.log_weights)
+        exp_pose = weighted_pose(lw_all, every(state.pose), n_runs,
+                                 layout_runs)
+        n_eff = neff(lw_all, n_runs, layout_runs)
     if cfg.debug:
         lw_runs = run_view(lw_all, n_runs)
         print(f"[debug] log_lik={log_lik.tolist()} neff={n_eff.tolist()}"
@@ -310,47 +315,49 @@ def slam_step(state: SlamState, control, z: Measurements, dt: float,
               f"card0={float(state.map_static.w[0].sum()):.2f}")
 
     # ---- resampling ----
-    run_shape = () if n_runs is None else (n_runs,)
-    arange = torch.arange(n_target, dtype=torch.int32, device=dev)
-    uniform_lw = torch.full((n_target,), -math.log(float(cfg.n_particles)),
-                            dtype=dtype, device=dev)
-    n_in = state.n_particles * n_ranks
-    if n_in != n_target:
-        # shotgun-expanded step: always contract back to n_particles
-        idx = stratified_resample_indices(lw_all, uniforms,
-                                          cfg.n_particles, n_runs,
-                                          layout_runs)
-        state = gather_particles(state, idx, uniform_lw,
-                                 _lineage(idx, n_runs, n_in), mesh)
-        resampled = torch.ones(run_shape, dtype=torch.bool, device=dev)
-    elif z.any_run:
-        trigger = n_eff <= cfg.resampleThresh
-        if has_z is not None:
-            trigger = trigger & has_z
-        if mesh is None:
+    with span("resample"):
+        run_shape = () if n_runs is None else (n_runs,)
+        arange = torch.arange(n_target, dtype=torch.int32, device=dev)
+        uniform_lw = torch.full((n_target,),
+                                -math.log(float(cfg.n_particles)),
+                                dtype=dtype, device=dev)
+        n_in = state.n_particles * n_ranks
+        if n_in != n_target:
+            # shotgun-expanded step: always contract back to n_particles
             idx = stratified_resample_indices(lw_all, uniforms,
                                               cfg.n_particles, n_runs,
                                               layout_runs)
-            trig = trigger if n_runs is None \
-                else per_particle(trigger, n_target)
-            idx = torch.where(trig, idx, arange)
-            state = gather_particles(
-                state, idx, torch.where(trig, uniform_lw, lw_all),
-                _lineage(idx, n_runs, n_in))
-        elif read_flag(trigger, mesh, "resample"):
-            idx = stratified_resample_indices(lw_all, uniforms,
-                                              cfg.n_particles)
-            state = gather_particles(state, idx, uniform_lw, idx, mesh)
+            state = gather_particles(state, idx, uniform_lw,
+                                     _lineage(idx, n_runs, n_in), mesh)
+            resampled = torch.ones(run_shape, dtype=torch.bool, device=dev)
+        elif z.any_run:
+            trigger = n_eff <= cfg.resampleThresh
+            if has_z is not None:
+                trigger = trigger & has_z
+            if mesh is None:
+                idx = stratified_resample_indices(lw_all, uniforms,
+                                                  cfg.n_particles, n_runs,
+                                                  layout_runs)
+                trig = trigger if n_runs is None \
+                    else per_particle(trigger, n_target)
+                idx = torch.where(trig, idx, arange)
+                state = gather_particles(
+                    state, idx, torch.where(trig, uniform_lw, lw_all),
+                    _lineage(idx, n_runs, n_in))
+            elif read_flag(trigger, mesh, "resample"):
+                idx = stratified_resample_indices(lw_all, uniforms,
+                                                  cfg.n_particles)
+                state = gather_particles(state, idx, uniform_lw, idx, mesh)
+            else:
+                # the torch.where path's bits with the identity: the rank's
+                # rows, weights and lineage as they are; no map moves
+                state = state.replace(log_weights=own(lw_all),
+                                      resample_idx=own(arange))
+            resampled = trigger
         else:
-            # the torch.where path's bits with the identity: the rank's
-            # rows, weights and lineage as they are; no map moves
-            state = state.replace(log_weights=own(lw_all),
-                                  resample_idx=own(arange))
-        resampled = trigger
-    else:
-        state = state.replace(
-            resample_idx=own(_lineage(arange, n_runs, n_in)))
-        resampled = torch.zeros(run_shape, dtype=torch.bool, device=dev)
+            state = state.replace(
+                resample_idx=own(_lineage(arange, n_runs, n_in)))
+            resampled = torch.zeros(run_shape, dtype=torch.bool, device=dev)
 
     return state, StepAux(expected_pose=exp_pose, neff=n_eff,
                           resampled=resampled, n_measure=n_measure,

@@ -35,6 +35,7 @@ from phdslam_tpu_torch.models.measurement import (predict_measurement,
 from phdslam_tpu_torch.ops.gm import (fast_prune_renormalize,
                                       greedy_merge_channels)
 from phdslam_tpu_torch.ops.linalg import safe_log, wrap_angle
+from phdslam_tpu_torch.spans import span
 
 LOG_2PI = 1.8378770664093453
 
@@ -197,73 +198,85 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
     k1 = min(cfg.selectTopK or (4 if cfg.mergeMode == 1 else 8), F)
     vp, lp = rows(z_valid, P, 1), rows(z_label, P, 1)      # [1 or P, M]
 
-    pre = kalman_preupdate(pose, gm, cfg)
-    nv = n_valid_of(z_valid) if cfg.dynamicMeasurementCount else None
-    if cfg.selectByIndex:
-        sum_exp, w_sel, f_sel, compatible = \
-            select.fused_update_select_by_index(z_rb, pre, gm, cfg, k1=k1,
-                                                n_valid=nv)
-        (mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
-         lpw_sel) = gather_selected(pre, gm, z_rb, f_sel,
-                                    with_lpw=cfg.particleWeighting == 2)
-    else:
-        (sum_exp, w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel, lpw_sel,
-         compatible) = select.fused_update_select(z_rb, pre, gm, cfg, k1=k1,
-                                                  n_valid=nv)
-    if cfg.labeledMeasurements:
-        m_ok = vp & (lp == STATIC_MEASUREMENT)
-    else:
-        m_ok = vp
-    sum_exp = torch.where(m_ok, sum_exp, 0.0)
-    w_sel = torch.where(m_ok[:, :, None], w_sel, 0.0)
+    with span("preupdate"):
+        pre = kalman_preupdate(pose, gm, cfg)
+    with span("select"):
+        nv = n_valid_of(z_valid) if cfg.dynamicMeasurementCount else None
+        if cfg.selectByIndex:
+            sum_exp, w_sel, f_sel, compatible = \
+                select.fused_update_select_by_index(z_rb, pre, gm, cfg,
+                                                    k1=k1, n_valid=nv)
+            (mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
+             lpw_sel) = gather_selected(pre, gm, z_rb, f_sel,
+                                        with_lpw=cfg.particleWeighting == 2)
+        else:
+            (sum_exp, w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
+             lpw_sel, compatible) = select.fused_update_select(
+                 z_rb, pre, gm, cfg, k1=k1, n_valid=nv)
+    with span("normalizers"):
+        if cfg.labeledMeasurements:
+            m_ok = vp & (lp == STATIC_MEASUREMENT)
+        else:
+            m_ok = vp
+        sum_exp = torch.where(m_ok, sum_exp, 0.0)
+        w_sel = torch.where(m_ok[:, :, None], w_sel, 0.0)
 
-    # per-measurement normalizers
-    birth_w = cfg.birthWeight
-    if cfg.labeledMeasurements:
-        birth_ok = lp == STATIC_MEASUREMENT
-    else:
-        birth_ok = torch.ones((1, M), dtype=torch.bool, device=z_rb.device)
-    normalizer = sum_exp + cfg.clutterDensity + birth_w
-    log_norm = safe_log(normalizer)
+        # per-measurement normalizers
+        birth_w = cfg.birthWeight
+        if cfg.labeledMeasurements:
+            birth_ok = lp == STATIC_MEASUREMENT
+        else:
+            birth_ok = torch.ones((1, M), dtype=torch.bool,
+                                  device=z_rb.device)
+        normalizer = sum_exp + cfg.clutterDensity + birth_w
+        log_norm = safe_log(normalizer)
 
-    in_mask = pre.rclass == 1
-    w_nondetect = torch.where(in_mask, gm.w * (1.0 - pre.pd), 0.0)
-    if cfg.gateBirths:
-        birth_ok = birth_ok & ~compatible
-    w_birth = torch.where(birth_ok & vp, birth_w / normalizer, 0.0)
+        in_mask = pre.rclass == 1
+        w_nondetect = torch.where(in_mask, gm.w * (1.0 - pre.pd), 0.0)
+        if cfg.gateBirths:
+            birth_ok = birth_ok & ~compatible
+        w_birth = torch.where(birth_ok & vp, birth_w / normalizer, 0.0)
 
-    # particle weighting
-    mvalid = vp.to(gm.w.dtype)                             # [1 or P, M]
-    sum_log_norm = (log_norm * mvalid).sum(-1)
-    n_measure = mvalid.sum(-1)
-    if cfg.particleWeighting == 0:
-        card_pred = (pre.pd * gm.w).sum(-1) + n_measure * birth_w
-        dw = sum_log_norm - card_pred
-    else:
-        cn_predict = torch.where(in_mask, gm.w, 0.0).sum(-1)
-        cn_update = (w_nondetect.sum(-1)
-                     + (sum_exp / normalizer * mvalid).sum(-1)
-                     + (w_birth * mvalid).sum(-1))
-        dw = (n_measure * cfg.clutterDensity + cn_update - cn_predict
-              - cfg.clutterRate)
+        # particle weighting
+        mvalid = vp.to(gm.w.dtype)                         # [1 or P, M]
+        sum_log_norm = (log_norm * mvalid).sum(-1)
+        n_measure = mvalid.sum(-1)
+        if cfg.particleWeighting == 0:
+            card_pred = (pre.pd * gm.w).sum(-1) + n_measure * birth_w
+            dw = sum_log_norm - card_pred
+        else:
+            cn_predict = torch.where(in_mask, gm.w, 0.0).sum(-1)
+            cn_update = (w_nondetect.sum(-1)
+                         + (sum_exp / normalizer * mvalid).sum(-1)
+                         + (w_birth * mvalid).sum(-1))
+            dw = (n_measure * cfg.clutterDensity + cn_update - cn_predict
+                  - cfg.clutterRate)
+        # the terms phd_variance reads
+        w_detect = w_sel * mvalid[:, :, None]
+        det_mass = sum_exp / normalizer * mvalid
+        w_birth_valid = w_birth * mvalid
 
-    map_out = pool_merge_static_sel(
-        gm, pre, w_nondetect,
-        (w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel), w_birth, z_rb,
-        pose, cfg)
+    with span("pool"):
+        pool = pool_static_sel(
+            gm, pre, w_nondetect,
+            (w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel), w_birth,
+            z_rb, pose, cfg)
+    with span("merge"):
+        map_out = merge_pool(pool, F, cfg)
 
     if cfg.particleWeighting == 2:
-        dw = _single_feature_weighting(cfg, gm, map_out, w_sel, lpw_sel,
-                                       normalizer, mx_sel, my_sel,
-                                       n_measure)
+        with span("normalizers"):
+            dw = _single_feature_weighting(cfg, gm, map_out, w_sel, lpw_sel,
+                                           normalizer, mx_sel, my_sel,
+                                           n_measure)
 
     return UpdateResult(
         map_out=map_out,
         log_weight_delta=dw,
         w_nondetect=w_nondetect,
-        w_detect=w_sel * mvalid[:, :, None],
-        w_birth=w_birth * mvalid,
-        det_mass=sum_exp / normalizer * mvalid,
+        w_detect=w_detect,
+        w_birth=w_birth_valid,
+        det_mass=det_mass,
         pre=pre,
     )
 
@@ -271,11 +284,19 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
 def pool_merge_static_sel(gm: Gaussian2DMixture, pre: PreUpdate, w_nd, sel,
                           w_birth, z_rb, pose, cfg) -> Gaussian2DMixture:
     """Prune, pool and merge into the new static map (``_pool_merge_static_
-    sel`` of ``phdslam_tpu/filter/update4.py``; the static update inlines
-    the same steps). The pool is [0, F) originals (non-detection terms for
-    in-range features, untouched weights otherwise), [F, F + M k1) the
-    selected detection terms sel = (w, mx, my, u00, u01, u11) [P, M, k1],
-    then the M births."""
+    sel`` of ``phdslam_tpu/filter/update4.py``; the static update runs the
+    same two steps, ``pool_static_sel`` then ``merge_pool``)."""
+    return merge_pool(pool_static_sel(gm, pre, w_nd, sel, w_birth, z_rb,
+                                      pose, cfg), gm.w.shape[1], cfg)
+
+
+def pool_static_sel(gm: Gaussian2DMixture, pre: PreUpdate, w_nd, sel,
+                    w_birth, z_rb, pose, cfg):
+    """The pruned candidate pool as six [P, F + M k1 + M] channels (w, mx,
+    my, c00, c01, c11): [0, F) originals (non-detection terms for in-range
+    features, untouched weights otherwise), [F, F + M k1) the selected
+    detection terms sel = (w, mx, my, u00, u01, u11) [P, M, k1], then the M
+    births."""
     w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel = sel
     P, F = gm.w.shape
     M, k1 = w_sel.shape[1:]
@@ -298,14 +319,19 @@ def pool_merge_static_sel(gm: Gaussian2DMixture, pre: PreUpdate, w_nd, sel,
     cand_w = cat(w_sec1, flat(w_sel), w_b_p)
     if cfg.mergeMode == 1:
         cand_w = fast_prune_renormalize(cand_w, cfg.mergeMinWeight)
+    return (cand_w,
+            cat(gm.mx, flat(mx_sel), pose[:, None, 0] + bdx),
+            cat(gm.my, flat(my_sel), pose[:, None, 1] + bdy),
+            cat(gm.c00, flat(u00_sel), ct * ct * var_rb + bdy * bdy * var_bb),
+            cat(gm.c01, flat(u01_sel), ct * st * var_rb - bdy * bdx * var_bb),
+            cat(gm.c11, flat(u11_sel), st * st * var_rb + bdx * bdx * var_bb))
+
+
+def merge_pool(pool, F: int, cfg) -> Gaussian2DMixture:
+    """The greedy merge of ``pool_static_sel``'s six channels into the
+    [P, F] map."""
     mw, mmx, mmy, m00, m01, m11 = greedy_merge_channels(
-        cand_w,
-        cat(gm.mx, flat(mx_sel), pose[:, None, 0] + bdx),
-        cat(gm.my, flat(my_sel), pose[:, None, 1] + bdy),
-        cat(gm.c00, flat(u00_sel), ct * ct * var_rb + bdy * bdy * var_bb),
-        cat(gm.c01, flat(u01_sel), ct * st * var_rb - bdy * bdx * var_bb),
-        cat(gm.c11, flat(u11_sel), st * st * var_rb + bdx * bdx * var_bb),
-        cfg.minSeparation, F, metric=cfg.distanceMetric)
+        *pool, cfg.minSeparation, F, metric=cfg.distanceMetric)
     return Gaussian2DMixture(w=mw, mx=mmx, my=mmy, c00=m00, c01=m01,
                              c11=m11)
 
