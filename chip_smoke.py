@@ -12,6 +12,11 @@ code is not 0:
      started together (set-up time)
   2. kernels against their plain PyTorch versions on the card, each timed
      at the dense shape beside its plain version and its bound:
+     - pre-update: at 8192 x 512 and 65,536 x 128 (the benchmark cells'
+       shapes, both timed), 37 x 129 and 1 x 5, on slots of every range
+       class, bearings that wrap near +-pi and covariances from 1e-6 to
+       1e4: all 15 channels bit for bit (a channel that differs is named
+       with its largest ulp gap)
      - select and select by index: the shipped (256 x 128 x 64) and dense
        (8192 x 512 x 64) shapes, normalised, raw and n_valid < M; the
        by-index kernel picks what the payload kernel picks, and the gather
@@ -470,10 +475,19 @@ MESH_DISP_STEPS, CV_STEPS = 3, 20
 # stages launch
 PROFILE_STAGES = 21
 PROFILE_KERNELS = ("select", "select_by_index", "select4", "merge",
-                   "merge4", "merge3", "esf")
+                   "merge4", "merge3", "esf", "preupdate")
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+# the pre-update kernel (phase 2): the benchmark cells' shapes (timed)
+# first, then odd ones (the scalar path); channels moved (6 in, 15 out);
+# float32 operations an element: the predicted measurement and its wrap
+# (12), the range classes (8), the Jacobian (8), S and its determinant
+# (34), S^-1 (4), the gain (24), the Joseph form (53), the log (1); atan2,
+# fmod, sqrt and log counted as one each
+PREUPDATE_CASES = [(8192, 512), (65536, 128), (37, 129), (1, 5)]
+PREUPDATE_TIMED = 2
+PREUPDATE_CHANNELS, PREUPDATE_OPS = 21, 144
 # float32 operations per (p, m, f) triple of the select loops: innovation
 # (1), bearing wrap (4), quadratic form (9), clamp (1), exponent (2), exp
 # (1), sum (1), gate (1); then one compare per argmax round, and 2 more
@@ -492,6 +506,9 @@ MERGE3_TEST_OPS = 60
 # function units run them at a quarter of this rate: an optimistic bound)
 LAE_OPS = 7
 KERNELS = (                         # name, source, the TPU kernel replaced
+    ("preupdate", "phdslam_tpu_torch/csrc/preupdate.cu",
+     "none: phdslam_tpu/filter/update.py:73 (kalman_preupdate, which XLA "
+     "fuses; not a Pallas kernel)"),
     ("select", "phdslam_tpu_torch/csrc/select.cu",
      "phdslam_tpu/kernels/preupdate_pallas.py:274"),
     ("select_by_index", "phdslam_tpu_torch/csrc/select.cu",
@@ -559,6 +576,11 @@ def _auction():
     return auction
 
 
+def _preupdate():
+    from phdslam_tpu_torch.kernels import preupdate
+    return preupdate
+
+
 def launch_counts():
     """Every kernel's launch count, by the names of the JSON line."""
     S, S4, G, G4, G3, E = _mods()
@@ -566,7 +588,8 @@ def launch_counts():
                 select4=S4.launches, select4_by_index=S4.launches_by_index,
                 merge=G.launches, merge4=G4.launches, merge3=G3.launches,
                 esf=E.launches, auction=_auction().launches,
-                ospa_auction=_auction().launches_square)
+                ospa_auction=_auction().launches_square,
+                preupdate=_preupdate().launches)
 
 
 def zero_launch_counts():
@@ -575,6 +598,7 @@ def zero_launch_counts():
     S4.launches = S4.launches_by_index = 0
     G.launches = G4.launches = G3.launches = E.launches = 0
     _auction().launches = _auction().launches_square = 0
+    _preupdate().launches = 0
 
 
 def bound_ms(n_bytes, n_ops):
@@ -650,6 +674,54 @@ def chunked(fn_kern, fn_plain, compare, args_of, P, chunk=DENSE_CHUNK):
         n_bad += b
         worst = max(worst, e)
     return kern, n_bad, worst
+
+
+# --------------------------------------------------- phase 2: pre-update --
+
+def _cases():
+    """tests/preupdate_cases.py: the pre-update's inputs and its channel
+    comparison, shared with the tests."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import preupdate_cases
+    return preupdate_cases
+
+
+def phase_preupdate(dev, stats):
+    """The pre-update kernel against its plain version on the same CUDA
+    tensors at PREUPDATE_CASES, every channel bit for bit; at the
+    benchmark cells' shapes (the first two) the kernel alone, its byte
+    floor and the plain chain timed with CUDA events."""
+    import torch
+    from phdslam_tpu_torch.kernels import preupdate as K
+    t0 = time.perf_counter()
+    _new_stats(stats, "preupdate")
+    times = []
+    for i, (P, F) in enumerate(PREUPDATE_CASES):
+        cfg, pose, gm = _cases().random_preupdate_inputs(P, F, P + F, dev)
+        kern = K.preupdate_cuda(pose, gm, cfg)
+        plain = K.preupdate_plain(pose, gm, cfg)
+        torch.cuda.synchronize()
+        bad = _cases().preupdate_channels_differing(kern, plain)
+        classes = torch.bincount(kern.rclass.flatten(), minlength=3)
+        log(f"preupdate [{P}, {F}]: range classes out / in / near "
+            f"{classes.tolist()}, channels differing from plain "
+            f"{bad or 'none'}")
+        if bad:
+            raise RuntimeError(f"preupdate [{P}, {F}]: channels differ from "
+                               f"the plain chain (largest ulp gaps): {bad}")
+        if i >= PREUPDATE_TIMED:
+            continue
+        ms = cuda_ms(lambda: K.preupdate_cuda(pose, gm, cfg), 20)
+        plain_ms = cuda_ms(lambda: K.preupdate_plain(pose, gm, cfg), 5)
+        b_ms, by = bound_ms(PREUPDATE_CHANNELS * 4 * P * F + 12 * P,
+                            PREUPDATE_OPS * P * F)
+        times.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=by))
+        log(f"preupdate [{P}, {F}]: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms by {by}, {b_ms / ms:.1%} of it)")
+    stats["preupdate"].update(library_ms=None, **times[0])
+    log(f"phase preupdate: ok ({time.perf_counter() - t0:.1f} s)")
 
 
 # ------------------------------------------------------ phase 2: select --
@@ -1785,7 +1857,7 @@ class _KernelTimer:
 def timers():
     """One _KernelTimer per kernel wrapper: select (both modes), select4
     (both modes), merge, merge4, merge3, esf, auction, the square
-    auction."""
+    auction, preupdate."""
     S, S4, G, G4, G3, E = _mods()
     return dict(select=_KernelTimer(S, "select_cuda"),
                 select4=_KernelTimer(S4, "select4_cuda"),
@@ -1794,7 +1866,8 @@ def timers():
                 merge3=_KernelTimer(G3, "merge3_cuda"),
                 esf=_KernelTimer(E, "esf_all_cuda"),
                 auction=_KernelTimer(_auction(), "auction_assign_cuda"),
-                ospa_auction=_KernelTimer(_auction(), "auction_square_cuda"))
+                ospa_auction=_KernelTimer(_auction(), "auction_square_cuda"),
+                preupdate=_KernelTimer(_preupdate(), "preupdate_cuda"))
 
 
 def agree_on_last_args(tm, stats, what):
@@ -1805,7 +1878,8 @@ def agree_on_last_args(tm, stats, what):
                     merge=G.merge_plain, merge4=G4.merge4_plain,
                     merge3=G3.merge3_plain, esf=E.esf_all_plain,
                     auction=_auction().auction_assign_plain,
-                    ospa_auction=_auction().auction_square_plain)
+                    ospa_auction=_auction().auction_square_plain,
+                    preupdate=_preupdate().preupdate_plain)
     parts, held = [], set()
     for name, t in tm.items():
         if t.last_args is None:
@@ -1828,6 +1902,13 @@ def agree_on_last_args(tm, stats, what):
                                        f"{what} inputs")
         elif name == "ospa_auction":
             square_exact(kern, plain, f"{what} inputs")
+            n_bad, err = 0, 0.0
+        elif name == "preupdate":
+            bad = _cases().preupdate_channels_differing(kern, plain)
+            if bad:
+                raise RuntimeError(f"preupdate ({what} inputs): channels "
+                                   f"differ from the plain chain (largest "
+                                   f"ulp gaps): {bad}")
             n_bad, err = 0, 0.0
         else:
             n_bad, err = compare_rows(kern, plain)
@@ -2034,7 +2115,8 @@ def phase_main_path(dev, stats):
         stats.setdefault("scan_ms_per_step", {})["static"] = scan_as_loop(
             lambda: run_runner(d, cfg_text, start, dev, {}, mode="scan"),
             out, n_steps, dict(select=n_steps, merge=n_steps, esf=0,
-                               auction=0), "static main path")
+                               auction=0, preupdate=n_steps),
+            "static main path")
     # every step of this run has measurements, so every step updates
     n_update = n_steps
     log(f"main path: {n_steps} steps, {n_logs} state_estimate logs, "
@@ -2047,7 +2129,7 @@ def phase_main_path(dev, stats):
     check_launches(launches, dict(select=n_update, merge=n_update,
                                   select_by_index=0, select4=0,
                                   select4_by_index=0, merge4=0, merge3=0,
-                                  esf=0, auction=0),
+                                  esf=0, auction=0, preupdate=n_update),
                    "static main path")
     if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
         raise RuntimeError(f"mean pose error {errs.mean():.3f} m is not "
@@ -2061,9 +2143,10 @@ def phase_main_path(dev, stats):
         f"exiting early {early:.4f}, rounds per row {rounds:.3f} of "
         f"{w_sel.shape[-1]}, live slots per particle {live:.1f}")
     log(f"main path kernels: select {tm['select'].ms() / n_steps:.4f} "
-        f"ms/step, merge {tm['merge'].ms() / n_steps:.4f} ms/step (CUDA "
+        f"ms/step, merge {tm['merge'].ms() / n_steps:.4f} ms/step, "
+        f"preupdate {tm['preupdate'].ms() / n_steps:.4f} ms/step (CUDA "
         f"events)")
-    for k in ("select", "merge"):
+    for k in ("select", "merge", "preupdate"):
         stats[k]["launches"] = launches[k]
     stats["shipped_ms_per_step"] = float(loop_ms.mean())
     stats["shipped_pose_err"] = float(errs.mean())
@@ -2121,17 +2204,17 @@ def resumed_lines_valid(out, steps, cphd, what):
 # JAX): then the first resumed step differs
 RESUME_CASES = (
     ("static", "cfg/ackerman_synth.cfg", "", "static", True,
-     ("select", "merge")),
+     ("select", "merge", "preupdate")),
     ("FastSLAM", "cfg/fastslam_synth.cfg",
      "std_range = 0.25\nclutter_rate = 2.0\n", "static", True,
-     ("auction",)),
+     ("auction", "preupdate")),
     ("mixed", "cfg/mixed_synth.cfg", "", "mixed", True,
-     ("select", "select4", "merge", "merge4")),
+     ("select", "select4", "merge", "merge4", "preupdate")),
     ("mixed birth_velocity_init", "cfg/mixed_synth.cfg",
      "birth_velocity_init = 1\n", "mixed", False,
-     ("select", "select4", "merge", "merge4")),
+     ("select", "select4", "merge", "merge4", "preupdate")),
     ("CPHD", "cfg/ackerman_synth.cfg", "filter_type = 1\n", "static",
-     False, ("esf", "select", "merge")),
+     False, ("esf", "select", "merge", "preupdate")),
 )
 
 
@@ -2150,7 +2233,7 @@ def phase_resume(dev, stats):
     t0 = time.perf_counter()
     steps = range(RESUME_FROM + 1, RESUME_STEPS)
     kinds = ("select", "select4", "merge", "merge4", "merge3", "esf",
-             "auction")
+             "auction", "preupdate")
     with tempfile.TemporaryDirectory() as d:
         files = dict(static=static_run_files(Path(d, "static"))[2],
                      mixed=mixed_run_files(Path(d, "mixed"))[3])
@@ -2290,7 +2373,7 @@ def phase_mixed_main_path(dev, stats):
                                       merge=n_steps, merge4=n_steps,
                                       select_by_index=0,
                                       select4_by_index=0, merge3=0, esf=0,
-                                      auction=0),
+                                      auction=0, preupdate=n_steps),
                        "mixed main path")
         if not np.isfinite(errs).all() or errs.mean() >= MIXED_POSE_BAR_M:
             raise RuntimeError(f"mixed: mean pose error {errs.mean():.3f} "
@@ -2308,7 +2391,8 @@ def phase_mixed_main_path(dev, stats):
             lambda: run_runner(d, base, start, dev, {}, mode="scan"), out,
             n_steps, dict(select=n_steps, select4=n_steps, merge=n_steps,
                           merge4=n_steps, select_by_index=0,
-                          select4_by_index=0), "mixed main path")
+                          select4_by_index=0, preupdate=n_steps),
+            "mixed main path")
 
         # the by-index modes, on the first steps of the same run
         tm = timers()
@@ -2318,7 +2402,7 @@ def phase_mixed_main_path(dev, stats):
         check_launches(launches, dict(
             select_by_index=BY_INDEX_STEPS, select4_by_index=BY_INDEX_STEPS,
             merge=BY_INDEX_STEPS, merge4=BY_INDEX_STEPS, select=0,
-            select4=0), "select_by_index pass")
+            select4=0, preupdate=BY_INDEX_STEPS), "select_by_index pass")
         n_logs = len(list(out.glob("state_estimate*.log")))
         if n_logs != BY_INDEX_STEPS:
             raise RuntimeError("select_by_index pass: log contract")
@@ -2362,7 +2446,8 @@ def phase_disparity_main_path(dev, stats):
         scan_out = Path(d, "scan")
         stats.setdefault("scan_ms_per_step", {})["disparity"] = scan_as_loop(
             lambda: run_disparity(scan_out, dev, {}, mode="scan")
-            + (scan_out,), out, n_steps, dict(merge3=n_update, merge=0),
+            + (scan_out,), out, n_steps, dict(merge3=n_update, merge=0,
+                                              preupdate=0),
             "disparity main path")
     n_map = np.array([len(lg["static"]) for lg in logs])
     log(f"disparity main path: {n_steps} steps, launches {launches} (steps "
@@ -2378,7 +2463,7 @@ def phase_disparity_main_path(dev, stats):
     check_launches(launches, dict(merge3=n_update, select=0, merge=0,
                                   select_by_index=0, select4=0,
                                   select4_by_index=0, merge4=0, esf=0,
-                                  auction=0),
+                                  auction=0, preupdate=0),
                    "disparity main path")
     if not np.isfinite(errs).all() or errs.mean() >= DISP_POSE_BAR_M:
         raise RuntimeError(f"disparity: mean camera error {errs.mean():.3f}"
@@ -2409,8 +2494,8 @@ def phase_cphd_main_path(dev, stats):
         stats.setdefault("scan_ms_per_step", {})["CPHD"] = scan_as_loop(
             lambda: run_runner(d, cfg_text, start + "filter_type = 1\n",
                                dev, {}, mode="scan"), out, n_steps,
-            dict(esf=n_steps, select=n_steps, merge=n_steps),
-            "CPHD main path")
+            dict(esf=n_steps, select=n_steps, merge=n_steps,
+                 preupdate=n_steps), "CPHD main path")
     cn = np.stack([lg["cardinality"] for lg in logs])       # [T, N+1]
     with np.errstate(over="ignore"):
         pmf = np.exp(cn.astype(np.float64))
@@ -2434,7 +2519,8 @@ def phase_cphd_main_path(dev, stats):
     check_launches(launches, dict(esf=n_steps, select=n_steps,
                                   merge=n_steps, select_by_index=0,
                                   select4=0, select4_by_index=0, merge4=0,
-                                  merge3=0, auction=0), "CPHD main path")
+                                  merge3=0, auction=0, preupdate=n_steps),
+                   "CPHD main path")
     if not tm["select"].last_args[1].get("raw"):
         raise RuntimeError("CPHD: the select kernel ran outside raw mode")
     if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
@@ -2565,7 +2651,7 @@ def phase_mc_envelope(dev, stats):
                 select=n_up, merge=n_up,
                 esf=n_up if over.get("filterType") == 1 else 0,
                 select_by_index=0, select4=0, select4_by_index=0, merge4=0,
-                merge3=0, auction=0, ospa_auction=0),
+                merge3=0, auction=0, ospa_auction=0, preupdate=n_up),
                 f"Monte-Carlo {arm} {path}")
             if not abs(ospa_late - ref["ospa_late_mean"]) \
                     <= ref["ospa_late_std"]:
@@ -2658,11 +2744,11 @@ def phase_mc_fastslam_mixed(dev, stats):
     _, sc = mc_setup(MC_SIDE_STEPS)
     zero = dict(select=0, select_by_index=0, select4=0, select4_by_index=0,
                 merge=0, merge4=0, merge3=0, esf=0, auction=0,
-                ospa_auction=0)
+                ospa_auction=0, preupdate=0)
     for name, cfg_file, kernels in (
-            ("FastSLAM", "cfg/fastslam_synth.cfg", ("auction",)),
+            ("FastSLAM", "cfg/fastslam_synth.cfg", ("auction", "preupdate")),
             ("mixed", "cfg/mixed_synth.cfg",
-             ("select", "select4", "merge", "merge4"))):
+             ("select", "select4", "merge", "merge4", "preupdate"))):
         cfg = load_config(str(ROOT / cfg_file))
         n_seq, n_vm = update_steps(cfg, sc, range(MC_SIDE_RUNS))
         out = {}
@@ -2869,7 +2955,8 @@ def phase_fastslam_main_path(dev, stats):
                 merge=0, merge4=0, merge3=0, esf=0)
     tm = {"auction": timers()["auction"]}
     errs, launches, ms = run_fastslam_cell(cell, 0, 1, dev, tm)
-    check_launches(launches, dict(none, auction=n_update),
+    check_launches(launches, dict(none, auction=n_update,
+                                  preupdate=n_update),
                    "FastSLAM main path")
     agree_on_last_args(tm, stats, "FastSLAM main path")
     mean_it, max_it, at_budget = auction_rounds(
@@ -2889,7 +2976,8 @@ def phase_fastslam_main_path(dev, stats):
         e, _, _ = run_fastslam_cell(cell, seed, 1, dev, {})
         env.append(float(e.mean()))
     e0, launches0, ms0 = run_fastslam_cell(cell, 0, 0, dev, {})
-    check_launches(launches0, dict(none, auction=0), "FastSLAM gated ML")
+    check_launches(launches0, dict(none, auction=0, preupdate=n_update),
+                   "FastSLAM gated ML")
     a = np.array(env)
     log(f"FastSLAM envelope (auction), pose error (m), seeds "
         f"{list(FS_SEEDS)}: " + ", ".join(f"{x:.4f}" for x in a)
@@ -2948,8 +3036,8 @@ def phase_fastslam_runner(dev, stats):
             raise RuntimeError("FastSLAM runner: log contract incomplete")
         check_launches(launches, dict(
             auction=n_steps, select=0, select_by_index=0, select4=0,
-            select4_by_index=0, merge=0, merge4=0, merge3=0, esf=0),
-            "FastSLAM runner")
+            select4_by_index=0, merge=0, merge4=0, merge3=0, esf=0,
+            preupdate=n_steps), "FastSLAM runner")
         agree_on_last_args(tm, stats, "FastSLAM runner")
         res = runner.main([str(Path(d, "run.cfg")), "synth", "profile",
                            "--out-dir", str(out), "--device", dev.type])
@@ -2961,8 +3049,8 @@ def phase_fastslam_runner(dev, stats):
         stats.setdefault("scan_ms_per_step", {})["FastSLAM"] = scan_as_loop(
             lambda: run_runner(d, cfg_text, start, dev, {}, mode="scan",
                                extra=("--truth", str(truth))), out,
-            n_steps, dict(auction=n_steps, select=0, merge=0),
-            "FastSLAM runner")
+            n_steps, dict(auction=n_steps, select=0, merge=0,
+                          preupdate=n_steps), "FastSLAM runner")
 
         launches, run_s, out = run_runner(
             d, cfg_text, start + f"n_steps = {FS_SHORT_STEPS}\n"
@@ -3430,7 +3518,8 @@ def phase_island_runner(dev, stats, d):
         check_launches(launches, dict(select=n_steps, merge=n_steps,
                                       select_by_index=0, select4=0,
                                       select4_by_index=0, merge4=0,
-                                      merge3=0, esf=0, auction=0),
+                                      merge3=0, esf=0, auction=0,
+                                      preupdate=n_steps),
                        f"islands {mode}")
         if mode == "loop":
             ilw = res["island_logw"][None]
@@ -3622,7 +3711,7 @@ def mesh_scan(dev, mesh, run_dir):
         f"{launches['select']} merge {launches['merge']}, mean pose error "
         f"{err:.3f} m")
     if launches["select"] != len(zs) or launches["merge"] != len(zs) \
-            or not err < POSE_BAR_M:
+            or launches["preupdate"] != len(zs) or not err < POSE_BAR_M:
         raise RuntimeError(f"{what}: launches {launches}, pose error {err}")
     return launches, err
 
@@ -3729,8 +3818,8 @@ def mesh_dense_pairs(dev, mesh):
             lambda m: stress_stepper(DENSE, MESH_STEPS, dev, mesh=m,
                                      resampleThresh=thresh)[1:],
             MESH_STEPS, mesh, what)
-        check_launches(launches, dict(select=MESH_STEPS, merge=MESH_STEPS),
-                       what)
+        check_launches(launches, dict(select=MESH_STEPS, merge=MESH_STEPS,
+                                      preupdate=MESH_STEPS), what)
         out[thresh] = check_moved(
             moved, MESH_STEPS, what, "read_flag resample",
             "gather_rows resample", n_leaves if thresh > 1.0 else 0,
@@ -3765,7 +3854,8 @@ def mesh_island_pairs(dev, mesh):
 
             launches, moved, _ = mesh_pair(make, MESH_STEPS, mesh, what)
             check_launches(launches, dict(select=MESH_STEPS,
-                                          merge=MESH_STEPS), what)
+                                          merge=MESH_STEPS,
+                                          preupdate=MESH_STEPS), what)
             out[f"{n} {thresh}"] = check_moved(
                 moved, MESH_STEPS, what, "read_flag butterfly",
                 "exchange_rows butterfly",
@@ -3953,7 +4043,7 @@ def phase_mesh(dev, stats, gpu, run_dir):
                            dict(select=n_steps, merge=n_steps,
                                 select_by_index=0, select4=0,
                                 select4_by_index=0, merge4=0, merge3=0,
-                                esf=0, auction=0),
+                                esf=0, auction=0, preupdate=n_steps),
                            f"rank {r['rank']} runner {mode}")
     for mode in ("loop", "scan"):
         n_files = same_run_outputs(Path(run_dir, f"islands_{mode}"),
@@ -4032,7 +4122,7 @@ def phase_bench(dev, stats, gpu):
     launches = launch_counts()
     n = len(bench.MODES) * (bench.WARMUP + bench.WINDOWS
                             * (bench.N_STEPS - bench.WARMUP))
-    check_launches(launches, dict(select=n, merge=n), "bench")
+    check_launches(launches, dict(select=n, merge=n, preupdate=n), "bench")
     log("bench launches: " + ", ".join(
         f"{k} {v}" for k, v in launches.items() if v))
     P = bench.dense_stress_config().n_particles
@@ -4050,7 +4140,8 @@ def phase_bench(dev, stats, gpu):
     zero_launch_counts()
     rec = bench.main(["--quick"])
     launches = launch_counts()
-    check_launches(launches, dict(select=n, merge=n), "bench --quick")
+    check_launches(launches, dict(select=n, merge=n, preupdate=n),
+                   "bench --quick")
     if (rec["metric"] != "ms_per_slam_step_512p_cuda"
             or rec["device"] != torch.cuda.get_device_name(0)):
         raise RuntimeError(f"bench --quick line: {rec}")
@@ -4172,12 +4263,12 @@ def step_kernels(cfg):
     if cfg.selectByIndex:
         raise ValueError("the evidence runs no select_by_index arm")
     if cfg.filterType == 2:
-        return ("auction",)
+        return ("auction", "preupdate")
     if cfg.featureModel == 2:
-        return ("select", "select4", "merge", "merge4")
+        return ("select", "select4", "merge", "merge4", "preupdate")
     if cfg.filterType == 1:
-        return ("select", "merge", "esf")
-    return ("select", "merge")
+        return ("select", "merge", "esf", "preupdate")
+    return ("select", "merge", "preupdate")
 
 
 class UpdateCounter:
@@ -4433,7 +4524,8 @@ def phase_config5(dev, stats, gpu):
             peak = torch.cuda.max_memory_allocated() / 2**30
             check_launches(launches, dict(select=CONFIG5_STEPS,
                                           merge=CONFIG5_STEPS, esf=0,
-                                          auction=0), what)
+                                          auction=0,
+                                          preupdate=CONFIG5_STEPS), what)
             k_ms = {k: t.ms() / CONFIG5_STEPS for k, t in tm.items()
                     if t.pairs}
             neff = aux.neff.cpu().numpy()
@@ -4484,7 +4576,7 @@ def phase_config5(dev, stats, gpu):
             or n_w != P or n_p != 6 * P or len(lines) != 7:
         raise RuntimeError(f"{what}: log contract incomplete")
     check_launches(launches, dict(select=n_steps, merge=n_steps, esf=0,
-                                  auction=0), what)
+                                  auction=0, preupdate=n_steps), what)
     if not np.isfinite(errs).all() or errs.mean() >= POSE_BAR_M:
         raise RuntimeError(f"{what}: mean pose error {errs.mean():.3f} m "
                            f"is not below {POSE_BAR_M} m")
@@ -4549,7 +4641,8 @@ def config5_mesh_scans(dev, mesh, run_dir):
         p_state, p_auxs = run(None)
         same_bits((p_auxs, p_state), (auxs, state), what)
         check_launches(launches, dict(select=CONFIG5_STEPS,
-                                      merge=CONFIG5_STEPS), what)
+                                      merge=CONFIG5_STEPS,
+                                      preupdate=CONFIG5_STEPS), what)
         fired = int(auxs.resampled.sum())
         if fired != (CONFIG5_STEPS if thresh > 1.0 else 0):
             raise RuntimeError(f"{what}: the resample fired on {fired} of "
@@ -4655,7 +4748,8 @@ def phase_cv_motion(dev, stats, gpu):
                              noise=tuple(x.cpu() for x in noise),
                              z_prev=zs[t - 1].to(cpu))
     check_launches(launches, dict(select=CV_STEPS + 1, merge=CV_STEPS + 1,
-                                  esf=0, auction=0), what)
+                                  esf=0, auction=0, preupdate=CV_STEPS + 1),
+                   what)
     ms_, mp_ = card.map_static, plain.map_static
     live = (ms_.w.cpu() > 0) | (mp_.w > 0)
     kern = [card.pose.cpu(), card.log_weights.cpu(),
@@ -4809,6 +4903,7 @@ def main(argv=None):
         f" {info['path']})")
 
     stats = {}
+    phase_preupdate(dev, stats)
     phase_select(dev, stats)
     phase_merge(dev, stats)
     phase_select4(dev, stats)

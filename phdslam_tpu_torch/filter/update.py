@@ -1,12 +1,13 @@
 """GM-PHD measurement update of the static map, fixed shapes, on tensors.
 
 Port of ``phdslam_tpu/filter/update.py``. The update follows the JAX
-package's kernel branch: the Kalman pre-update runs as [P, F] channel
-arithmetic, the select kernel (``kernels/select.py``) produces the
-per-measurement normalisers and the top-k1 detection terms without ever
-storing the [P, M, F] likelihoods, and the merge kernel
-(``kernels/merge.py``) reduces the candidate pool into the new map. On a
-CPU tensor both kernel wrappers run their plain PyTorch versions.
+package's kernel branch: the pre-update kernel (``kalman_preupdate``,
+``kernels/preupdate.py``) computes the Kalman terms as [P, F] channels,
+the select kernel (``kernels/select.py``) produces the per-measurement
+normalisers and the top-k1 detection terms without ever storing the
+[P, M, F] likelihoods, and the merge kernel (``kernels/merge.py``) reduces
+the candidate pool into the new map. On a CPU tensor the kernel wrappers
+run their plain PyTorch versions.
 
 ``gather_selected`` rebuilds the payload of picked indices: the static
 update runs it under ``select_by_index`` (the by-index mode of the select
@@ -30,107 +31,14 @@ from phdslam_tpu_torch.config import STATIC_MEASUREMENT
 from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.filter.state import Gaussian2DMixture
 from phdslam_tpu_torch.kernels import select
-from phdslam_tpu_torch.models.measurement import (predict_measurement,
-                                                  range_class)
+# the pre-update's kernel wrapper, under the filter's name for it
+from phdslam_tpu_torch.kernels.preupdate import PreUpdate, kalman_preupdate
 from phdslam_tpu_torch.ops.gm import (fast_prune_renormalize,
                                       greedy_merge_channels)
 from phdslam_tpu_torch.ops.linalg import safe_log, wrap_angle
 from phdslam_tpu_torch.spans import span
 
 LOG_2PI = 1.8378770664093453
-
-
-class PreUpdate(NamedTuple):
-    """Measurement-independent Kalman terms, all [P, F] channels."""
-
-    r: torch.Tensor
-    bearing: torch.Tensor
-    pd: torch.Tensor
-    rclass: torch.Tensor         # 0 = out, 1 = in, 2 = near (0 when empty)
-    g00: torch.Tensor            # Kalman gain
-    g01: torch.Tensor
-    g10: torch.Tensor
-    g11: torch.Tensor
-    u00: torch.Tensor            # Joseph-form updated covariance
-    u01: torch.Tensor
-    u11: torch.Tensor
-    si00: torch.Tensor           # innovation covariance inverse
-    si01: torch.Tensor
-    si11: torch.Tensor
-    log_det_s: torch.Tensor
-
-
-def kalman_preupdate(pose, gm: Gaussian2DMixture, cfg) -> PreUpdate:
-    """EKF terms per (particle, feature): S = J P J^T + R, K = P J^T S^-1,
-    P' = (I - K J) P (I - K J)^T + K R K^T."""
-    mean_xy = torch.stack([gm.mx, gm.my], dim=-1)
-    r, b, dx, dy, _ = predict_measurement(pose[:, None, :], mean_xy)
-    rc = range_class(r, b, cfg)
-    rc = torch.where(gm.valid, rc, 0)
-    in_mask = rc == 1
-    pd = torch.where(in_mask, cfg.pd, 0.0).to(gm.w.dtype)
-
-    # Slots outside the update (empty or not in range) get the benign
-    # geometry dx = 1, dy = 0, so every Kalman term stays finite and no
-    # 0 * inf reaches the merge's weighted sums.
-    dx = torch.where(in_mask, dx, 1.0)
-    dy = torch.where(in_mask, dy, 0.0)
-    r2s = dx * dx + dy * dy
-    rs = torch.sqrt(r2s)
-
-    j00 = dx / rs
-    j01 = dy / rs
-    j10 = -dy / r2s
-    j11 = dx / r2s
-
-    p00, p01, p11 = gm.c00, gm.c01, gm.c11
-    var_r = cfg.stdRange ** 2
-    var_b = cfg.stdBearing ** 2
-
-    a00 = j00 * (j00 * p00 + j01 * p01) + j01 * (j00 * p01 + j01 * p11)
-    a01 = j10 * (j00 * p00 + j01 * p01) + j11 * (j00 * p01 + j01 * p11)
-    a11 = j10 * (j10 * p00 + j11 * p01) + j11 * (j10 * p01 + j11 * p11)
-
-    s00 = a00 + var_r
-    s01 = a01
-    s11 = a11 + var_b
-
-    # Cancellation-free determinant: det(A + R) = det(P) / r^2
-    # + a00 var_b + a11 var_r + var_r var_b, every term nonnegative, floored
-    # at det(R). The naive s00 s11 - s01^2 loses everything in float32 once
-    # the covariances grow.
-    det_p = torch.clamp(p00 * p11 - p01 * p01, min=0.0)
-    det_s = det_p / r2s + a00 * var_b + a11 * var_r + var_r * var_b
-    det_s = torch.clamp(det_s, min=var_r * var_b)
-
-    si00 = s11 / det_s
-    si01 = -s01 / det_s
-    si11 = s00 / det_s
-
-    t00 = p00 * j00 + p01 * j01
-    t01 = p00 * j10 + p01 * j11
-    t10 = p01 * j00 + p11 * j01
-    t11 = p01 * j10 + p11 * j11
-    g00 = t00 * si00 + t01 * si01
-    g01 = t00 * si01 + t01 * si11
-    g10 = t10 * si00 + t11 * si01
-    g11 = t10 * si01 + t11 * si11
-
-    l00 = 1.0 - (g00 * j00 + g01 * j10)
-    l01 = -(g00 * j01 + g01 * j11)
-    l10 = -(g10 * j00 + g11 * j10)
-    l11 = 1.0 - (g10 * j01 + g11 * j11)
-    q00 = l00 * p00 + l01 * p01
-    q01 = l00 * p01 + l01 * p11
-    q10 = l10 * p00 + l11 * p01
-    q11 = l10 * p01 + l11 * p11
-    u00 = q00 * l00 + q01 * l01 + g00 * g00 * var_r + g01 * g01 * var_b
-    u01 = q00 * l10 + q01 * l11 + g00 * g10 * var_r + g01 * g11 * var_b
-    u11 = q10 * l10 + q11 * l11 + g10 * g10 * var_r + g11 * g11 * var_b
-
-    return PreUpdate(r=r, bearing=b, pd=pd, rclass=rc, g00=g00, g01=g01,
-                     g10=g10, g11=g11, u00=u00, u01=u01, u11=u11, si00=si00,
-                     si01=si01, si11=si11, log_det_s=torch.log(det_s))
 
 
 def detection_log_weights(pre: PreUpdate, gm: Gaussian2DMixture, z_rb,

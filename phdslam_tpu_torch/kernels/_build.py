@@ -70,6 +70,8 @@ SIGNATURES = {
     "phd_auction_square_wide_floats": [_I, _I],
     "phd_auction_square_path": [_I],
     "phd_auction_square_ctas_per_sm": [_I, _P],
+    "phd_preupdate_launch": [_P] * 7 + [_I, _P, _P, _I, _I] + [_F] * 12
+    + [_P],
     "phd_error_string": [_I],
 }
 # every other function returns an int

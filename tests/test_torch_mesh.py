@@ -70,10 +70,11 @@ ISLAND_CASES = {f"islands{'' if n == 4 else n}-{kind}-{thresh}": dict(
     for n in (4, 8) for kind in ("static", "cphd", "mixed")
     for thresh in (0.0, 1.1)}
 # the kernel entries each kind's step reaches
-KERNELS = dict(static={"select", "merge"}, shotgun={"select", "merge"},
-               cphd={"select", "esf", "merge"},
-               mixed={"select", "select4", "merge", "merge4"},
-               fastslam={"auction"}, disparity={"merge3"})
+KERNELS = dict(static={"preupdate", "select", "merge"},
+               shotgun={"preupdate", "select", "merge"},
+               cphd={"preupdate", "select", "esf", "merge"},
+               mixed={"preupdate", "select", "select4", "merge", "merge4"},
+               fastslam={"preupdate", "auction"}, disparity={"merge3"})
 JAX_KINDS = ("static", "cphd")
 JAX_W = 4
 
