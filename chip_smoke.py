@@ -349,6 +349,17 @@ MERGE4_CASES = [                    # (P, K, cap, min_separation)
 MERGE_TIES = [                      # exact weight ties throughout
     (1024, 1088, 512, 0, 5.0),
 ]
+MERGE_POOL_CASES = [                # tests/merge_pools.py's pools:
+    ("course", 8192, 1088, 512, 0, 5.0),    # dense8k's, along a course
+    ("course", 65536, 704, 128, 0, 5.0),    # wide65k's
+    ("chain", 1024, 1088, 512, 0, 5.0),     # chains through the batches
+    # unbounded candidates (huge, tiny, singular, indefinite, past the
+    # condition bound), reach outliers, ties; no NaN or infinity, which the
+    # plain version's float32 on the CPU rounds otherwise (sweep.py's
+    # --against holds those bit for bit against another build)
+    ("finite_outliers", 1024, 1088, 512, 0, 5.0),
+    ("finite_outliers", 1024, 1088, 512, 1, 0.6),
+]
 MERGE4_TIES = [(1024, 1088, 512, 1.0)]
 MERGE4_DEGENERATE = [               # zero, singular, indefinite covariances
     (1024, 1088, 512, 1.0),
@@ -498,6 +509,9 @@ SELECT_TRIPLE_OPS = 20
 # 4x4 Cholesky (4 sqrt, 6 divides, ~20 others), the triangular solve (4
 # divides, ~12 others), the squared norm (7), the compares
 MERGE_TEST_OPS, MERGE4_TEST_OPS = 24, 80
+# float32 operations per gate test of merge.cu's gated chain: the offset,
+# its squared length, the reach sum, its scale and the compare
+MERGE_GATE_OPS = 8
 # 3-D: the averaged covariance (12), determinant and adjugate (27), the
 # quadratic form (15), the divide and the compares
 MERGE3_TEST_OPS = 60
@@ -685,6 +699,15 @@ def _cases():
         sys.path.insert(0, str(ROOT / "tests"))
     import preupdate_cases
     return preupdate_cases
+
+
+def merge_pool(kind, P, K, seed, dev):
+    """tests/merge_pools.py's pool of this kind, on dev."""
+    import torch
+    _cases()
+    import merge_pools
+    return [torch.as_tensor(a, device=dev)
+            for a in merge_pools.POOLS[kind](P, K, seed)]
 
 
 def phase_preupdate(dev, stats):
@@ -973,26 +996,94 @@ def merge_tests(pool, sep, cap, metric):
     return candidate_tests(w, near, cap)[0]
 
 
+def merge_cases(dev):
+    """Every merge case of the merge phase: (name, pool, (min_sep, cap,
+    metric)); random pools first, then tests/merge_pools.py's."""
+    for i, (P, K, cap, metric, sep) in enumerate(MERGE_CASES + MERGE_TIES):
+        pool = random_pool(P, K, 10 + i, dev)
+        name = "random"
+        if i >= len(MERGE_CASES):
+            pool[0] = tie_weights(pool[0], i)
+            name = "ties"
+        yield name, pool, (sep, cap, metric)
+    for i, (kind, P, K, cap, metric, sep) in enumerate(MERGE_POOL_CASES):
+        yield kind, merge_pool(kind, P, K, 40 + i, dev), (sep, cap, metric)
+
+
+def merge_ops(st):
+    """float32 operations merge.cu's gated chain makes, from its counts
+    (kernels/merge.py's STATS, [P, 6]): gate and exact tests."""
+    G = _mods()[2]
+    st = st.long()
+    return (int(st[:, G.STATS.index("gate_tests")].sum()) * MERGE_GATE_OPS
+            + int(st[:, G.STATS.index("exact_tests")].sum())
+            * MERGE_TEST_OPS)
+
+
+def gate_line(st, tests):
+    """The merge kernel's chain counts (kernels/merge.py's STATS, [P, 6])
+    as a dict and a log line; tests: the batched chain's candidate tests
+    (pick_loop's, which merge.cu's gated chain replaces)."""
+    G = _mods()[2]
+    st = dict(zip(G.STATS, st.long().T))
+    out = dict(exact_share=float(st["exact_tests"].sum()) / max(tests, 1),
+               gate_share=float(st["gate_tests"].sum()) / max(tests, 1),
+               batches_median=float(st["batches"].float().median()),
+               batches_max=int(st["batches"].max()),
+               unbounded_max=int(st["unbounded"].max()),
+               live_median=float(st["live"].float().median()))
+    text = (f"exact tests {out['exact_share']:.2%} of the chain's {tests} "
+            f"(gate tests {out['gate_share']:.2%}), batches median "
+            f"{out['batches_median']:.0f} max {out['batches_max']}, "
+            f"unbounded max {out['unbounded_max']}, live median "
+            f"{out['live_median']:.0f}")
+    return out, text
+
+
 def phase_merge(dev, stats):
+    import torch
     from phdslam_tpu_torch.kernels import _build
     G = _mods()[2]
     t0 = time.perf_counter()
     _new_stats(stats, "merge")
     lib, _ = _build.library()
-    log(f"merge: {lib.phd_merge_ctas_per_sm(MERGE_CASES[0][1])} CTAs per "
-        f"SM at K = {MERGE_CASES[0][1]}")
-    for i, (P, K, cap, metric, sep) in enumerate(MERGE_CASES + MERGE_TIES):
-        pool = random_pool(P, K, 10 + i, dev)
-        if i >= len(MERGE_CASES):
-            pool[0] = tie_weights(pool[0], i)
-        kern = G.merge_cuda(*pool, sep, cap, metric)
+    for K in (MERGE_CASES[0][1], MERGE_CASES[1][1]):
+        log(f"merge: {lib.phd_merge_ctas_per_sm(K)} CTAs per SM at K = {K}")
+    stats["merge"]["gate"] = {}
+    for i, (kind, pool, (sep, cap, metric)) in enumerate(merge_cases(dev)):
+        P, K = pool[0].shape
+        counts = torch.zeros((P, len(G.STATS)), dtype=torch.int32,
+                             device=dev)
+        kern = G.merge_cuda(*pool, sep, cap, metric, stats=counts)
         plain = G.merge_plain(*pool, sep, cap, metric)
-        n_bad, err = compare_rows(kern, plain)
+        bad, errs = differing_rows(kern, plain)
+        n_bad = int(bad.sum())
+        err = float(errs[~bad].max()) if n_bad < P else 0.0
         _err(stats, "merge", err)
-        log(f"merge [{P}, {K}] -> {cap} metric {metric}: particles "
-            f"differing {n_bad}/{P}, max_abs_err {err:.3e}, live slots "
-            f"{int((plain[0] > 0).sum(1).max())} max")
-        _limit(n_bad, P, f"merge metric {metric}")
+        if n_bad and kind == "finite_outliers":
+            # degenerate covariances: rounding decides their near tests,
+            # and float64 has to side with the kernel where it differs
+            by_kern, _ = float64_sides(kern, plain, bad, G.merge_plain, pool,
+                                       dict(min_separation=sep, max_out=cap,
+                                            metric=metric))
+            log(f"merge ({kind}): {n_bad}/{P} particles differ from the "
+                f"plain version, float64 agrees with the kernel on "
+                f"{by_kern}")
+            n_bad -= by_kern
+        tests = merge_tests(pool, sep, cap, metric)
+        gate, text = gate_line(counts, tests)
+        what = f"merge [{P}, {K}] -> {cap} metric {metric} ({kind})"
+        stats["merge"]["gate"][what] = gate
+        log(f"{what}: particles differing {n_bad}/{P}, max_abs_err "
+            f"{err:.3e}, live slots {int((plain[0] > 0).sum(1).max())} max; "
+            f"gate: {text}")
+        _limit(n_bad, P, f"merge metric {metric} ({kind})")
+        if kind not in ("random", "ties"):
+            bit_identical(lambda: G.merge_cuda(*pool, sep, cap, metric),
+                          what)
+        if kind == "course":        # the cells' widths
+            ms = cuda_ms(lambda: G.merge_cuda(*pool, sep, cap, metric), 5)
+            log(f"{what}: {ms:.4f} ms")
         if i == 0:                  # the dense pool
             bit_identical(lambda: G.merge_cuda(*pool, sep, cap, metric),
                           f"merge [{P}, {K}] -> {cap}")
@@ -1001,12 +1092,11 @@ def phase_merge(dev, stats):
                                                      metric), 5),
                      plain_ms=cuda_ms(lambda: G.merge_plain(
                          *pool, sep, cap, metric), 2), library_ms=None)
-            tests = merge_tests(pool, sep, cap, metric)
-            bound(stats, "merge", 4 * 6 * P * (K + cap),
-                  tests * MERGE_TEST_OPS)
+            bound(stats, "merge", 4 * 6 * P * (K + cap), merge_ops(counts))
             log(f"merge timing [{P}, {K}] -> {cap}: {s['ms']:.3f} ms "
                 f"(plain {s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} "
-                f"ms by {s['bound_by']}, {tests} candidate tests)")
+                f"ms by {s['bound_by']}, the kernel's gate and exact tests; "
+                f"the chain's {tests} candidate tests)")
     log(f"phase merge: ok ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -4426,6 +4516,7 @@ def config5_kernels(tm, what):
     each timed (CUDA events) beside its bound, counted as PERF.md section
     6 counts it. Returns {kernel: dict(ms, bound_ms, bound_by, max_abs_err,
     shape)}."""
+    import torch
     S, G = _mods()[0], _mods()[2]
     out = {}
     t = tm["select"]
@@ -4456,7 +4547,10 @@ def config5_kernels(tm, what):
     bit_identical(lambda: t.orig(*a, **kw),
                   f"merge [{P}, {K}] -> {cap} ({what})")
     tests = merge_tests(pool, sep, cap, metric)
-    b_ms, by = bound_ms(4 * 6 * P * (K + cap), tests * MERGE_TEST_OPS)
+    counts = torch.zeros((P, len(G.STATS)), dtype=torch.int32,
+                         device=pool[0].device)
+    t.orig(*pool, sep, cap, metric, stats=counts)
+    b_ms, by = bound_ms(4 * 6 * P * (K + cap), merge_ops(counts))
     out["merge"] = dict(
         ms=cuda_ms(lambda: t.orig(*a, **kw), 5), bound_ms=b_ms,
         bound_by=by, max_abs_err=err, differing=n_bad,

@@ -3,6 +3,10 @@
 // in the neighbour test and the number of moment sums. All three run the
 // presorted design below (presort, stage, pick_loop, moments), each with
 // its own Test and Acc, and allow_smem_max / ctas_per_sm on the host.
+// merge.cu alone takes the chain otherwise, on pools that leave room for
+// its tables: its gated chain (merge.cu's header) gives pick_loop's picks
+// and owners in batches of up to 32 with a reach gate before each exact
+// test. merge.cu's wider pools, merge3.cu and merge4.cu run pick_loop.
 
 #pragma once
 

@@ -47,7 +47,7 @@ SIGNATURES = {
     + [_I, _I, _I, _I, _I, _I, _P, _P],
     "phd_select_wide_floats": [_I, _I],
     "phd_merge_launch": [_P] * 6 + [_P] * 6
-    + [_I, _I, _I, _F, _I, _P, _P],
+    + [_I, _I, _I, _F, _I, _P, _P, _P],
     "phd_merge4_launch": [_P] * 3 + [_P] * 3 + [_I, _I, _I, _F, _P, _P],
     "phd_merge3_launch": [_P] * 10 + [_P] * 10 + [_I, _I, _I, _F, _P, _P],
     "phd_merge_wide_floats": [_I, _I],

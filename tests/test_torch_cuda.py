@@ -555,6 +555,8 @@ def _edge_weights(w):
     (9, 97, 5, 0, 4.0),             # cap reached before the weight runs out
     (9, 97, 200, 0, 4.0),           # the weight runs out before cap
     (9, 97, 200, 1, 0.6),
+    (4, 7609, 300, 0, 5.0),         # the gated chain's widest K
+    (4, 7610, 300, 0, 5.0),         # pick_loop in shared memory from here
     (4, 7744, 300, 0, 5.0),         # the widest K: 227 KB of shared memory
 ])
 def test_merge_kernel_edge_pools(dev, P, K, cap, metric, sep):
@@ -575,6 +577,43 @@ def test_merge_kernel_edge_pools(dev, P, K, cap, metric, sep):
         assert bool((n_live == cap).any())
     if cap >= K:
         assert bool((n_live < cap).all())
+
+
+@pytest.mark.parametrize("kind,P,K,cap,metric,sep", [
+    ("course", 6, 1088, 512, 0, 5.0),
+    ("chain", 6, 400, 300, 0, 5.0),
+    ("outliers", 6, 500, 200, 0, 5.0),
+    ("outliers", 6, 500, 200, 1, 0.6),
+    ("random", 6, 7609, 300, 0, 5.0),   # the gated chain's widest pool
+    ("random", 6, 7610, 300, 0, 5.0),   # pick_loop in shared memory
+    ("random", 6, 7745, 300, 0, 5.0),   # the device-memory pool
+])
+def test_merge_kernel_counts_its_chain(dev, kind, P, K, cap, metric, sep):
+    """The stats pointer: the kernel's batches, exact tests, unbounded and
+    live candidates and slots are gated_owners' (tests/merge_pools.py's
+    pools), the gate tests at least the exact ones; where the pool leaves
+    no room for the gated chain's tables (K > 7609), pick_loop runs and
+    the four chain counts read -1. A launch with stats writes the outputs
+    of one without."""
+    import merge_pools as MP
+    pool = [torch.as_tensor(a, device=dev) for a in MP.POOLS[kind](P, K, K)]
+    stats = torch.zeros((P, len(G.STATS)), dtype=torch.int32, device=dev)
+    kern = G.merge_cuda(*pool, sep, cap, metric, stats=stats)
+    plain = G.merge_cuda(*pool, sep, cap, metric)
+    want = G.gated_owners(*(a.cpu() for a in pool), sep, cap, metric)[2]
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    got = stats.cpu().long()
+    col = lambda t, name: t[:, G.STATS.index(name)]
+    for name in ("live", "slots"):
+        assert torch.equal(col(got, name), col(want, name)), name
+    for name in ("batches", "gate_tests", "exact_tests", "unbounded"):
+        if K > 7609:                    # pick_loop ran
+            assert bool((col(got, name) == -1).all()), name
+        elif name != "gate_tests":
+            assert torch.equal(col(got, name), col(want, name)), name
+    assert bool((col(got, "gate_tests") >= col(got, "exact_tests")).all())
 
 
 def _degenerate_cov4(cov, seed):
