@@ -174,9 +174,15 @@ code is not 0:
      with map_estimate 3 and --mat-export (particlesXXXXX.mat with the
      MAP and EAP maps, the logs holding the EAP map)
   7. dense step - 8192 x 512 x 64 (the static cfg at bench.py's dense
-     shape and stress stream): 3 warm-up steps, 16 timed with CUDA events,
-     split into pre-update and glue, select and merge; then both kernels
-     against their plain versions on the last step's own inputs
+     shape and stress stream), from make_problem's map (three quarters of
+     the slots live), in each of five modes (exact; select_by_index 1;
+     merge_mode 1; merge_mode 1 with select_top_k 2; merge_mode 1 with
+     select_by_index 1): 3 warm-up steps, 16 timed with CUDA events, split
+     into pre-update and glue, select and merge; select at k1 = 8, 8, 4,
+     2, 4 (by index where asked, the static update gathering its picks)
+     and merge on pools of 1088, 1088, 832, 704 and 832 candidates holding
+     live map components, both against their plain versions on the last
+     step's own inputs
   8. dense mixed step - cfg/mixed_synth.cfg with the same overrides and
      stream: the same timing, split into glue, select, select4, merge and
      merge4, then the four kernels against plain on the last step's inputs
@@ -251,18 +257,6 @@ code is not 0:
      phase 3's run, loop and scan: every file of phase 9c's one-card run
      byte for byte (metrics.jsonl apart from its ms, loopTime.log a line
      a step), select and merge once a step in each rank
- 9e. the measuring entry points, each with the launch counts from 0:
-     python3 -m phdslam_tpu_torch.bench as a user runs it (its JSON line:
-     metric ms_per_slam_step_8192p_cuda, the three modes' ms per step,
-     vs_baseline from the pinned CPU anchor; select and merge once a
-     step), then python3 -m phdslam_tpu_torch.stage_profile at both
-     shapes (its stage lines and JSON line; select, select by index,
-     select4, merge, merge4, merge3 and esf launched); then the dense
-     step of each of the bench's modes (exact; merge_mode 1; merge_mode 1
-     with select_top_k 2) through phase 7's timing: select at k1 = 8, 4,
-     2 and merge on pools of 1088, 832 and 704 candidates, both against
-     plain on the last step's inputs; python3 -m phdslam_tpu_torch.bench
-     --quick (512 x 128) as a user runs it, its JSON line
  9f. the evidence entry points (phdslam_tpu_torch/evidence/), each as a
      user runs it (main(argv), --device cuda, the results into a temporary
      file) with the launch counts from 0: round3's phases vmap, merge,
@@ -481,12 +475,13 @@ CUMSUM_SIZES, CUMSUM_CALLS = (8192, 32768, 65536, 262144), 100
 # the dense sharded disparity step's steps (phase 9d); the constant-velocity
 # card steps before the compared one (phase 9h)
 MESH_DISP_STEPS, CV_STEPS = 3, 20
-# the measuring entry points (phase 9e): the stage profile's stage count
-# (10 at each of its 2 shapes, and the disparity step) and the kernels its
-# stages launch
-PROFILE_STAGES = 21
-PROFILE_KERNELS = ("select", "select_by_index", "select4", "merge",
-                   "merge4", "merge3", "esf", "preupdate")
+# the dense static step's modes (phase 7): name, cfg overrides and the
+# select's k1 they give; the merge's pool is F + M (k1 + 1) candidates
+DENSE_MODES = (("exact", {}, 8), ("index sel", dict(selectByIndex=True), 8),
+               ("fast merge", dict(mergeMode=1), 4),
+               ("fast merge, k2", dict(mergeMode=1, selectTopK=2), 2),
+               ("fast merge, index sel",
+                dict(mergeMode=1, selectByIndex=True), 4))
 # NVIDIA H100 SXM data sheet, at a 700 W power limit: float32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -3164,13 +3159,35 @@ def phase_fastslam_runner(dev, stats):
 
 # ------------------------------------------------ phases 7-9: dense steps --
 
+def make_stress_inputs(cfg, n_steps, seed=0):
+    """The JAX package's bench.py stress stream: clutter-heavy measurements
+    (90 % of the slots hold uniform clutter every step) and wandering
+    controls. (rb [T, M, 2], valid [T, M], controls [T, 2]), numpy."""
+    rng = np.random.default_rng(seed)
+    m = cfg.maxMeasurements
+    rb = np.zeros((n_steps, m, 2), np.float32)
+    valid = np.zeros((n_steps, m), bool)
+    k = int(m * 0.9)
+    rb[:, :k, 0] = rng.uniform(0.5, cfg.maxRange, (n_steps, k))
+    rb[:, :k, 1] = rng.uniform(-cfg.maxBearing, cfg.maxBearing, (n_steps, k))
+    valid[:, :k] = True
+    controls = np.zeros((n_steps, 2), np.float32)
+    controls[:, 0] = 1.5
+    controls[:, 1] = 0.1 * np.sin(np.arange(n_steps) / 10.0)
+    return rb, valid, controls
+
+
+def dense_overrides(cfg):
+    """The scene of the dense-stress config (the shape apart): the robot
+    on the x axis, a low birth weight, clutter 50."""
+    return cfg.replace(y0=0.0, birthWeight=1e-3, clutterRate=50.0)
+
+
 def stress_cfg(shape, dense=True, cfg_file="cfg/ackerman_synth.cfg",
                **overrides):
-    """A shipped cfg at a shape; dense adds the benchmark's dense-stress
-    scene (phdslam_tpu_torch.bench.dense_overrides), then the given cfg
-    overrides."""
+    """A shipped cfg at a shape; dense adds the dense-stress scene
+    (dense_overrides), then the given cfg overrides."""
     from phdslam_tpu_torch import load_config
-    from phdslam_tpu_torch.bench import dense_overrides
     cfg = load_config(str(ROOT / cfg_file)).replace(
         n_particles=shape["P"], maxFeatures=shape["F"],
         maxMeasurements=shape["M"])
@@ -3180,9 +3197,8 @@ def stress_cfg(shape, dense=True, cfg_file="cfg/ackerman_synth.cfg",
 
 
 def stress_stream(cfg, n_steps, dev):
-    """The benchmark's stress stream (phdslam_tpu_torch.bench.
-    make_stress_inputs) as Measurements on dev, and the controls."""
-    from phdslam_tpu_torch.bench import make_stress_inputs
+    """The stress stream (make_stress_inputs) as Measurements on dev, and
+    the controls."""
     from phdslam_tpu_torch.filter.state import Measurements
     rb, valid, controls = make_stress_inputs(cfg, n_steps)
     label = np.zeros((cfg.maxMeasurements,), np.int32)
@@ -3258,28 +3274,68 @@ def timed_steps(stats, state, step, warmup, what, shape, tm=None,
     return state, step_ms
 
 
-def dense_run(dev, stats, cfg_file, what):
-    _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev,
-                                    cfg_file=cfg_file)
+def dense_run(dev, stats, cfg_file, what, tm=None, live_map=False,
+              **overrides):
+    """timed_steps over the dense stress stream; live_map starts the static
+    map from tests/merge_pools.make_problem's (three quarters of the slots
+    live) in place of an empty one. Returns (ms/step, the most live static
+    map slots of a particle after the last step)."""
+    cfg, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev,
+                                      cfg_file=cfg_file, **overrides)
+    if live_map:
+        _cases()
+        import merge_pools
+        _, gm, _ = merge_pools.make_problem(np.random.default_rng(1), cfg,
+                                            DENSE["P"], DENSE["F"],
+                                            DENSE["M"], dev)
+        state = state.replace(map_static=gm)
     state, step_ms = timed_steps(stats, state, step, WARMUP, what,
-                                 f"{DENSE['P']}x{DENSE['F']}x{DENSE['M']}")
+                                 f"{DENSE['P']}x{DENSE['F']}x{DENSE['M']}",
+                                 tm)
     live = int((state.map_static.w > 0).sum(1).max())
     live4 = int((state.map_dynamic.w > 0).sum(1).max()) \
         if state.map_dynamic.w.shape[1] else 0
     log(f"{what}: max live map slots {live} static, {live4} dynamic")
-    return step_ms
+    return step_ms, live
 
 
 def phase_dense(dev, stats, gpu):
+    """The dense static step in each of DENSE_MODES from a live map (the
+    fast merge's own map stays empty on the stress stream): its select's
+    k1 and by-index flag and its merge's pool checked, the merge's input
+    holding live map components, both kernels held against plain on the
+    last step's inputs (timed_steps); then the dense mixed step."""
     t0 = time.perf_counter()
-    stats["dense_ms_per_step"] = dense_run(dev, stats,
-                                           "cfg/ackerman_synth.cfg",
-                                           "dense step")
+    P, F, M = DENSE["P"], DENSE["F"], DENSE["M"]
+    for name, over, k1 in DENSE_MODES:
+        what = f"dense step, {name}" if over else "dense step"
+        pool = F + M * (k1 + 1)             # map, detections, births
+        tm = timers()
+        ms, live = dense_run(dev, stats, "cfg/ackerman_synth.cfg", what, tm,
+                             live_map=True, **over)
+        (sel_a, sel_kw), (mrg_a, _) = (tm["select"].last_args,
+                                       tm["merge"].last_args)
+        got = (tm["select"].last_out[1].shape[-1],
+               sel_kw.get("by_index", False), mrg_a[0].shape[1])
+        want = (k1, over.get("selectByIndex", False), pool)
+        if got != want:
+            raise RuntimeError(f"{what}: k1, by index and merge pool {got}, "
+                               f"expected {want}")
+        live_in = int((mrg_a[0][:, :F] > 0).sum(1).max())
+        if not live or not live_in:
+            raise RuntimeError(f"{what}: the map emptied (live slots "
+                               f"{live} after, {live_in} into the merge)")
+        log(f"{what} on {gpu}: {ms:.3f} ms, select k1 {k1}"
+            f"{' by index' if want[1] else ''}, merge pool [{P}, {pool}] "
+            f"-> {F} with up to {live_in} live map components, both "
+            f"against plain")
+        stats.setdefault("dense_mode_ms", {})[name] = ms
+    stats["dense_ms_per_step"] = stats["dense_mode_ms"]["exact"]
     log(f"phase dense: ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    stats["dense_mixed_ms_per_step"] = dense_run(dev, stats,
-                                                 "cfg/mixed_synth.cfg",
-                                                 "dense mixed step")
+    stats["dense_mixed_ms_per_step"], _ = dense_run(dev, stats,
+                                                    "cfg/mixed_synth.cfg",
+                                                    "dense mixed step")
     log(f"dense timing on {gpu}: static step "
         f"{stats['dense_ms_per_step']:.3f} ms, mixed step "
         f"{stats['dense_mixed_ms_per_step']:.3f} ms")
@@ -3436,7 +3492,6 @@ def phase_sync_free_batch(dev, stats):
     CPHD arms: the three steps, after a warm-up pass, under sync_free."""
     import torch
     from phdslam_tpu_torch import load_config
-    from phdslam_tpu_torch.bench import make_stress_inputs
     from phdslam_tpu_torch.filter.state import Measurements, SlamState
     from phdslam_tpu_torch.filter.step import slam_step
     t0 = time.perf_counter()
@@ -3474,7 +3529,7 @@ def phase_sync_free_batch(dev, stats):
 
 def island_stepper(shape, n_steps, dev, n_islands, thresh, mesh=None):
     """(cfg, state, step(state, t), run) of the island step: the static
-    cfg at a shape with bench.py's dense overrides on the stress stream,
+    cfg at a shape with dense_overrides' scene on the stress stream,
     as stress_stepper's; run holds the island log-weights and the last
     IslandAux; step returns the state and an object whose neff is the
     island nEff (timed_steps reads it); with a mesh, across its ranks (the
@@ -4183,117 +4238,6 @@ def phase_mesh(dev, stats, gpu, run_dir):
     log(f"phase mesh: ok ({time.perf_counter() - t0:.1f} s)")
 
 
-# --------------------------------- phase 9e: the measuring entry points --
-
-def finite_positive(values, what):
-    bad = {k: v for k, v in values.items()
-           if not (np.isfinite(v) and v > 0)}
-    if bad:
-        raise RuntimeError(f"{what}: not a finite positive time: {bad}")
-
-
-def phase_bench(dev, stats, gpu):
-    """The port's measuring entry points as a user runs them, each with
-    every launch count set to 0 just before and read just after: bench.main
-    in full (three modes x 5 windows at the dense shape; the pinned CPU
-    anchor) and stage_profile.main at both shapes. Then the stage profile
-    once more under the timers, every kernel of each stage held against
-    plain on that stage's last inputs; and one timed_steps round of each of
-    the bench's modes, which holds select (k1 8, 4, 2) and merge (pools
-    1088, 832, 704) against plain on the last step's own inputs."""
-    from contextlib import ExitStack
-
-    import torch
-
-    from phdslam_tpu_torch import bench, stage_profile
-    t0 = time.perf_counter()
-    zero_launch_counts()
-    rec = bench.main([])
-    launches = launch_counts()
-    n = len(bench.MODES) * (bench.WARMUP + bench.WINDOWS
-                            * (bench.N_STEPS - bench.WARMUP))
-    check_launches(launches, dict(select=n, merge=n, preupdate=n), "bench")
-    log("bench launches: " + ", ".join(
-        f"{k} {v}" for k, v in launches.items() if v))
-    P = bench.dense_stress_config().n_particles
-    if (rec["metric"] != f"ms_per_slam_step_{P}p_cuda"
-            or rec["cpu_anchor"] != "pinned"
-            or rec["device"] != torch.cuda.get_device_name(0)):
-        raise RuntimeError(f"bench line: {rec}")
-    finite_positive({k: rec[k] for k in ("value", "ms_fast_merge",
-                                         "ms_fast_k2", "vs_baseline")},
-                    "bench")
-    stats["bench"] = rec
-    log(f"phase bench main: ok ({time.perf_counter() - t0:.1f} s)")
-
-    t0 = time.perf_counter()
-    zero_launch_counts()
-    rec = bench.main(["--quick"])
-    launches = launch_counts()
-    check_launches(launches, dict(select=n, merge=n, preupdate=n),
-                   "bench --quick")
-    if (rec["metric"] != "ms_per_slam_step_512p_cuda"
-            or rec["device"] != torch.cuda.get_device_name(0)):
-        raise RuntimeError(f"bench --quick line: {rec}")
-    finite_positive({k: rec[k] for k in ("value", "ms_fast_merge",
-                                         "ms_fast_k2", "vs_baseline")},
-                    "bench --quick")
-    stats["bench_quick"] = rec
-    log(f"phase bench --quick: ok ({time.perf_counter() - t0:.1f} s; "
-        f"the CPU anchor {rec['cpu_anchor']})")
-
-    t0 = time.perf_counter()
-    zero_launch_counts()
-    prof = stage_profile.main([])
-    launches = launch_counts()
-    log("stage profile launches: " + ", ".join(
-        f"{k} {v}" for k, v in launches.items() if v))
-    missing = [k for k in PROFILE_KERNELS if not launches[k]]
-    if missing or len(prof["stages"]) != PROFILE_STAGES:
-        raise RuntimeError(f"stage profile: kernels never launched "
-                           f"{missing}, {len(prof['stages'])} stages")
-    finite_positive(prof["stages"], "stage profile")
-    stats["stage_profile"] = prof
-    log(f"phase stage profile: ok ({time.perf_counter() - t0:.1f} s)")
-
-    t0 = time.perf_counter()
-    tm, held = timers(), set()
-
-    def hold(name):
-        held.update(agree_on_last_args(tm, stats, f"stage profile {name}"))
-        for t in tm.values():
-            t.last_args = t.last_out = None
-
-    with ExitStack() as stack:
-        for t in tm.values():
-            stack.enter_context(t)
-        stage_profile.profile_stages(dev, reps=1, log=lambda s: None,
-                                     after=hold)
-    missing = set(PROFILE_KERNELS) - held
-    if missing:
-        raise RuntimeError(f"stage profile: never held against plain "
-                           f"{sorted(missing)}")
-    log(f"phase stage profile against plain: ok "
-        f"({time.perf_counter() - t0:.1f} s)")
-
-    t0 = time.perf_counter()
-    shape = f"{DENSE['P']}x{DENSE['F']}x{DENSE['M']}"
-    for (name, over), k1 in zip(bench.MODES, (8, 4, 2)):
-        pool = DENSE["F"] + DENSE["M"] * (k1 + 1)   # map, detections, births
-        _, state, step = stress_stepper(DENSE, WARMUP + TIMED, dev, **over)
-        tm = timers()
-        _, ms = timed_steps(stats, state, step, WARMUP,
-                            f"bench {name} step", shape, tm)
-        got = (tm["select"].last_out[1].shape[-1],
-               tm["merge"].last_args[0][0].shape[1])
-        if got != (k1, pool):
-            raise RuntimeError(f"bench {name} step: k1 and merge pool {got},"
-                               f" expected {(k1, pool)}")
-        log(f"bench {name} step on {gpu}: {ms:.3f} ms, select k1 {k1}, "
-            f"merge pool [{DENSE['P']}, {pool}] -> {DENSE['F']}")
-    log(f"phase bench modes: ok ({time.perf_counter() - t0:.1f} s)")
-
-
 # ---------------------------------------------- phase 9f: the evidence --
 
 # the evidence entry points (phdslam_tpu_torch/evidence/), each run as a
@@ -4978,7 +4922,7 @@ def main(argv=None):
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
-    from phdslam_tpu_torch.bench import gpu_line
+    from phdslam_tpu_torch.evidence.common import gpu_line
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     gpu = gpu_line()
@@ -5029,7 +4973,6 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as d:
         phase_island_runner(dev, stats, d)
         phase_mesh(dev, stats, gpu, d)
-    phase_bench(dev, stats, gpu)
     with tempfile.TemporaryDirectory() as d:
         phase_evidence(dev, stats, d)
     phase_config5(dev, stats, gpu)

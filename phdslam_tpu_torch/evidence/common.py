@@ -1,6 +1,6 @@
-"""What the evidence entry points share: their flags, the device, the
-results file, the Monte-Carlo scenario and config of
-``scripts/round3_evidence.py`` and the late-half statistics.
+"""What the evidence entry points share: their flags, the device and the
+card's ``nvidia-smi`` line, the results file, the Monte-Carlo scenario and
+config of ``scripts/round3_evidence.py`` and the late-half statistics.
 
 An entry point with a NumPy CPU reference leg runs it in this process
 after its GPU legs, as the JAX scripts do, so that no timed leg shares the
@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -65,12 +66,28 @@ def resolve_device(name: str):
     return dev
 
 
+def gpu_line():
+    """nvidia-smi's "name, power.limit" of the first card, as it prints
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def power_limit_w(line):
+    """The watts of gpu_line()'s power limit ("..., 700.00 W")."""
+    return float(line.rsplit(",", 1)[1].split()[0])
+
+
 def device_fields(dev) -> dict:
     """``device`` and ``power_limit_w`` of an entry: nvidia-smi's name and
     power limit of the card, or "cpu" and None."""
     if dev.type != "cuda":
         return dict(device="cpu", power_limit_w=None)
-    from phdslam_tpu_torch.bench import gpu_line, power_limit_w
     line = gpu_line()
     return dict(device=line.rsplit(",", 1)[0].strip(),
                 power_limit_w=power_limit_w(line))

@@ -189,15 +189,6 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
     )
 
 
-def pool_merge_static_sel(gm: Gaussian2DMixture, pre: PreUpdate, w_nd, sel,
-                          w_birth, z_rb, pose, cfg) -> Gaussian2DMixture:
-    """Prune, pool and merge into the new static map (``_pool_merge_static_
-    sel`` of ``phdslam_tpu/filter/update4.py``; the static update runs the
-    same two steps, ``pool_static_sel`` then ``merge_pool``)."""
-    return merge_pool(pool_static_sel(gm, pre, w_nd, sel, w_birth, z_rb,
-                                      pose, cfg), gm.w.shape[1], cfg)
-
-
 def pool_static_sel(gm: Gaussian2DMixture, pre: PreUpdate, w_nd, sel,
                     w_birth, z_rb, pose, cfg):
     """The pruned candidate pool as six [P, F + M k1 + M] channels (w, mx,

@@ -29,9 +29,8 @@ from phdslam_tpu_torch.config import DYNAMIC_MEASUREMENT, STATIC_MEASUREMENT
 from phdslam_tpu_torch.filter.runs import rows
 from phdslam_tpu_torch.filter.state import Gaussian4DMixture
 from phdslam_tpu_torch.filter.update import (gather_selected,
-                                             kalman_preupdate, n_valid_of)
-from phdslam_tpu_torch.filter.update import \
-    pool_merge_static_sel as _pool_merge_static_sel
+                                             kalman_preupdate, merge_pool,
+                                             n_valid_of, pool_static_sel)
 from phdslam_tpu_torch.kernels import _build, merge4, select, select4
 from phdslam_tpu_torch.models.measurement import (predict_measurement,
                                                   range_class)
@@ -417,9 +416,11 @@ def phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid, cfg,
               - cfg.clutterRate)
 
     scale = (1.0 / normalizer)[:, :, None]
-    gm2_out = _pool_merge_static_sel(gm2, pre2, w_nd2,
-                                     (e_sel2 * scale, *sel2), w_b2, z_rb,
-                                     pose, cfg)
+    # the static map, pooled and merged as the static update does it
+    # (phdslam_tpu/filter/update4.py::_pool_merge_static_sel)
+    gm2_out = merge_pool(pool_static_sel(gm2, pre2, w_nd2,
+                                         (e_sel2 * scale, *sel2), w_b2, z_rb,
+                                         pose, cfg), gm2.w.shape[1], cfg)
     gm4_out = _pool_merge_dynamic_sel(gm4, w_nd4,
                                       (e_sel4 * scale, mean_sel4, cov_sel4),
                                       w_b4, z_rb, pose, cfg,

@@ -354,7 +354,7 @@ def main(argv=None):
             path = Path(args[i + 1]).resolve()
             del args[i:i + 2]
             csrc, other = (path, other) if flag == "--csrc" else (csrc, path)
-    from phdslam_tpu_torch.bench import gpu_line
+    from phdslam_tpu_torch.evidence.common import gpu_line
     print(gpu_line(), flush=True)
     if other is not None:
         bad = against(C, other)

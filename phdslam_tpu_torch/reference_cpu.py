@@ -1,9 +1,9 @@
 """CPU reference GM-PHD SLAM: a copy of ``phdslam_tpu/reference_cpu.py``,
 kept identical apart from this docstring and the config import, so that
-both packages' copies compute the same float64 results bit for bit. It is
-the NumPy anchor of the port's ``bench.py`` (``vs_baseline`` when the
-pinned anchor does not match) and, like the original, a dynamic-shape
-implementation of the CUDA algorithm's semantics.
+both packages' copies compute the same float64 results bit for bit. The
+port's evidence entry points run it as their CPU reference leg; like the
+original, it is a dynamic-shape implementation of the CUDA algorithm's
+semantics.
 
 This is the correctness anchor the reference repo lacks (its `scphd_cpu.cpp`
 is an empty stub, src/scphd_cpu.cpp:1-2). It follows the CUDA algorithm's

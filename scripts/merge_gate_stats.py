@@ -109,7 +109,7 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("merge_gate_stats: needs a CUDA device")
-    from phdslam_tpu_torch.bench import gpu_line
+    from phdslam_tpu_torch.evidence.common import gpu_line
     print(gpu_line(), flush=True)
     device = torch.device("cuda", 0)
     out = []

@@ -62,13 +62,14 @@ def main(argv=None):
     import torch
 
     import chip_smoke as C
+    from phdslam_tpu_torch.evidence.common import gpu_line
     from phdslam_tpu_torch.kernels import _build
     from phdslam_tpu_torch.kernels import auction as A
     from phdslam_tpu_torch.ops import ospa as O
 
     dev = torch.device("cuda", 0)
     _build.library()
-    print(f"[{tag}] {C.gpu_line()}", flush=True)
+    print(f"[{tag}] {gpu_line()}", flush=True)
     dense_fastslam(C, dev, tag)
     cell = C.fastslam_cell(dev)
     for _ in range(2):

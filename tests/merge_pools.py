@@ -17,6 +17,10 @@ exact tests, for the proof of its gate.
   to 1e6), covariances too small, near-singular or indefinite, NaN and
   infinite means and covariances, and exact weight ties; from 0 to ~60
   unbounded candidates a particle.
+
+And ``make_problem``: a dense update's inputs (poses, an overlapping
+map, measurements) on a device, whose merge pool tests/test_torch_cuda.py
+merges down.
 """
 
 from __future__ import annotations
@@ -148,6 +152,35 @@ def outlier_pool(P, K, seed, special=True):
                 c01[r, c] = np.nan
         w[r] = np.where(w[r] > 0, np.round(w[r] * 4) / 4 + 0.25, w[r])
     return _f32((w, mx, my, c00, c01, c11))
+
+
+def make_problem(rng, cfg, P, F, M, device):
+    """``scripts/tpu_kernel_check.py::make_problem``'s distributions and
+    shapes, drawn from a numpy Generator: (pose [P, 6], map, measurements);
+    three quarters of the map slots live, the last 3 measurements padding."""
+    import torch
+
+    from phdslam_tpu_torch.filter.state import Gaussian2DMixture, Measurements
+    pose = np.concatenate([rng.uniform(-2, 2, (P, 2)),
+                           rng.uniform(-3, 3, (P, 1)),
+                           np.zeros((P, 3))], axis=1)
+    n_act = F * 3 // 4
+    lim = 0.7 * cfg.maxRange
+    mx = rng.uniform(-lim, lim, (P, F))
+    my = rng.uniform(-lim, lim, (P, F))
+    w = np.where(np.arange(F) < n_act, rng.uniform(0.05, 1.5, (P, F)), 0.0)
+    c00 = rng.uniform(0.05, 2.0, (P, F))
+    c11 = rng.uniform(0.05, 2.0, (P, F))
+    c01 = 0.3 * np.sqrt(c00 * c11) * rng.uniform(-1, 1, (P, F))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    gm = Gaussian2DMixture(w=t(w), mx=t(mx), my=t(my), c00=t(c00),
+                           c01=t(c01), c11=t(c11))
+    z_rb = np.stack([rng.uniform(0.3, 0.95 * cfg.maxRange, M),
+                     rng.uniform(-0.9 * cfg.maxBearing, 0.9 * cfg.maxBearing,
+                                 M)], axis=1)
+    z = Measurements.from_numpy(z_rb, np.zeros((M,), np.int32),
+                                np.arange(M) < M - 3, device)
+    return t(pose), gm, z
 
 
 POOLS = dict(random=random_pool, course=course_pool, chain=chain_pool,

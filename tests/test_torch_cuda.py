@@ -1452,24 +1452,6 @@ def test_sharded_step_on_one_nccl_rank_matches_slam_step(dev, tmp_path):
         mesh.close()
 
 
-def test_bench_and_stage_profile_on_the_card(dev):
-    """The port's measuring entry points on the card: bench_many's three
-    modes at the --quick shape (512 x 128 x 64), one window each, launching
-    select and merge every step; the stage profile at the typical shape
-    (256 x 128 x 32) and its disparity step, every stage a finite time."""
-    from phdslam_tpu_torch import bench as B
-    from phdslam_tpu_torch import stage_profile as SP
-    quick = B.dense_stress_config().replace(n_particles=512, maxFeatures=128)
-    S.launches = G.launches = 0
-    ms = B.bench_many([quick.replace(**over) for _, over in B.MODES], dev,
-                      n_windows=1)
-    assert len(ms) == 3 and all(np.isfinite(m) and m > 0 for m in ms)
-    assert S.launches == G.launches == 3 * B.N_STEPS
-    rec = SP.profile_stages(dev, SP.SHAPES[1:], reps=2, log=lambda s: None)
-    assert len(rec) == 11
-    assert all(np.isfinite(v) and v > 0 for v in rec.values())
-
-
 @pytest.mark.parametrize("d", [2, 3])
 def test_greedy_merge_batch_cuda_matches_cpu(dev, d):
     """ops/gm.py::greedy_merge_batch on CUDA tensors (the merge or merge3
@@ -1495,12 +1477,12 @@ def test_greedy_merge_batch_cuda_matches_cpu(dev, d):
 def _merge_down_pools(dev):
     """Pools whose picks absorb most candidates, so that the pick loop ends
     in a long scan of merged positions: the dense update's own pool on
-    stage_profile.make_problem's overlapping maps (2-D, [8192, 1088] ->
+    merge_pools.make_problem's overlapping maps (2-D, [8192, 1088] ->
     512), and 4-D and 3-D pools of 2048 particles x 1088 and 560
     candidates in boxes a few covariances wide."""
     from phdslam_tpu_torch.filter import update as U
     from phdslam_tpu_torch.kernels.merge3 import PAIRS
-    from phdslam_tpu_torch.stage_profile import make_problem
+    from merge_pools import make_problem
     cfg = load_config("cfg/ackerman_synth.cfg").replace(
         n_particles=8192, maxFeatures=512, maxMeasurements=64,
         clutterRate=40.0, gateBirths=True, gateThreshold=9.0)

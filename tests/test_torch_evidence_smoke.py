@@ -6,6 +6,7 @@ reference leg is named; entries merge into the results file."""
 
 import json
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -141,6 +142,46 @@ def test_merge_json_into_previous(tmp_path):
                        pose_mean=2.0))
 
 
+
+def test_power_limit_parse():
+    assert C.power_limit_w("NVIDIA H100 80GB HBM3, 700.00 W") == 700.0
+
+
+def _nvidia_smi(monkeypatch, returncode, stdout, stderr=""):
+    """subprocess.run answering as nvidia-smi would; records the argv."""
+    calls = []
+
+    def run(argv, **kw):
+        calls.append(argv)
+        return subprocess.CompletedProcess(argv, returncode, stdout, stderr)
+
+    monkeypatch.setattr(C.subprocess, "run", run)
+    return calls
+
+
+def test_gpu_line_takes_the_first_card(monkeypatch):
+    calls = _nvidia_smi(monkeypatch, 0, "NVIDIA H100 80GB HBM3, 700.00 W\n"
+                        "NVIDIA H100 80GB HBM3, 500.00 W\n")
+    assert C.gpu_line() == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert calls == [["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]]
+
+
+def test_gpu_line_raises_when_nvidia_smi_fails(monkeypatch):
+    _nvidia_smi(monkeypatch, 9, "", "No devices were found")
+    with pytest.raises(RuntimeError, match="No devices were found"):
+        C.gpu_line()
+
+
+def test_device_fields_on_a_card(monkeypatch):
+    """A CUDA device's fields: the card's name and its power limit in
+    watts, split from gpu_line (a torch.device needs no GPU to build)."""
+    monkeypatch.setattr(C, "gpu_line",
+                        lambda: "NVIDIA H100 80GB HBM3, 650.00 W")
+    assert C.device_fields(torch.device("cuda", 0)) == dict(
+        device="NVIDIA H100 80GB HBM3", power_limit_w=650.0)
+    assert C.device_fields(torch.device("cpu")) == dict(
+        device="cpu", power_limit_w=None)
 
 
 def test_out_key_and_overrides():

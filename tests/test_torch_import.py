@@ -61,8 +61,8 @@ def test_import_without_jax():
         "kernels.sweep", "kernels.auction", "filter.fastslam", "ops.jcbb",
         "ops.ospa", "io.matdump", "eval.player", "checkpoint", "eval.batch",
         "eval.plots", "parallel", "parallel.island", "parallel.mesh",
-        "filter.runs", "reference_cpu", "reference_cpu_disparity", "bench",
-        "stage_profile", "evidence", "evidence.common", "evidence.round3",
+        "filter.runs", "reference_cpu", "reference_cpu_disparity",
+        "evidence", "evidence.common", "evidence.round3",
         "evidence.mixed", "evidence.disparity", "evidence.fastslam",
         "evidence.cphd_dwell", "evidence.ospa_latency")}
     assert expected <= set(out["modules"])

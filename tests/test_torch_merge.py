@@ -301,3 +301,16 @@ def test_gated_batches_on_weight_ties():
     picks, owner = TM.greedy_owners(*pool, 5.0, 200, 0)
     gp, go, _ = TM.gated_owners(*pool, 5.0, 200, 0)
     assert torch.equal(gp, picks) and torch.equal(go, owner)
+
+
+def test_make_problem_shapes():
+    """make_problem's draws: three quarters of the slots live, the last 3
+    measurements padding, covariances positive definite."""
+    from phdslam_tpu_torch.config import load_config
+    cfg = load_config("cfg/ackerman_synth.cfg")
+    pose, gm, z = MP.make_problem(np.random.default_rng(1), cfg, 8, 16, 10,
+                                  "cpu")
+    assert pose.shape == (8, 6) and gm.w.shape == (8, 16)
+    assert (gm.w[:, :12] > 0).all() and (gm.w[:, 12:] == 0).all()
+    assert (gm.c00 * gm.c11 - gm.c01 ** 2 > 0).all()
+    assert z.count == 7 and z.rb.shape == (10, 2)

@@ -3,9 +3,12 @@
 against the JAX package's: ``run`` of each copy on the same config (read
 by each package's own ``load_config``), stream and seed returns the same
 float64 poses bit for bit, and every particle ends with the same map. The
-Ackerman runs: bench's stress stream at 8 particles over 4 steps (static,
-CPHD and mixed filters); the disparity run: the first steps of
-``data/disparity_synth/`` at 8 particles."""
+Ackerman runs: the stress stream of ``bench.py`` (chip_smoke.py's copy) at
+8 particles over 4 steps (static, CPHD and mixed filters); the disparity
+run: the first steps of ``data/disparity_synth/`` at 8 particles."""
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,7 +21,9 @@ from phdslam_tpu.io.loaders import load_measurements
 from phdslam_tpu_torch import config as TC
 from phdslam_tpu_torch import reference_cpu as TR
 from phdslam_tpu_torch import reference_cpu_disparity as TRD
-from phdslam_tpu_torch.bench import dense_overrides, make_stress_inputs
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import dense_overrides, make_stress_inputs  # noqa: E402
 
 torch.set_num_threads(1)
 

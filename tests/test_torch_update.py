@@ -219,6 +219,35 @@ def test_phd_update_static_fast_merge_matches_jax(tiny_cfg):
     _check_update(tiny_cfg.replace(mergeMode=1, mergeMinWeight=1e-2))
 
 
+@pytest.mark.parametrize("over, k1", [
+    ({}, 8), (dict(mergeMode=1), 4), (dict(mergeMode=1, selectTopK=2), 2)],
+    ids=["exact", "fast_merge", "fast_merge_k2"])
+def test_phd_update_static_pool_width_per_mode(rng, monkeypatch, over, k1):
+    """The merge takes a pool of F + M (k1 + 1) candidates (the map, k1
+    detection terms a measurement, a birth a measurement) into F slots:
+    k1 = 8 at the exact merge, 4 at merge_mode 1, select_top_k where set."""
+    from phdslam_tpu_torch.config import load_config
+    cfg, chans, pose, z = _problem(
+        load_config("cfg/ackerman_synth.cfg").replace(**over), rng)
+    P, F = chans["w"].shape
+    M = z.shape[0]
+    seen = []
+    real = TU.greedy_merge_channels
+
+    def merge(*a, **kw):
+        seen.append(([c.shape for c in a[:6]], a[7]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TU, "greedy_merge_channels", merge)
+    out = TU.phd_update_static(_t(pose), TG2(**{k: _t(v) for k, v in
+                                               chans.items()}),
+                               _t(z), torch.zeros(M, dtype=torch.int32),
+                               torch.ones(M, dtype=torch.bool), cfg)
+    assert seen == [([(P, F + M * (k1 + 1))] * 6, F)]
+    assert out.w_detect.shape == (P, M, k1)
+    assert out.map_out.w.shape == (P, F)
+
+
 def _check_update(cfg):
     pose, chans, z_rb, z_valid = _setup(cfg)
     jg, tg = _both(chans)
